@@ -1,0 +1,95 @@
+// Block-level helpers shared by the port's CUDA kernels (gp_sample.cu,
+// ipm.cu): warp/block reductions, NaN-propagating min/max (jnp.maximum /
+// jnp.clip semantics, which the plain torch versions reproduce with
+// torch.maximum / torch.minimum), and an in-shared-memory right-looking
+// Cholesky with one __syncthreads() per column.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace sgp {
+
+// NaN-propagating max/min: fmaxf/fminf drop NaN, jnp/torch keep it.
+__device__ __forceinline__ float nmax(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+__device__ __forceinline__ float nmin(float a, float b) {
+  return (a != a || a < b) ? a : b;
+}
+__device__ __forceinline__ float nclip(float x, float lo, float hi) {
+  return nmin(nmax(x, lo), hi);
+}
+
+struct SumOp { __device__ float operator()(float a, float b) const { return a + b; } };
+struct MaxOp { __device__ float operator()(float a, float b) const { return nmax(a, b); } };
+struct MinOp { __device__ float operator()(float a, float b) const { return fminf(a, b); } };
+
+template <class Op>
+__device__ __forceinline__ float warp_reduce(float v, Op op) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Reduce one value per thread over the whole block; every thread gets the
+// result.  `red` is >= 33 floats of shared memory.  Starts and ends with a
+// barrier, so back-to-back calls may share `red`.
+template <class Op>
+__device__ float block_reduce(float v, float* red, Op op, float init) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  v = warp_reduce(v, op);
+  __syncthreads();
+  if (lane == 0) red[w] = v;
+  __syncthreads();
+  if (w == 0) {
+    float x = lane < nw ? red[lane] : init;
+    x = warp_reduce(x, op);
+    if (lane == 0) red[32] = x;
+  }
+  __syncthreads();
+  return red[32];
+}
+
+// In-place lower Cholesky of the n x n matrix whose lower triangle sits in
+// shared memory A (row stride lda); the upper triangle is neither read nor
+// written.  Right-looking, with the next column finalized during the
+// trailing update (look-ahead) so each column costs one barrier; `lbuf`
+// holds 2*n floats (the current and the next column, double-buffered),
+// and a column reaches A one step after it is final, because during its
+// step every thread still reads the previous values of the trailing block.
+// A non-positive pivot yields NaN, which propagates to every later column
+// (callers map non-finite results to their fallback, as the TPU kernels do).
+__device__ void chol_lower(float* A, int n, int lda, float* lbuf) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  __syncthreads();
+  {
+    const float r = 1.0f / sqrtf(A[0]);
+    for (int a = tid; a < n; a += nt) lbuf[a] = A[a * lda] * r;
+  }
+  __syncthreads();
+  for (int j = 0; j < n - 1; ++j) {
+    const float* l = lbuf + (j & 1) * n;
+    float* ln = lbuf + ((j + 1) & 1) * n;
+    const int j1 = j + 1, m = n - j1;
+    const float piv = A[j1 * lda + j1] - l[j1] * l[j1];
+    const float r = 1.0f / sqrtf(piv);
+    for (int a = j + tid; a < n; a += nt) A[a * lda + j] = l[a];
+    for (int e = tid; e < m * m; e += nt) {
+      const int a = j1 + e / m, b = j1 + e % m;
+      if (b > a) continue;
+      if (b == j1) {
+        ln[a] = (a == j1 ? piv : A[a * lda + b] - l[a] * l[b]) * r;
+      } else {
+        A[a * lda + b] = A[a * lda + b] - l[a] * l[b];
+      }
+    }
+    __syncthreads();
+  }
+  const float* l = lbuf + ((n - 1) & 1) * n;
+  for (int a = n - 1 + tid; a < n; a += nt) A[a * lda + n - 1] = l[a];
+  __syncthreads();
+}
+
+}  // namespace sgp

@@ -1,0 +1,190 @@
+"""Batched exact GP conditioning with masked (NaN) observations.
+
+Missing observations are handled by the mask trick
+
+    K~ = m m^T ⊙ (K + Σ_noise) + diag(1 - m),    y~ = m ⊙ y
+
+which leaves masked rows with zero posterior influence at a static shape.
+The real training data never changes during an experiment, so its factor is
+computed once (``factor_real``); SQP iteration 0 predicts from that factor
+alone (``predict_real``) and draws with ``sample_with_overrides``.  This is
+the float64/CPU reference path; the float32 CUDA path runs the fused kernel
+of ``ops/gp_sample.py`` instead.  Functions accept leading batch dimensions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from sampling_gpmpc_torch.gp.kernel import kernel_matrix
+
+
+@dataclasses.dataclass(frozen=True)
+class GPHyperArrays:
+    """Per-output hyperparameters as tensors."""
+
+    lengthscale: torch.Tensor   # (g_ny, D)
+    outputscale: torch.Tensor   # (g_ny,)
+    noise_diag: torch.Tensor    # (Ty,) per-task observation noise (incl. global)
+    jitter: float
+    beta: float
+    variance_is_zero: float
+    min_data_dist: float
+
+    @classmethod
+    def from_spec(cls, gp, device, dtype):
+        tn = np.asarray(gp.task_noises, dtype=np.float64) + gp.noise
+        f = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                                      device=device)
+        return cls(lengthscale=f(gp.lengthscale), outputscale=f(gp.outputscale),
+                   noise_diag=f(tn), jitter=gp.jitter, beta=gp.beta,
+                   variance_is_zero=gp.variance_is_zero,
+                   min_data_dist=gp.min_data_dist)
+
+
+def cholesky_nan(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor; a matrix that is not positive definite gets an
+    all-NaN factor (the JAX convention the callers test for)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info != 0)[..., None, None],
+                       torch.full_like(L, float("nan")), L)
+
+
+def safe_cholesky(A: torch.Tensor, jitter: float) -> torch.Tensor:
+    """Cholesky with escalating-jitter retries (psd_safe_cholesky analog).
+
+    The first attempt uses max(configured jitter, dtype floor); a failed
+    factorization retries with 10x the jitter while that stays within
+    max(1e-3 * mean diagonal, dtype cap).  Batched: every matrix escalates
+    on its own.
+    """
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    mean_diag = torch.diagonal(A, dim1=-2, dim2=-1).mean(-1)
+    if A.dtype == torch.float32:
+        floor, cap = 1e-6, 1e-2
+    else:
+        floor, cap = 1e-14, 1e-4
+    j = torch.full(A.shape[:-2], max(jitter, floor), dtype=A.dtype,
+                   device=A.device)
+    cap = torch.clamp(1e-3 * mean_diag, min=cap)
+    L = cholesky_nan(A + j[..., None, None] * eye)
+    while True:
+        retry = torch.isnan(L).any(-1).any(-1) & (j * 10.0 <= cap)
+        if not bool(retry.any()):
+            return L
+        j = torch.where(retry, j * 10.0, j)
+        L = torch.where(retry[..., None, None],
+                        cholesky_nan(A + j[..., None, None] * eye), L)
+
+
+def _tri(L, B, upper=False):
+    return torch.linalg.solve_triangular(L, B, upper=upper)
+
+
+def factor_real(Z_r, Y_r, hyp_ls, hyp_os, noise_diag, jitter,
+                with_grad: bool) -> dict:
+    """Factor the fixed real-data block for one output.
+
+    Args:
+        Z_r: (M, D) train inputs; Y_r: (M, Ty) observations (NaN = masked).
+    Returns dict with L (R, R), w = L^-1 y~, mask (R,), Linv = L^-1 and
+    alpha = K~^-1 y~ — the last two feed the fused GP kernel.
+    """
+    M, Ty = Y_r.shape
+    y = Y_r.reshape(-1)
+    m = (~torch.isnan(y)).to(Z_r.dtype)
+    y = torch.nan_to_num(y) * m
+    K = kernel_matrix(Z_r, Z_r, hyp_ls, hyp_os, with_grad and Ty > 1)
+    K = K + torch.diag(noise_diag.repeat(M))
+    A = m[:, None] * K * m[None, :] + torch.diag(1.0 - m)
+    L = safe_cholesky(A, jitter)
+    w = _tri(L, y[:, None])[:, 0]
+    Linv = _tri(L, torch.eye(L.shape[0], dtype=L.dtype, device=L.device))
+    alpha = _tri(L.T, w[:, None], upper=True)[:, 0]
+    return {"L": L, "w": w, "mask": m, "Linv": Linv, "alpha": alpha}
+
+
+def predict_real(Xt, Z_r, rf, hyp_ls, hyp_os, with_grad: bool):
+    """Joint posterior from the real-data factor only (empty hall buffer).
+
+    Args:
+        Xt: (..., H, D) test points; Z_r: (M, D); rf: one output's factor.
+    Returns:
+        mean (..., Ht), cov (..., Ht, Ht), point-major.
+    """
+    R = rf["L"].shape[-1]
+    Zb = Z_r.expand(Xt.shape[:-2] + Z_r.shape)
+    Kall = kernel_matrix(Xt, torch.cat([Zb, Xt], dim=-2), hyp_ls, hyp_os,
+                         with_grad)
+    Kx = Kall[..., :R] * rf["mask"]
+    Ktt = Kall[..., R:]
+    V = _tri(rf["L"], Kx.transpose(-1, -2))                  # (..., R, Ht)
+    mean = (V.transpose(-1, -2) @ rf["w"][:, None])[..., 0]
+    cov = Ktt - V.transpose(-1, -2) @ V
+    return mean, 0.5 * (cov + cov.transpose(-1, -2))
+
+
+def posterior_sample(mean, cov, eps, jitter):
+    """Pathwise joint sample: mean + chol(cov) @ eps (ref: agent.py:641)."""
+    L = safe_cholesky(cov, jitter)
+    return mean + (L @ eps[..., None])[..., 0]
+
+
+def prior_task_variances(hyp_ls, hyp_os, Ty: int) -> torch.Tensor:
+    """Prior variance of each task: ``outputscale`` for the value and
+    ``outputscale / ls_d**2`` for gradient d; (..., D) -> (..., Ty)."""
+    os_ = torch.as_tensor(hyp_os)[..., None]
+    return torch.cat([os_, os_ / (hyp_ls * hyp_ls)], dim=-1)[..., :Ty]
+
+
+def sample_with_overrides(Xt, Z, Y, mean, cov, eps, hyp: GPHyperArrays,
+                          Ty_test: int, prior_var=None, dist=None):
+    """Sampling pipeline of the reference's ``sample_gp``
+    (ref: src/agent.py:629-730), batched over leading dimensions.
+
+    Order (must match for parity): pathwise sample -> relative variance
+    floor -> zero-variance points to the mean -> min-dist points copy the
+    nearest train observation -> clip to mean ± beta*std -> non-finite
+    entries to the mean.
+
+    Args:
+        Xt: (..., H, D); Z: (..., M, D); Y: (..., M, Ty) train data.
+        mean (..., Ht), cov (..., Ht, Ht), eps (..., Ht).
+        prior_var: optional (Ty_test,) prior task variances; posterior
+            variances below the dtype's cancellation floor relative to it
+            count as exactly zero.
+        dist: optional precomputed (..., H, M) ||Xt - Z||.
+    Returns:
+        (..., H, Ty_test) sampled values(+gradients).
+    """
+    H = Xt.shape[-2]
+    shape = mean.shape[:-1] + (H, Ty_test)
+    y = posterior_sample(mean, cov, eps, hyp.jitter).reshape(shape)
+    mu = mean.reshape(shape)
+    var = torch.clamp(torch.diagonal(cov, dim1=-2, dim2=-1), min=0.0)
+    var = var.reshape(shape)
+    if prior_var is not None:
+        rel = 1e-5 if mean.dtype == torch.float32 else 1e-12
+        var = torch.where(var < rel * prior_var, torch.zeros_like(var), var)
+    if hyp.variance_is_zero >= 0.0:
+        all_zero = torch.all(var <= hyp.variance_is_zero, dim=-1, keepdim=True)
+        y = torch.where(all_zero, mu, y)
+    if hyp.min_data_dist >= 0.0:
+        if dist is None:
+            dist = torch.linalg.norm(
+                Xt[..., :, None, :] - Z[..., None, :, :], dim=-1)
+        row_invalid = torch.isnan(Y).any(-1)                      # (..., M)
+        dist = torch.where(row_invalid[..., None, :],
+                           torch.full_like(dist, float("inf")), dist)
+        close = torch.any(dist <= hyp.min_data_dist, dim=-1, keepdim=True)
+        nearest = torch.argmin(dist, dim=-1)                      # (..., H)
+        y = torch.where(close, torch.take_along_dim(
+            Y, nearest[..., None], dim=-2), y)
+    std = torch.sqrt(var)
+    y = torch.minimum(torch.maximum(y, mu - hyp.beta * std),
+                      mu + hyp.beta * std)
+    return torch.where(torch.isfinite(y), y, mu)

@@ -1,0 +1,85 @@
+"""Pendulum1D dynamics of the port vs the JAX package (float64, 1e-12: the
+same closed forms) and its analytic Jacobians vs torch.func autodiff."""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sampling_gpmpc_tpu.config import load_problem as jload
+from sampling_gpmpc_tpu.envs import make_env as jmake_env
+from sampling_gpmpc_torch.config import load_problem as tload
+from sampling_gpmpc_torch.envs import make_env as tmake_env
+
+PDIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "params")
+TOL = 1e-12
+
+
+@pytest.fixture(scope="module")
+def envs():
+    path = os.path.join(PDIR, "params_pendulum1D_samples.yaml")
+    jp, js, _ = jload(path)
+    tp, ts, _ = tload(path)
+    return jmake_env(js, jp), tmake_env(ts, tp)
+
+
+def _points(n=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(2.0, 3.7, n), rng.uniform(-2.5, 2.5, n),
+                     rng.uniform(-5, 5, n)], axis=-1)        # (n, nx+nu)
+
+
+def test_dynamics_match_jax(envs):
+    jenv, tenv = envs
+    xu = _points()
+    txu = torch.as_tensor(xu)
+    jxu = jnp.asarray(xu)
+    pairs = [
+        (jax.vmap(jenv.f_val_jac)(jxu), tenv.f_val_jac(txu)),
+        (jax.vmap(jenv.g_val)(jenv.g_inputs(jxu)),
+         tenv.g_val(tenv.g_inputs(txu))),
+        (jax.vmap(jenv.g_prior)(jenv.g_inputs(jxu)),
+         tenv.g_prior(tenv.g_inputs(txu))),
+        (jax.vmap(jenv.B_d)(jxu), tenv.B_d(txu)),
+        (jax.vmap(jenv.discrete_dyn)(jxu[:, :2], jxu[:, 2:]),
+         tenv.discrete_dyn(txu[:, :2], txu[:, 2:])),
+    ]
+    dg = np.random.default_rng(1).normal(size=(xu.shape[0], 1, 3))
+    pairs.append((jax.vmap(jenv.assemble_val_jac)(jxu, jnp.asarray(dg)),
+                  tenv.assemble_val_jac(txu, torch.as_tensor(dg))))
+    for ref, got in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL,
+                                   rtol=TOL)
+
+
+def test_training_grid_matches_jax(envs):
+    jenv, tenv = envs
+    (jX, jY), (tX, tY) = jenv.training_grid(), tenv.training_grid()
+    np.testing.assert_allclose(tX, jX, atol=TOL)
+    np.testing.assert_allclose(tY, jY, atol=TOL)
+
+
+def test_analytic_jacobians_match_autodiff(envs):
+    """f_val_jac's derivative columns and g_prior's gradient entries are
+    the Jacobians of their value columns (torch.func.jacfwd)."""
+    _, tenv = envs
+    for xu in torch.as_tensor(_points(4, seed=2)):
+        J = torch.func.jacfwd(lambda v: tenv.f_val_jac(v)[:, 0])(xu)
+        np.testing.assert_allclose(tenv.f_val_jac(xu)[:, 1:].numpy(),
+                                   J.numpy(), atol=TOL)
+        z = tenv.g_inputs(xu)
+        Jg = torch.func.jacfwd(lambda v: tenv.g_val(v))(z)
+        np.testing.assert_allclose(tenv.g_prior(z)[:, 1:].numpy(),
+                                   Jg.numpy(), atol=TOL)
+
+
+@pytest.mark.parametrize("name", ["params_pendulum", "params_car",
+                                  "params_car_residual"])
+def test_unported_envs_raise(name):
+    params, spec, _ = tload(os.path.join(PDIR, name + ".yaml"))
+    with pytest.raises(NotImplementedError, match="second port slice"):
+        tmake_env(spec, params)
