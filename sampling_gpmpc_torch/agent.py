@@ -169,6 +169,12 @@ def sample_dynamics(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
 
     if oracle_only and not spec.mean_as_dyn_sample:
         return true_rows(Xt[0])[None], gp
+    # CPU tensors take the reference path; CUDA ones the kernel, or raise
+    use_fused = not oracle_only and Xt.device.type != "cpu"
+    if use_fused and spec.mean_as_dyn_sample:
+        raise ValueError("mean_as_dyn_sample: the CUDA GP stage "
+                         "(ops/gp_sample.py) returns samples, not the "
+                         "posterior mean; run this config with device='cpu'")
 
     need_train_set = hyp.min_data_dist >= 0.0
     if need_train_set:
@@ -177,9 +183,6 @@ def sample_dynamics(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
             Xt[:, None, :, None, :] - Z[:, :, None, :, :], dim=-1)
     else:
         Z = Y = dist = None
-    R = gp.real_fact["mask"].shape[-1]
-    use_fused = (not oracle_only
-                 and gp_sample.fused_ok(spec, Xt.dtype, Xt.device, H * Ty, R))
     mean = None
     if use_fused:
         md = None

@@ -5,7 +5,7 @@ with analytic soft-slack elimination, row equilibration, a central-path
 start at the dual scale, a duals-only warm start, best-KKT tracking and a
 Jacobi-preconditioned Cholesky — all load-bearing (see the JAX package's
 ``ocp/qp.py``).  The algorithm lives in ``ops/ipm.py``: two CUDA kernels for
-float32 problems on the GPU, its plain torch version everywhere else.
+problems on the GPU (float32 only), its plain torch version on the CPU.
 """
 
 from __future__ import annotations
@@ -50,20 +50,16 @@ def solve_qp_soft(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
     structure and ``ws_valid`` a bool tensor that enables it (HPIPM's
     ``qp_solver_warm_start`` analog, ref: src/utils/ocp.py:310).
     """
-    nU = g.shape[0]
     dtype = g.dtype
     if tol is None:
         tol = 1e-8 if dtype == torch.float64 else 3e-5
     reg = 1e-13 if dtype == torch.float64 else 1e-7
-    args = (H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu)
-    if ipm.fused_ok(nU, d_h.shape[0], lo_s.shape[0], dtype, g.device):
-        run = ipm.run_full
-        args = tuple(a.contiguous() for a in args)
-        if ws is not None:
-            ws = tuple(a.contiguous() for a in ws)
-    else:
-        run = ipm.run_full_plain
-    best, best_res, it, scale_h, scale_s = run(
+    args = tuple(a.contiguous() for a in (H, g, G_h, d_h, G_s, lo_s, hi_s,
+                                          zl, zu, Zl, Zu))
+    if ws is not None:
+        ws = tuple(a.contiguous() for a in ws)
+    # CPU tensors take the plain solver; CUDA ones the kernels, or raise
+    best, best_res, it, scale_h, scale_s = ipm.run_full(
         *args, ws, ws_valid, tol, reg, max_iter, STALL_ITERS, STALL_RTOL,
         MU_GRIND, WS_BAND)
     return _finish(best, best_res, it, scale_h, scale_s, tol)

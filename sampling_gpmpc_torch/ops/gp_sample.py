@@ -15,7 +15,8 @@ escalating-jitter retry (a failed factorization gives NaN, and NaN samples
 fall back to the mean).
 
 ``sample_empty_one`` runs the plain version for CPU tensors and the CUDA
-kernel (``csrc/gp_sample.cu``) for CUDA tensors; it never falls back.
+kernel (``csrc/gp_sample.cu``) for CUDA tensors; it never falls back: a
+CUDA stage the kernel cannot take raises (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -35,13 +36,17 @@ def smem_bytes(Ht: int, R: int) -> int:
                 + 4 * Ht)
 
 
-def fused_ok(spec, dtype, device, Ht: int, R: int) -> bool:
-    """Gate: does this GP stage run through the kernel wrapper?  float32
-    on CUDA, no posterior-mean sample (it needs the mean returned), and a
-    tile that fits one CTA's shared memory."""
-    return (dtype == torch.float32 and torch.device(device).type == "cuda"
-            and not spec.mean_as_dyn_sample and Ht >= 2 and R >= 1
-            and smem_bytes(Ht, R) <= build.SMEM_MAX)
+def check_supported(Ht: int, R: int, dtype) -> None:
+    """Raise ValueError naming the limit when the kernel cannot take a
+    stage: float32 only, and a tile that fits one CTA's shared memory."""
+    if dtype != torch.float32:
+        raise ValueError(f"gp_sample kernel takes float32 only, got {dtype}; "
+                         "run float64 with device='cpu'")
+    smem = smem_bytes(Ht, R)
+    if Ht < 1 or R < 1 or smem > build.SMEM_MAX:
+        raise ValueError(f"gp_sample: {smem} B of shared memory for Ht={Ht}, "
+                         f"R={R}; one CTA takes 1 <= Ht, 1 <= R and at most "
+                         f"{build.SMEM_MAX} B")
 
 
 def chol_right_looking(A: torch.Tensor) -> torch.Tensor:
@@ -117,6 +122,8 @@ def sample_empty_one(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
         raise ValueError(f"gp_sample: unsupported device {Kxm.device}")
     ns, Ht, R = Kxm.shape
     dev = Kxm.device
+    check_supported(Ht, R, Kxm.dtype)
+    smem = smem_bytes(Ht, R)
     args = [("Kxm", Kxm, (ns, Ht, R)), ("Ktt", Ktt, (ns, Ht, Ht)),
             ("eps", eps, (ns, Ht)), ("Linv", Linv, (R, R)),
             ("alpha", alpha, (R,)), ("prior_var", prior_var, (Ht,))]
@@ -124,10 +131,6 @@ def sample_empty_one(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
         args += [("close", close, (ns, Ht)), ("ynear", ynear, (ns, Ht))]
     for name, t, shape in args:
         build.check_tensor(name, t, shape, dev)
-    smem = smem_bytes(Ht, R)
-    if smem > build.SMEM_MAX:
-        raise ValueError(f"gp_sample: {smem} B of shared memory exceeds "
-                         f"{build.SMEM_MAX} B (Ht={Ht}, R={R})")
     fn = build.load("gp_sample").gp_sample_empty
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [P] * 9 + [I] * 4 + [F] * 4 + [I, P]

@@ -25,8 +25,8 @@ with the soft slacks eliminated analytically, so every Newton system is the
 scale_s)`` — the scaled best iterate ``(u, sl, su, th, lh, tU, lU, tL, lL,
 nl, nu)`` — for ``ocp/qp.py::_finish``.  It runs :func:`run_full_plain` for
 CPU tensors and the two kernels (``csrc/ipm.cu``) for CUDA tensors, never
-falling back.  The plain version is also the solver itself wherever the
-kernels' gate (:func:`fused_ok`) is false: float64, no soft rows, nU > 128.
+falling back: a CUDA problem the kernels cannot take (float64, no soft or
+hard rows, nU > 128) raises, naming the limit (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -42,11 +42,20 @@ LAUNCHES = {"ipm_prepare": 0, "ipm_mehrotra": 0}
 NU_MAX = 128
 
 
-def fused_ok(nU: int, m_h: int, m_s: int, dtype, device) -> bool:
-    """Gate (pallas_ipm.fused_ok): float32 on CUDA, soft rows present, and
-    a Schur matrix small enough for one CTA's shared memory."""
-    return (dtype == torch.float32 and torch.device(device).type == "cuda"
-            and m_s >= 1 and m_h >= 1 and 1 <= nU <= NU_MAX)
+def check_supported(nU: int, m_h: int, m_s: int, dtype) -> None:
+    """Raise ValueError naming the limit when the kernels cannot take a
+    problem (the limits of pallas_ipm.fused_ok): float32 only, hard and soft
+    rows present, and a Schur matrix small enough for one CTA's shared
+    memory."""
+    if dtype != torch.float32:
+        raise ValueError(f"ipm kernels take float32 only, got {dtype}; "
+                         "solve float64 problems with device='cpu'")
+    if not 1 <= nU <= NU_MAX:
+        raise ValueError(f"ipm kernels take 1 <= nU <= {NU_MAX}, got "
+                         f"nU={nU}")
+    if m_h < 1 or m_s < 1:
+        raise ValueError(f"ipm kernels need m_h >= 1 and m_s >= 1, got "
+                         f"m_h={m_h}, m_s={m_s}")
 
 
 # --------------------------------------------------------------------------
@@ -372,9 +381,7 @@ def prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws, ws_valid,
     nU, m_h, m_s = g.shape[0], d_h.shape[0], lo_s.shape[0]
     if dev.type != "cuda":
         raise ValueError(f"ipm_prepare: tensors on {dev}, not CUDA")
-    if not (1 <= nU <= NU_MAX and m_h >= 1 and m_s >= 1):
-        raise ValueError(f"ipm kernels take 1 <= nU <= {NU_MAX}, m_h >= 1, "
-                         f"m_s >= 1; got nU={nU}, m_h={m_h}, m_s={m_s}")
+    check_supported(nU, m_h, m_s, g.dtype)
     for name, t, shape in [("H", H, (nU, nU)), ("g", g, (nU,)),
                            ("G_h", G_h, (m_h, nU)), ("d_h", d_h, (m_h,)),
                            ("G_s", G_s, (m_s, nU))] + [

@@ -9,6 +9,7 @@
 """
 
 import ast
+import dataclasses
 import inspect
 import os
 import subprocess
@@ -84,6 +85,7 @@ def test_entry_points_raise_without_cuda(no_cuda):
     from sampling_gpmpc_torch.config import load_problem
     from sampling_gpmpc_torch.dempc import DEMPC
     from sampling_gpmpc_torch.envs import make_env
+    from sampling_gpmpc_torch import profile_loop
     from sampling_gpmpc_torch.main import main
     from sampling_gpmpc_torch.ocp import sqp
     from sampling_gpmpc_torch.ocp.spec import make_ocp_data
@@ -99,11 +101,19 @@ def test_entry_points_raise_without_cuda(no_cuda):
                  lambda: agent.make_epistemic(spec),
                  lambda: sqp.init_iterate(spec),
                  lambda: sqp.init_qp_ws(spec),
-                 lambda: main(["-param", "params_pendulum1D_samples"])):
+                 lambda: main(["-param", "params_pendulum1D_samples"]),
+                 lambda: profile_loop.main([])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     # an explicit CPU request runs, in float64 by default
     assert setup.resolve("cpu") == (torch.device("cpu"), torch.float64)
+
+
+def test_profile_busy_time_is_the_union_of_spans():
+    """Device busy time counts overlapping or nested intervals once."""
+    from sampling_gpmpc_torch.profile_loop import _intervals_union_us
+    assert _intervals_union_us([]) == 0.0
+    assert _intervals_union_us([(5, 7), (0, 2), (1, 3), (6, 6.5)]) == 5.0
 
 
 def _refuse(*a, **k):
@@ -140,16 +150,36 @@ def test_ipm_wrapper_never_falls_back(monkeypatch):
         assert "try:" not in inspect.getsource(fn)
 
 
-def test_fused_gates_need_cuda_float32():
+def test_fused_gates_need_cuda_float32(monkeypatch):
+    """Off the CPU there is no plain route: what the kernels cannot take
+    raises, naming the limit, and the callers route on the device alone."""
+    from sampling_gpmpc_torch import agent
     from sampling_gpmpc_torch.config import load_problem
+    from sampling_gpmpc_torch.ocp import qp as qp_mod
     _, spec, _ = load_problem(os.path.join(
         ROOT, "params", "params_pendulum1D_samples.yaml"))
-    assert gp_sample.fused_ok(spec, torch.float32, "cuda", 51, 108)
-    assert not gp_sample.fused_ok(spec, torch.float64, "cuda", 51, 108)
-    assert not gp_sample.fused_ok(spec, torch.float32, "cpu", 51, 108)
-    # a tile beyond one CTA's shared memory stays off the kernel
-    assert not gp_sample.fused_ok(spec, torch.float32, "cuda", 60, 300)
-    assert ipm.fused_ok(17, 7174, 70, torch.float32, "cuda")
+    gp_sample.check_supported(51, 108, torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        gp_sample.check_supported(51, 108, torch.float64)
+    # a tile beyond one CTA's shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        gp_sample.check_supported(60, 300, torch.float32)
+    ipm.check_supported(17, 7174, 70, torch.float32)
+
+    # a float64 QP off the CPU reaches the kernel wrapper and raises there
+    monkeypatch.setattr(ipm, "run_full_plain", _refuse)
+    meta = lambda *s: torch.empty(*s, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="not CUDA"):
+        qp_mod.solve_qp_soft(meta(3, 3), meta(3), meta(4, 3), meta(4),
+                             meta(0, 3), *[meta(0) for _ in range(6)])
+    # the posterior-mean sample has no kernel: raise before any tensor work
+    spec_m = dataclasses.replace(spec, mean_as_dyn_sample=True)
+    Xt = torch.empty(spec.ns, spec.H, spec.n_gp_inputs, device="meta")
+    with pytest.raises(ValueError, match="mean_as_dyn_sample"):
+        agent.sample_dynamics(spec_m, None, None, None, Xt, None,
+                              hall_empty=True)
+    for fn in (qp_mod.solve_qp_soft, agent.sample_dynamics):
+        assert "fused_ok" not in inspect.getsource(fn)
 
 
 def test_epistemic_draws_truncated_and_seeded():

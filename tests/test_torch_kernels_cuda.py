@@ -69,7 +69,7 @@ def test_ipm_kernels_match_plain(dev, seed):
             np.full(ms, 2.0), np.full(ms, 5.0), np.full(ms, 4.0)]
     args = [torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
             for a in prob]
-    assert ipm.fused_ok(nU, mh, ms, torch.float32, dev)
+    ipm.check_supported(nU, mh, ms, torch.float32)
     cold = qp_mod.solve_qp_soft(*args)
     kw = (3e-5, 1e-7, 150, qp_mod.STALL_ITERS, qp_mod.STALL_RTOL,
           qp_mod.MU_GRIND, qp_mod.WS_BAND)

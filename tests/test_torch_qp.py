@@ -144,11 +144,15 @@ def test_plain_ipm_warm_start_matches_pallas_interpret(monkeypatch):
 
 
 def test_ipm_gate():
-    assert not ipm.fused_ok(6, 10, 5, torch.float64, "cuda")
-    assert not ipm.fused_ok(6, 10, 0, torch.float32, "cuda")
-    assert not ipm.fused_ok(200, 10, 5, torch.float32, "cuda")
-    assert not ipm.fused_ok(6, 10, 5, torch.float32, "cpu")
-    assert ipm.fused_ok(17, 7174, 70, torch.float32, "cuda")
+    """The kernels' limits (pallas_ipm.fused_ok's) raise, naming the limit;
+    the flagship QP is inside them."""
+    for args, limit in (((6, 10, 5, torch.float64), "float32"),
+                        ((6, 10, 0, torch.float32), "m_s"),
+                        ((6, 0, 5, torch.float32), "m_h"),
+                        ((200, 10, 5, torch.float32), "nU")):
+        with pytest.raises(ValueError, match=limit):
+            ipm.check_supported(*args)
+    ipm.check_supported(17, 7174, 70, torch.float32)
 
 
 def test_condense_forms_match_each_other_and_jax():
