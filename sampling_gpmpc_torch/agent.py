@@ -3,9 +3,10 @@
 Counterpart of ``sampling_gpmpc_tpu/agent.py`` (ref: src/agent.py:18-730).
 The GP state holds the real training data with its factor (computed once)
 and a static-capacity "hallucinated" append buffer whose empty slots sit at
-a far-away input (FAR) with NaN observations.  This slice ports SQP
-iteration 0, whose buffer is empty by construction; conditioning on a
-filled buffer (SQP iterations >= 1) comes with the second port slice.
+a far-away input (FAR) with NaN observations.  SQP iteration 0 runs on an
+empty buffer (by construction) and conditions on the real factor alone;
+later iterations condition each sample on its filled buffer by the block
+Cholesky update of gp/exact.py (the hall-block stage).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from sampling_gpmpc_torch.envs.base import Env
 from sampling_gpmpc_torch.gp import exact
 from sampling_gpmpc_torch.gp.exact import GPHyperArrays
 from sampling_gpmpc_torch.gp.kernel import kernel_matrix
-from sampling_gpmpc_torch.ops import gp_sample
+from sampling_gpmpc_torch.ops import gp_hall, gp_sample
 
 FAR = 1.0e5   # input coordinate of empty hallucination slots
 
@@ -129,13 +130,102 @@ def _fused_sample_empty(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
     return torch.stack(dgs, dim=1)                       # (ns, g_ny, H, Ty)
 
 
+def hall_stage_inputs(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
+                      Xt, eps, j: int) -> dict:
+    """Arguments of ``gp_hall.sample_hall_one`` for GP output j: the masked
+    real, hall and test kernel blocks (plain torch, as the JAX package
+    leaves them to XLA; empty and filtered hall rows get zero couplings
+    and an identity diagonal), the base draws and the real-data factor."""
+    H, Ty, ns = spec.H, spec.Ty, spec.ns
+    wg = spec.use_derivatives
+    Rr = gp.real_fact["mask"].shape[-1]
+    Mh = gp.hall_Z.shape[2]
+    Rh = Mh * Ty
+    ls, os_ = hyp.lengthscale[j], hyp.outputscale[j]
+    m_r = gp.real_fact["mask"][j]
+    Zh = gp.hall_Z[:, j]                                   # (ns, Mh, D)
+    yh_flat = gp.hall_Y[:, j].reshape(ns, Rh)
+    m_h = (~torch.isnan(yh_flat)).to(Xt.dtype)
+    Zr = gp.real_Z.expand((ns,) + gp.real_Z.shape)
+    ev1 = kernel_matrix(torch.cat([Zr, Zh], dim=1), Zh, ls, os_, wg)
+    Arh = ev1[:, :Rr] * m_r[None, :, None] * m_h[:, None, :]
+    Khh = ev1[:, Rr:] + torch.diag(hyp.noise_diag.repeat(Mh))
+    Ahh = (m_h[:, :, None] * Khh * m_h[:, None, :]
+           + torch.diag_embed(1.0 - m_h))
+    ev2 = kernel_matrix(Xt, torch.cat([Zr, Zh, Xt], dim=1), ls, os_, wg)
+    return dict(
+        nh=gp.hall_n * Ty,
+        Kxr=(ev2[..., :Rr] * m_r).contiguous(),
+        Kxh=(ev2[..., Rr:Rr + Rh] * m_h[:, None, :]).contiguous(),
+        Ktt=ev2[..., Rr + Rh:].contiguous(),
+        Arh=Arh.contiguous(), Ahh=Ahh.contiguous(),
+        yh=(torch.nan_to_num(yh_flat) * m_h).contiguous(),
+        eps=eps[:, j].reshape(ns, H * Ty).contiguous(),
+        Linv=gp.real_fact["Linv"][j].contiguous(),
+        w_r=gp.real_fact["w"][j].contiguous(),
+        prior_var=exact.prior_task_variances(ls, os_, Ty).repeat(H)
+        .contiguous(),
+        jitter=max(hyp.jitter, 1e-6),   # safe_cholesky's f32 first attempt
+        beta=hyp.beta, var_zero=hyp.variance_is_zero, rel_floor=1e-5, ty=Ty)
+
+
+def _fused_sample_hall(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
+                       Xt, eps, md=None):
+    """Hall-block GP stage (SQP iterations >= 1) through the fused kernels
+    (ops/gp_hall.py): block-Cholesky pieces, Schur factorization,
+    substitution, covariance Cholesky, pathwise draw and override tail in
+    one launch set per output."""
+    dgs = []
+    for j in range(spec.g_ny):
+        kw = hall_stage_inputs(spec, hyp, gp, Xt, eps, j)
+        if md is not None:
+            kw.update(close=md[0][:, j].contiguous(),
+                      ynear=md[1][:, j].contiguous())
+        dg_j = gp_hall.sample_hall_one(**kw)
+        dgs.append(dg_j.reshape(spec.ns, spec.H, spec.Ty))
+    return torch.stack(dgs, dim=1)                       # (ns, g_ny, H, Ty)
+
+
+def _output_factor(gp: GPState, j: int) -> dict:
+    return {k: v[j] for k, v in gp.real_fact.items()}
+
+
+def batched_update_factor(spec: ProblemSpec, hyp: GPHyperArrays,
+                          gp: GPState) -> dict:
+    """Block-update factorization of every sample's hallucination buffer:
+    per output, one (R_h, R_h) Schur factorization batched over samples.
+    Returns the condition_update dict with leading (ns, g_ny) dimensions."""
+    ufs = [exact.condition_update(
+        _output_factor(gp, j), gp.real_Z, gp.hall_Z[:, j], gp.hall_Y[:, j],
+        hyp.lengthscale[j], hyp.outputscale[j], hyp.noise_diag, hyp.jitter,
+        spec.use_derivatives) for j in range(spec.g_ny)]
+    return {k: torch.stack([u[k] for u in ufs], dim=1) for k in ufs[0]}
+
+
+def _batched_posterior_incremental(spec: ProblemSpec, hyp: GPHyperArrays,
+                                   gp: GPState, Xt):
+    """Posterior conditioned on the real data and each sample's hall rows
+    through the block update on the cached real factor: mean
+    (ns, g_ny, Ht), cov (ns, g_ny, Ht, Ht)."""
+    uf = batched_update_factor(spec, hyp, gp)
+    means, covs = [], []
+    for j in range(spec.g_ny):
+        m, c = exact.predict_update(
+            Xt, gp.real_Z, gp.hall_Z[:, j], _output_factor(gp, j),
+            {k: v[:, j] for k, v in uf.items()}, hyp.lengthscale[j],
+            hyp.outputscale[j], spec.use_derivatives)
+        means.append(m)
+        covs.append(c)
+    return torch.stack(means, dim=1), torch.stack(covs, dim=1)
+
+
 def _batched_posterior_real(spec: ProblemSpec, hyp: GPHyperArrays,
                             gp: GPState, Xt):
     """Posterior from the real factor only: mean (ns, g_ny, Ht), cov."""
     means, covs = [], []
     for j in range(spec.g_ny):
-        rf = {k: v[j] for k, v in gp.real_fact.items()}
-        m, c = exact.predict_real(Xt, gp.real_Z, rf, hyp.lengthscale[j],
+        m, c = exact.predict_real(Xt, gp.real_Z, _output_factor(gp, j),
+                                  hyp.lengthscale[j],
                                   hyp.outputscale[j], spec.use_derivatives)
         means.append(m)
         covs.append(c)
@@ -152,13 +242,11 @@ def sample_dynamics(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
     Args:
         Xt: (ns, H, D) GP inputs along the current iterate.
         eps: (ns, g_ny, H, Ty) epistemic base draws for this iteration.
+        hall_empty: SQP iteration 0, whose buffer is empty: condition on the
+            real factor alone; otherwise on each sample's filled buffer too.
     Returns:
         dg: (ns, g_ny, H, Ty) sampled values(+gradients); updated GPState.
     """
-    if not hall_empty:
-        raise NotImplementedError(
-            "GP conditioning on a filled hallucination buffer (SQP iterations "
-            ">= 1) comes with the second port slice")
     H, Ty, ns = spec.H, spec.Ty, spec.ns
     oracle_only = (
         (spec.true_dyn_as_sample or spec.mean_as_dyn_sample) and ns == 1
@@ -172,9 +260,12 @@ def sample_dynamics(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
     # CPU tensors take the reference path; CUDA ones the kernel, or raise
     use_fused = not oracle_only and Xt.device.type != "cpu"
     if use_fused and spec.mean_as_dyn_sample:
-        raise ValueError("mean_as_dyn_sample: the CUDA GP stage "
-                         "(ops/gp_sample.py) returns samples, not the "
-                         "posterior mean; run this config with device='cpu'")
+        raise ValueError("mean_as_dyn_sample: the CUDA GP stages "
+                         "(ops/gp_sample.py, ops/gp_hall.py) return samples, "
+                         "not the posterior mean; run this config with "
+                         "device='cpu'")
+    posterior = (_batched_posterior_real if hall_empty
+                 else _batched_posterior_incremental)
 
     need_train_set = hyp.min_data_dist >= 0.0
     if need_train_set:
@@ -196,13 +287,14 @@ def sample_dynamics(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
             sh = (ns, spec.g_ny, H * Ty)
             md = (clo[..., None].expand(clo.shape + (Ty,)).reshape(sh)
                   .to(Xt.dtype), ynear.reshape(sh))
-        dg = _fused_sample_empty(spec, hyp, gp, Xt, eps, md=md)
+        fused = _fused_sample_empty if hall_empty else _fused_sample_hall
+        dg = fused(spec, hyp, gp, Xt, eps, md=md)
     elif oracle_only:
-        mean, _ = _batched_posterior_real(spec, hyp, gp, Xt)
+        mean, _ = posterior(spec, hyp, gp, Xt)
         dg = torch.zeros((ns, spec.g_ny, H, Ty), dtype=Xt.dtype,
                          device=Xt.device)
     else:
-        mean, cov = _batched_posterior_real(spec, hyp, gp, Xt)
+        mean, cov = posterior(spec, hyp, gp, Xt)
         pv = exact.prior_task_variances(hyp.lengthscale, hyp.outputscale,
                                         Ty)[None, :, None, :]   # (1,g_ny,1,Ty)
         Xb = Xt[:, None].expand(ns, spec.g_ny, H, Xt.shape[-1])

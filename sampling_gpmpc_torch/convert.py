@@ -37,13 +37,22 @@ def hyper(lengthscale, outputscale, noise_diag, jitter, beta,
 def gp_state(real_Z, real_Y, real_fact: dict, hall_Z, hall_Y, hall_n,
              device=None, dtype=None) -> GPState:
     """GPState from the JAX GPState's fields (``real_fact`` a dict of
-    arrays with keys L, w, mask, Linv, alpha)."""
+    arrays with keys L, w, mask, Linv, alpha), filled hall buffer
+    included."""
     device, dtype = setup.resolve(device, dtype)
     return GPState(
         real_Z=_t(real_Z, device, dtype), real_Y=_t(real_Y, device, dtype),
         real_fact={k: _t(v, device, dtype) for k, v in real_fact.items()},
         hall_Z=_t(hall_Z, device, dtype), hall_Y=_t(hall_Y, device, dtype),
         hall_n=int(hall_n))
+
+
+def update_factor(uf: dict, device=None, dtype=None) -> dict:
+    """The block-update factor dict of the JAX ``batched_update_factor``
+    (keys C, L_s, alpha_r, alpha_h, w_h, mask_h; leading (ns, g_ny))."""
+    device, dtype = setup.resolve(device, dtype)
+    return {k: _t(uf[k], device, dtype)
+            for k in ("C", "L_s", "alpha_r", "alpha_h", "w_h", "mask_h")}
 
 
 def ocp_data(fields: dict, device=None, dtype=None) -> OCPData:

@@ -1,8 +1,9 @@
 // Block-level helpers shared by the port's CUDA kernels (gp_sample.cu,
-// ipm.cu): warp/block reductions, NaN-propagating min/max (jnp.maximum /
-// jnp.clip semantics, which the plain torch versions reproduce with
-// torch.maximum / torch.minimum), and an in-shared-memory right-looking
-// Cholesky with one __syncthreads() per column.
+// gp_hall.cu, ipm.cu): warp/block reductions, NaN-propagating min/max
+// (jnp.maximum / jnp.clip semantics, which the plain torch versions
+// reproduce with torch.maximum / torch.minimum), an in-shared-memory
+// right-looking Cholesky with one __syncthreads() per column, and the GP
+// kernels' shared draw + override tail.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -90,6 +91,50 @@ __device__ void chol_lower(float* A, int n, int lda, float* lbuf) {
   const float* l = lbuf + ((n - 1) & 1) * n;
   for (int a = n - 1 + tid; a < n; a += nt) A[a * lda + n - 1] = l[a];
   __syncthreads();
+}
+
+// Pathwise draw y = mean + L eps and the override tail of one sample, in
+// exactly pallas_gp._override_tail's order: relative variance floor, zero
+// variance -> mean (Ty>1: all tasks of the point), min-dist -> nearest
+// train row, beta clip, non-finite -> mean.  L (lower, row stride ldl),
+// mean and var (the posterior variance, floored here in place) sit in
+// shared memory; close/ynear are null when the min-dist override is off.
+// Every thread of the block must call it (one barrier inside).
+__device__ void draw_override_tail(const float* L, int ldl, const float* mean,
+                                   float* var, const float* eps,
+                                   const float* pv, const float* close,
+                                   const float* ynear, float* dg, int Ht,
+                                   int ty, float beta, float var_zero,
+                                   float rel_floor) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // variance floors first: the zero-variance group test reads neighbours
+  for (int t = tid; t < Ht; t += nt) {
+    float v = nmax(var[t], 0.f);
+    if (rel_floor > 0.f && v < rel_floor * pv[t]) v = 0.f;
+    var[t] = v;
+  }
+  __syncthreads();
+  for (int t = tid; t < Ht; t += nt) {
+    float d = 0.f;
+    for (int s = 0; s <= t; ++s) d = fmaf(eps[s], L[t * ldl + s], d);
+    const float mu = mean[t];
+    const float v = var[t];
+    float y = mu + d;
+    if (var_zero >= 0.f) {
+      if (ty <= 1) {
+        if (v <= var_zero) y = mu;
+      } else {
+        const int g0 = (t / ty) * ty;
+        int cnt = 0;
+        for (int u = g0; u < g0 + ty; ++u) cnt += (var[u] <= var_zero);
+        if (cnt >= ty) y = mu;
+      }
+    }
+    if (close != nullptr && close[t] > 0.f) y = ynear[t];
+    const float sd = sqrtf(v);
+    y = nclip(y, mu - beta * sd, mu + beta * sd);
+    dg[t] = isfinite(y) ? y : mu;
+  }
 }
 
 }  // namespace sgp

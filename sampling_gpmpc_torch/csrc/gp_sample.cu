@@ -6,22 +6,24 @@
 //   V = Linv Kx_i'          G = V'V (lower triangle, so exactly symmetric)
 //   mean = Kx_i alpha       cov = Ktt_i - G + jitter I,  var = diag(cov) - jitter
 //   L = chol(cov)           y = mean + L eps_i
-//   override tail, in exactly _override_tail's order: relative variance
-//   floor, zero variance -> mean (Ty>1: all tasks of the point), min-dist
-//   -> nearest train row, beta clip, non-finite -> mean.
+//   override tail (sgp::draw_override_tail, common.cuh), in exactly
+//   _override_tail's order: relative variance floor, zero variance -> mean
+//   (Ty>1: all tasks of the point), min-dist -> nearest train row, beta
+//   clip, non-finite -> mean.
 // No escalating-jitter retry: a failed factorization propagates NaN into
 // the sample and lands on the non-finite -> mean backstop, as on the TPU.
 //
 // What bounds it on the H100: almost nothing.  At the flagship shape
 // (ns=70, Ht=51, R=108) one sample is ~1.8 MFLOP and reads ~22 KB of Kx plus
-// the 47 KB Linv from L2; the whole launch is ~0.13 GFLOP and ~2.3 MB, a few
+// the 47 KB Linv; the whole launch is ~0.13 GFLOP and ~2.3 MB, a few
 // microseconds at the card's rates.  It is latency-bound: the Cholesky is a
-// chain of Ht dependent column steps, each one barrier.  The design keeps
-// every intermediate in shared memory (one CTA per sample: Linv, Kx_i, V and
-// the covariance tile, ~100 KB, opt-in dynamic shared memory), so the only
-// device-memory traffic is the inputs read once and dg written once.  The
-// TPU's VMEM chunking over samples (_ns_chunk) is not needed: samples are
-// independent CTAs.
+// chain of Ht dependent column steps, each one barrier.  One CTA per sample
+// keeps Kx_i, V and the covariance tile in opt-in dynamic shared memory;
+// Linv, read-only and shared by every CTA, is read straight from global
+// memory (it stays in L1/L2: 130 KB at the car's R=180), so shared memory
+// grows with Ht*R and not with R*R and the car shape (Ht=60, R=180) takes
+// ~103 KB.  The TPU's VMEM chunking over samples (_ns_chunk) is not needed:
+// samples are independent CTAs.
 #include "common.cuh"
 
 namespace {
@@ -36,8 +38,7 @@ gp_sample_empty_kernel(const float* __restrict__ Kx, const float* __restrict__ K
   extern __shared__ float sm[];
   const int i = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int ldk = R + 1, ldh = Ht + 1;
-  float* sLinv = sm;                 // R x ldk
-  float* sKx = sLinv + R * ldk;      // Ht x ldk
+  float* sKx = sm;                   // Ht x ldk
   float* sV = sKx + Ht * ldk;        // R x ldh
   float* sC = sV + R * ldh;          // Ht x ldh: cov, then L (lower)
   float* sMean = sC + Ht * ldh;      // Ht
@@ -46,17 +47,16 @@ gp_sample_empty_kernel(const float* __restrict__ Kx, const float* __restrict__ K
 
   const float* Kx_i = Kx + (size_t)i * Ht * R;
   const float* Ktt_i = Ktt + (size_t)i * Ht * Ht;
-  for (int e = tid; e < R * R; e += nt) sLinv[(e / R) * ldk + e % R] = Linv[e];
   for (int e = tid; e < Ht * R; e += nt) sKx[(e / R) * ldk + e % R] = Kx_i[e];
   __syncthreads();
 
   // V[r][t] = sum_k Linv[r][k] Kx[t][k];  mean[t] = sum_k alpha[k] Kx[t][k]
   for (int e = tid; e < R * Ht; e += nt) {
     const int r = e / Ht, t = e % Ht;
-    const float* lr = sLinv + r * ldk;
+    const float* lr = Linv + (size_t)r * R;
     const float* kt = sKx + t * ldk;
     float acc = 0.f;
-    for (int k = 0; k < R; ++k) acc = fmaf(lr[k], kt[k], acc);
+    for (int k = 0; k < R; ++k) acc = fmaf(__ldg(lr + k), kt[k], acc);
     sV[r * ldh + t] = acc;
   }
   for (int t = tid; t < Ht; t += nt) {
@@ -79,37 +79,11 @@ gp_sample_empty_kernel(const float* __restrict__ Kx, const float* __restrict__ K
   }
   sgp::chol_lower(sC, Ht, ldh, sL2);   // barriers on entry and exit
 
-  // variance floors (the zero-variance group test reads neighbours)
-  for (int t = tid; t < Ht; t += nt) {
-    float v = sgp::nmax(sVar[t], 0.f);
-    if (rel_floor > 0.f && v < rel_floor * pv[t]) v = 0.f;
-    sVar[t] = v;
-  }
-  __syncthreads();
-
-  const float* eps_i = eps + (size_t)i * Ht;
-  for (int t = tid; t < Ht; t += nt) {
-    float d = 0.f;
-    for (int s = 0; s <= t; ++s) d = fmaf(eps_i[s], sC[t * ldh + s], d);
-    const float mu = sMean[t];
-    const float var = sVar[t];
-    float y = mu + d;
-    if (var_zero >= 0.f) {
-      if (ty <= 1) {
-        if (var <= var_zero) y = mu;
-      } else {
-        const int g0 = (t / ty) * ty;
-        int cnt = 0;
-        for (int u = g0; u < g0 + ty; ++u) cnt += (sVar[u] <= var_zero);
-        if (cnt >= ty) y = mu;
-      }
-    }
-    if (close != nullptr && close[(size_t)i * Ht + t] > 0.f)
-      y = ynear[(size_t)i * Ht + t];
-    const float sd = sqrtf(var);
-    y = sgp::nclip(y, mu - beta * sd, mu + beta * sd);
-    dg[(size_t)i * Ht + t] = isfinite(y) ? y : mu;
-  }
+  const size_t row = (size_t)i * Ht;
+  sgp::draw_override_tail(sC, ldh, sMean, sVar, eps + row, pv,
+                          close ? close + row : nullptr,
+                          ynear ? ynear + row : nullptr, dg + row, Ht, ty, beta,
+                          var_zero, rel_floor);
 }
 
 }  // namespace

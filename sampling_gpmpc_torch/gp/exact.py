@@ -7,9 +7,12 @@ Missing observations are handled by the mask trick
 which leaves masked rows with zero posterior influence at a static shape.
 The real training data never changes during an experiment, so its factor is
 computed once (``factor_real``); SQP iteration 0 predicts from that factor
-alone (``predict_real``) and draws with ``sample_with_overrides``.  This is
-the float64/CPU reference path; the float32 CUDA path runs the fused kernel
-of ``ops/gp_sample.py`` instead.  Functions accept leading batch dimensions.
+alone (``predict_real``), and later iterations append each sample's
+hallucinated rows by a block Cholesky update (``condition_update``,
+``predict_update``); both draw with ``sample_with_overrides``.  This is the
+float64/CPU reference path; the float32 CUDA path runs the fused kernels of
+``ops/gp_sample.py`` and ``ops/gp_hall.py`` instead.  Functions accept
+leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -125,6 +128,75 @@ def predict_real(Xt, Z_r, rf, hyp_ls, hyp_os, with_grad: bool):
     V = _tri(rf["L"], Kx.transpose(-1, -2))                  # (..., R, Ht)
     mean = (V.transpose(-1, -2) @ rf["w"][:, None])[..., 0]
     cov = Ktt - V.transpose(-1, -2) @ V
+    return mean, 0.5 * (cov + cov.transpose(-1, -2))
+
+
+def condition_update(rf, Z_r, Z_h, Y_h, hyp_ls, hyp_os, noise_diag, jitter,
+                     with_grad: bool) -> dict:
+    """Append hallucination rows to the real-data factor (block Cholesky).
+
+    With A = [[A_rr, A_rh], [A_hr, A_hh]] the masked train covariance, the
+    factor is L = [[L_r, 0], [C', L_s]] with C = L_r^-1 A_rh and
+    L_s = chol(A_hh - C'C); only the (R_h, R_h) Schur block is factorized.
+
+    Args:
+        rf: one output's real factor; Z_r: (M_r, D).
+        Z_h: (..., M_h, D), Y_h: (..., M_h, Ty) hallucinated rows (NaN =
+            masked), with any leading batch dimensions.
+    Returns dict with C (..., R_r, R_h), L_s, alpha_r, alpha_h (the split
+    K~^-1 y~), w_h = L_s^-1 (y~_h - C' w_r) and mask_h.
+    """
+    Mh, Ty = Y_h.shape[-2:]
+    y_h = Y_h.reshape(Y_h.shape[:-2] + (Mh * Ty,))
+    m_h = (~torch.isnan(y_h)).to(Z_h.dtype)
+    y_h = torch.nan_to_num(y_h) * m_h
+    m_r = rf["mask"]
+    R_r = m_r.shape[-1]
+    Zr = Z_r.expand(Z_h.shape[:-2] + Z_r.shape)
+    K_all = kernel_matrix(torch.cat([Zr, Z_h], dim=-2), Z_h, hyp_ls, hyp_os,
+                          with_grad and Ty > 1)
+    A_rh = m_r[:, None] * K_all[..., :R_r, :] * m_h[..., None, :]
+    K_hh = K_all[..., R_r:, :] + torch.diag(noise_diag.repeat(Mh))
+    A_hh = (m_h[..., :, None] * K_hh * m_h[..., None, :]
+            + torch.diag_embed(1.0 - m_h))
+    C = _tri(rf["L"], A_rh)
+    S = A_hh - C.transpose(-1, -2) @ C
+    L_s = safe_cholesky(0.5 * (S + S.transpose(-1, -2)), jitter)
+    w_h = _tri(L_s, (y_h - (C.transpose(-1, -2) @ rf["w"][:, None])[..., 0])
+               [..., None])
+    alpha_h = _tri(L_s.transpose(-1, -2), w_h, upper=True)
+    alpha_r = _tri(rf["L"].T, rf["w"][:, None] - C @ alpha_h, upper=True)
+    return {"C": C, "L_s": L_s, "alpha_r": alpha_r[..., 0],
+            "alpha_h": alpha_h[..., 0], "w_h": w_h[..., 0], "mask_h": m_h}
+
+
+def predict_update(Xt, Z_r, Z_h, rf, uf, hyp_ls, hyp_os, with_grad: bool):
+    """Joint posterior from the block factorization of ``condition_update``.
+
+    mean = Kx alpha; cov = Ktt - V_r'V_r - V_h'V_h with
+    V_r = L_r^-1 (Kx_r ⊙ m_r)',  V_h = L_s^-1 ((Kx_h ⊙ m_h)' - C'V_r).
+    All three kernel blocks come from one evaluation against [Z_r; Z_h; Xt].
+
+    Args:
+        Xt: (..., H, D); Z_h: (..., M_h, D); uf: batched like Xt.
+    Returns:
+        mean (..., Ht), cov (..., Ht, Ht).
+    """
+    R_r = rf["mask"].shape[-1]
+    R_h = uf["mask_h"].shape[-1]
+    Zr = Z_r.expand(Xt.shape[:-2] + Z_r.shape)
+    Kall = kernel_matrix(Xt, torch.cat([Zr, Z_h, Xt], dim=-2), hyp_ls,
+                         hyp_os, with_grad)
+    Kx_r = Kall[..., :R_r] * rf["mask"]
+    Kx_h = Kall[..., R_r:R_r + R_h] * uf["mask_h"][..., None, :]
+    Ktt = Kall[..., R_r + R_h:]
+    mean = ((Kx_r @ uf["alpha_r"][..., None])
+            + (Kx_h @ uf["alpha_h"][..., None]))[..., 0]
+    V_r = _tri(rf["L"], Kx_r.transpose(-1, -2))
+    V_h = _tri(uf["L_s"], Kx_h.transpose(-1, -2)
+               - uf["C"].transpose(-1, -2) @ V_r)
+    cov = (Ktt - V_r.transpose(-1, -2) @ V_r
+           - V_h.transpose(-1, -2) @ V_h)
     return mean, 0.5 * (cov + cov.transpose(-1, -2))
 
 

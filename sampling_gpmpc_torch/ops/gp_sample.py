@@ -31,9 +31,10 @@ LAUNCHES = {"gp_sample": 0}
 
 
 def smem_bytes(Ht: int, R: int) -> int:
-    """Dynamic shared memory of one CTA (see csrc/gp_sample.cu layout)."""
-    return 4 * (R * (R + 1) + Ht * (R + 1) + R * (Ht + 1) + Ht * (Ht + 1)
-                + 4 * Ht)
+    """Dynamic shared memory of one CTA (see csrc/gp_sample.cu layout: Kx_i,
+    V, the covariance tile and four row buffers; Linv stays in global
+    memory)."""
+    return 4 * (Ht * (R + 1) + R * (Ht + 1) + Ht * (Ht + 1) + 4 * Ht)
 
 
 def check_supported(Ht: int, R: int, dtype) -> None:
@@ -69,7 +70,7 @@ def sample_empty_plain(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
                        ty: int = 1, close=None, ynear=None):
     """Plain torch version of the kernel; same arguments and result as
     :func:`sample_empty_one`."""
-    ns, Ht, R = Kxm.shape
+    Ht = Kxm.shape[1]
     V = Linv @ Kxm.transpose(1, 2)                        # (ns, R, Ht)
     G = V.transpose(1, 2) @ V
     G = torch.tril(G) + torch.tril(G, -1).transpose(1, 2)  # exactly symmetric
@@ -79,7 +80,17 @@ def sample_empty_plain(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
     var = torch.diagonal(S, dim1=-2, dim2=-1) - jitter
     L = chol_right_looking(S)
     y = mean + (L @ eps[..., None])[..., 0]
+    return override_tail(mean, y, var, prior_var, beta, var_zero, rel_floor,
+                         ty, close, ynear)
 
+
+def override_tail(mean, y, var, prior_var, beta: float, var_zero: float,
+                  rel_floor: float, ty: int = 1, close=None, ynear=None):
+    """The GP kernels' override tail on (ns, Ht) rows, in
+    ``pallas_gp._override_tail``'s order: relative variance floor, zero
+    variance -> mean (Ty>1: all tasks of the point), min-dist -> nearest
+    train row, beta clip, non-finite -> mean; min/max propagate NaN."""
+    ns, Ht = y.shape
     var = torch.clamp(var, min=0.0)
     if rel_floor > 0.0:
         var = torch.where(var < rel_floor * prior_var, torch.zeros_like(var),

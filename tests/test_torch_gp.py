@@ -8,7 +8,11 @@
   agrees with the Pallas kernel run in interpret mode in float32 (the same
   algorithm, so agreement is at float32 rounding of the posterior
   variance), and with the float32 XLA twin by the tube criterion
-  |y - mu| <= beta (sigma + sigma_noise).
+  |y - mu| <= beta (sigma + sigma_noise);
+* the plain version of the hall-block kernels (ops/gp_hall.py) agrees
+  with the Pallas hall kernel run in interpret mode on the same inputs,
+  which the port's ``hall_stage_inputs`` builds as the JAX package does;
+* the GP-sample kernel takes the car shape (Ht=60, R=180) on CUDA.
 """
 
 import dataclasses
@@ -33,7 +37,7 @@ from sampling_gpmpc_torch.envs import make_env as tmake_env
 from sampling_gpmpc_torch.gp import exact as texact
 from sampling_gpmpc_torch.gp import kernel as tkernel
 from sampling_gpmpc_torch.gp.exact import GPHyperArrays
-from sampling_gpmpc_torch.ops import gp_sample
+from sampling_gpmpc_torch.ops import build, gp_hall, gp_sample
 
 PARAMS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "params", "params_pendulum1D_samples.yaml")
@@ -222,7 +226,9 @@ def test_sample_dynamics_iteration0_matches_jax(pend):
     _, tspec, tenv = sides["torch"]
     jhyp = jexact.GPHyperArrays.from_spec(jspec.gp, jnp.float64)
     thyp = GPHyperArrays.from_spec(tspec.gp, "cpu", torch.float64)
-    jgp = jagent.init_gp_state(jspec, jenv, jnp.float64)
+    # capacity for two appends: the second call conditions on the first's
+    jgp = jagent.init_gp_state(jspec, jenv, jnp.float64,
+                               capacity=2 * jspec.H)
     # the JAX state carried across, so the stage is held in isolation
     tgp = convert.gp_state(jgp.real_Z, jgp.real_Y,
                            {k: np.asarray(v) for k, v in jgp.real_fact.items()},
@@ -243,5 +249,132 @@ def test_sample_dynamics_iteration0_matches_jax(pend):
     np.testing.assert_allclose(tgp1.hall_Z.numpy(), np.asarray(jgp1.hall_Z))
     np.testing.assert_allclose(tgp1.hall_Y.numpy(), np.asarray(jgp1.hall_Y),
                                atol=F64)
-    with pytest.raises(NotImplementedError):
-        tagent.sample_dynamics(tspec, tenv, thyp, tgp1, _t(Xt), _t(eps))
+    # the second call conditions on the filled buffer: it is JAX's hall
+    # stage, and its draw moves away from the real-data-only draw
+    Xt2 = Xt + 0.02
+    jdg2, jgp2 = jagent.sample_dynamics(jspec, jenv, jhyp, jgp1,
+                                        jnp.asarray(Xt2), jnp.asarray(eps))
+    tdg2, tgp2 = tagent.sample_dynamics(tspec, tenv, thyp, tgp1, _t(Xt2),
+                                        _t(eps))
+    tdg_real, _ = tagent.sample_dynamics(tspec, tenv, thyp, tgp, _t(Xt2),
+                                         _t(eps), hall_empty=True)
+    np.testing.assert_allclose(tdg2.numpy(), np.asarray(jdg2), atol=1e-8)
+    assert tgp2.hall_n == int(jgp2.hall_n) == 2 * jspec.H
+    assert float(torch.max(torch.abs(tdg2 - tdg_real))) > 1e-6
+
+
+def test_gp_sample_takes_the_car_shape():
+    """The car's iteration-0 stage (Ht=60 test rows, R=180 train rows) fits
+    one CTA: Linv stays in global memory, so shared memory grows with
+    Ht*R (about 103 KB here) and not with R*R."""
+    assert gp_sample.smem_bytes(60, 180) <= build.SMEM_MAX
+    gp_sample.check_supported(60, 180, torch.float32)
+    gp_sample.check_supported(51, 108, torch.float32)      # flagship
+
+
+@pytest.fixture(scope="module")
+def pend_hall():
+    """Pendulum1D at ns=8, H=12 (tests/test_pallas_gp.py's shape) in
+    float32 on the JAX side: the GP state after an iteration-0 append
+    (hall_n = H of a 2H capacity), a perturbed iterate and fresh draws."""
+    params, spec, _ = jload(PARAMS)
+    spec = dataclasses.replace(spec, ns=8, H=12, max_sqp_iter=2,
+                               num_mpc_iter=1)
+    params["agent"]["num_dyn_samples"] = spec.ns
+    params["optimizer"]["H"] = spec.H
+    env = jmake_env(spec, params)
+    f32 = jnp.float32
+    hyp = jexact.GPHyperArrays.from_spec(spec.gp, f32)
+    gp = jagent.init_gp_state(spec, env, f32, hyp=hyp)
+    rng = np.random.default_rng(9)
+    Xt = np.stack([np.linspace(2.2, 3.3, spec.H),
+                   np.linspace(-1.0, 1.2, spec.H)], -1)
+    Xt = (Xt[None] + 0.05 * rng.normal(size=(spec.ns, spec.H, 2))
+          ).astype(np.float32)
+    eps0, eps1 = (np.clip(rng.normal(size=(spec.ns, 1, spec.H, spec.Ty)),
+                          -2.5, 2.5).astype(np.float32) for _ in range(2))
+    _, gp = jagent.sample_dynamics(spec, env, hyp, gp, jnp.asarray(Xt),
+                                   jnp.asarray(eps0), hall_empty=True)
+    assert int(gp.hall_n) == spec.H and gp.hall_Z.shape[2] == 2 * spec.H
+    Xt1 = (Xt + 0.03 * rng.normal(size=Xt.shape)).astype(np.float32)
+    return spec, hyp, gp, Xt1, eps1
+
+
+def _jax_hall_inputs(spec, hyp, gp, Xt, j=0):
+    """The hall kernel's blocks for output j, as agent._fused_sample_hall
+    builds them on the JAX side."""
+    Ty, ns = spec.Ty, spec.ns
+    Rr = gp.real_fact["mask"].shape[-1]
+    Mh = gp.hall_Z.shape[2]
+    Rh = Mh * Ty
+    ls, os_ = hyp.lengthscale[j], hyp.outputscale[j]
+    m_r = gp.real_fact["mask"][j]
+    Zh = gp.hall_Z[:, j]
+    yh_flat = gp.hall_Y[:, j].reshape(ns, Rh)
+    m_h = (~jnp.isnan(yh_flat)).astype(jnp.float32)
+    ev1 = jax.vmap(lambda z: jkernel.kernel_matrix(
+        jnp.concatenate([gp.real_Z, z]), z, ls, os_, True))(Zh)
+    Khh = ev1[:, Rr:] + jnp.diag(jnp.tile(hyp.noise_diag, Mh))[None]
+    ev2 = jax.vmap(lambda x, z: jkernel.kernel_matrix(
+        x, jnp.concatenate([gp.real_Z, z, x]), ls, os_, True))(Xt, Zh)
+    arrs = dict(
+        Kxr=ev2[..., :Rr] * m_r, Kxh=ev2[..., Rr:Rr + Rh] * m_h[:, None, :],
+        Ktt=ev2[..., Rr + Rh:],
+        Arh=ev1[:, :Rr] * m_r[None, :, None] * m_h[:, None, :],
+        Ahh=(m_h[:, :, None] * Khh * m_h[:, None, :]
+             + jnp.eye(Rh)[None] * (1.0 - m_h)[:, None, :]),
+        yh=jnp.nan_to_num(yh_flat) * m_h, Linv=gp.real_fact["Linv"][j],
+        w_r=gp.real_fact["w"][j],
+        prior_var=jnp.tile(jexact.prior_task_variances(ls, os_, Ty), spec.H))
+    return {k: np.array(v, np.float32) for k, v in arrs.items()}
+
+
+@pytest.mark.parametrize("overrides", ["none", "min_dist_var_zero"])
+def test_plain_gp_hall_matches_pallas_interpret(pend_hall, monkeypatch,
+                                                overrides):
+    spec, hyp, gp, Xt, eps = pend_hall
+    ref_in = _jax_hall_inputs(spec, hyp, gp, jnp.asarray(Xt))
+    # the port builds the same blocks from the carried-across state
+    thyp, tgp = (convert.hyper(hyp.lengthscale, hyp.outputscale,
+                               hyp.noise_diag, hyp.jitter, hyp.beta,
+                               hyp.variance_is_zero, hyp.min_data_dist,
+                               "cpu", torch.float32),
+                 convert.gp_state(gp.real_Z, gp.real_Y,
+                                  {k: np.asarray(v)
+                                   for k, v in gp.real_fact.items()},
+                                  gp.hall_Z, gp.hall_Y, gp.hall_n, "cpu",
+                                  torch.float32))
+    kw = tagent.hall_stage_inputs(spec, thyp, tgp, torch.as_tensor(Xt),
+                                  torch.as_tensor(eps), 0)
+    for k, v in ref_in.items():
+        np.testing.assert_allclose(kw[k].numpy(), v, rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+    assert kw["nh"] == spec.H * spec.Ty
+    arrs = dict(ref_in, eps=eps[:, 0].reshape(spec.ns, -1))
+    scal = dict(jitter=kw["jitter"], beta=kw["beta"],
+                var_zero=kw["var_zero"], rel_floor=kw["rel_floor"],
+                ty=kw["ty"])
+    ns, Ht = arrs["eps"].shape
+    if overrides != "none":
+        rng = np.random.default_rng(12)
+        scal["var_zero"] = 1.1e-6
+        arrs["close"] = (rng.uniform(size=(ns, Ht)) < 0.2).astype(np.float32)
+        arrs["ynear"] = rng.normal(size=(ns, Ht)).astype(np.float32) * 1e-3
+    monkeypatch.setattr(pallas_gp, "_INTERPRET", True)
+    ref = np.asarray(pallas_gp.sample_hall_one(
+        kw["nh"], **{k: jnp.asarray(v) for k, v in arrs.items()}, **scal))
+
+    def plain(dtype):
+        return gp_hall.sample_hall_one(
+            kw["nh"], **{k: torch.tensor(v, dtype=dtype)
+                         for k, v in arrs.items()}, **scal).numpy()
+
+    got, exact64 = plain(torch.float32), plain(torch.float64)
+    assert np.all(np.isfinite(got))
+    # The same algorithm on the same float32 inputs; each float32
+    # evaluation sits within float32 cancellation of the posterior
+    # variance from the float64 evaluation of the algorithm.
+    scale = float(np.max(np.abs(exact64)))
+    np.testing.assert_allclose(ref, exact64, atol=3e-3 * scale)
+    np.testing.assert_allclose(got, exact64, atol=3e-3 * scale)
+    np.testing.assert_allclose(got, ref, atol=4e-3 * scale)

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from sampling_gpmpc_torch import setup
-from sampling_gpmpc_torch.ops import gp_sample, ipm
+from sampling_gpmpc_torch.ops import gp_hall, gp_sample, ipm
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -135,6 +135,21 @@ def test_gp_wrapper_never_falls_back(monkeypatch):
     assert 'Kxm.device.type == "cpu"' in src
 
 
+def test_gp_hall_wrapper_never_falls_back(monkeypatch):
+    monkeypatch.setattr(gp_hall, "sample_hall_plain", _refuse)
+    ns, Ht, Rr, Rh = 2, 6, 4, 8
+    meta = lambda *s: torch.empty(*s, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        gp_hall.sample_hall_one(4, meta(ns, Ht, Rr), meta(ns, Ht, Rh),
+                                meta(ns, Ht, Ht), meta(ns, Rr, Rh),
+                                meta(ns, Rh, Rh), meta(ns, Rh), meta(ns, Ht),
+                                meta(Rr, Rr), meta(Rr), meta(Ht), 1e-6, 2.5,
+                                -1.0, 1e-5, ty=3)
+    src = inspect.getsource(gp_hall.sample_hall_one)
+    assert "try:" not in src and src.count("sample_hall_plain(") == 1
+    assert 'Kxr.device.type == "cpu"' in src
+
+
 def test_ipm_wrapper_never_falls_back(monkeypatch):
     monkeypatch.setattr(ipm, "run_full_plain", _refuse)
     nU, m_h, m_s = 3, 4, 2
@@ -163,7 +178,17 @@ def test_fused_gates_need_cuda_float32(monkeypatch):
         gp_sample.check_supported(51, 108, torch.float64)
     # a tile beyond one CTA's shared memory
     with pytest.raises(ValueError, match="shared memory"):
-        gp_sample.check_supported(60, 300, torch.float32)
+        gp_sample.check_supported(60, 600, torch.float32)
+    # the hall stage: the car's fills up to 3 iterations of H*Ty = 60 rows
+    for nh in (0, 60, 120, 180):
+        gp_hall.check_supported(60, 180, 240, nh, torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        gp_hall.check_supported(60, 180, 240, 60, torch.float64)
+    # the full 240-row capacity does not fit one factor CTA
+    with pytest.raises(ValueError, match="shared memory"):
+        gp_hall.check_supported(60, 180, 240, 240, torch.float32)
+    with pytest.raises(ValueError, match="nh <= Rh"):
+        gp_hall.check_supported(60, 180, 240, 244, torch.float32)
     ipm.check_supported(17, 7174, 70, torch.float32)
 
     # a float64 QP off the CPU reaches the kernel wrapper and raises there
@@ -178,6 +203,8 @@ def test_fused_gates_need_cuda_float32(monkeypatch):
     with pytest.raises(ValueError, match="mean_as_dyn_sample"):
         agent.sample_dynamics(spec_m, None, None, None, Xt, None,
                               hall_empty=True)
+    with pytest.raises(ValueError, match="mean_as_dyn_sample"):
+        agent.sample_dynamics(spec_m, None, None, None, Xt, None)
     for fn in (qp_mod.solve_qp_soft, agent.sample_dynamics):
         assert "fused_ok" not in inspect.getsource(fn)
 

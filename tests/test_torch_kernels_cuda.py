@@ -8,7 +8,7 @@ the GPU machine with
 (``--noconftest``: the suite's conftest configures JAX, which the GPU
 machine does not have; this file imports only the port.)
 
-(chip_smoke.py runs the same comparisons at the flagship shape.)
+(chip_smoke.py runs the same comparisons at the shapes of the main paths.)
 """
 
 import numpy as np
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from sampling_gpmpc_torch.ocp import qp as qp_mod
-from sampling_gpmpc_torch.ops import gp_sample, ipm
+from sampling_gpmpc_torch.ops import gp_hall, gp_sample, ipm
 
 pytestmark = pytest.mark.cuda
 
@@ -29,7 +29,8 @@ def dev():
     return setup.resolve_device("cuda")
 
 
-@pytest.mark.parametrize("ns,H,ty,R", [(8, 5, 3, 36), (70, 17, 3, 108)])
+@pytest.mark.parametrize("ns,H,ty,R", [(8, 5, 3, 36), (70, 17, 3, 108),
+                                       (20, 15, 4, 180)])
 def test_gp_sample_kernel_matches_plain(dev, ns, H, ty, R):
     """Random feature-space covariances (K = Phi Phi' / F, F > R + Ht), so
     every posterior block is a true covariance; float32 rounding only
@@ -54,6 +55,60 @@ def test_gp_sample_kernel_matches_plain(dev, ns, H, ty, R):
     scale = float(ref.abs().max())
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                atol=2e-4 * scale)
+
+
+def _hall_problem(ns, Ht, Rr, Rh, nh, seed):
+    """A hall-block stage from random feature-space covariances (every
+    block a true covariance, F = 2 (Rr + Rh + Ht) features), with the hall
+    rows past the fill masked as the agent masks empty slots: zero
+    couplings, identity diagonal, zero targets."""
+    rng = np.random.default_rng(seed)
+    F = 2 * (Rr + Rh + Ht)
+    P_r = rng.normal(size=(Rr, F)) / np.sqrt(F)
+    P_h = rng.normal(size=(ns, Rh, F)) / np.sqrt(F)
+    P_t = rng.normal(size=(ns, Ht, F)) / np.sqrt(F)
+    m = (np.arange(Rh) < nh).astype(np.float64)
+    L = np.linalg.cholesky(P_r @ P_r.T + 1e-3 * np.eye(Rr))
+    Linv = np.linalg.inv(L)
+    y_r = rng.normal(size=Rr) * 0.3
+    Ahh = P_h @ np.swapaxes(P_h, 1, 2) + 1e-3 * np.eye(Rh)
+    Ahh = m[:, None] * Ahh * m[None, :] + np.diag(1.0 - m)
+    return dict(
+        Kxr=P_t @ P_r.T, Kxh=(P_t @ np.swapaxes(P_h, 1, 2)) * m,
+        Ktt=P_t @ np.swapaxes(P_t, 1, 2),
+        Arh=np.einsum("rf,shf->srh", P_r, P_h) * m, Ahh=Ahh,
+        yh=rng.normal(size=(ns, Rh)) * 0.3 * m,
+        eps=np.clip(rng.normal(size=(ns, Ht)), -2.5, 2.5), Linv=Linv,
+        w_r=Linv @ y_r, prior_var=np.full(Ht, 1.0))
+
+
+@pytest.mark.parametrize("ns,H,ty,Rr,Rh,nh", [
+    (8, 5, 3, 36, 45, 30),          # small, partly filled
+    (20, 15, 4, 180, 240, 180),     # the car at its largest fill
+])
+def test_gp_hall_kernel_matches_plain(dev, ns, H, ty, Rr, Rh, nh):
+    """The kernels against the plain version on the same float32 inputs:
+    the kernel may be no farther from the float64 evaluation of the
+    algorithm than four times the plain float32 evaluation (both cancel the
+    same posterior variances in float32), and it must follow eps."""
+    Ht = H * ty
+    kw = _hall_problem(ns, Ht, Rr, Rh, nh, seed=ns)
+    args = dict(jitter=1e-6, beta=2.5, var_zero=-1.0, rel_floor=1e-5, ty=ty)
+    t = lambda dtype: {k: torch.as_tensor(v, dtype=dtype, device=dev)
+                       .contiguous() for k, v in kw.items()}
+    t32 = t(torch.float32)
+    got = gp_hall.sample_hall_one(nh, **t32, **args)
+    ref = gp_hall.sample_hall_plain(nh, **t32, **args)
+    ex = gp_hall.sample_hall_plain(nh, **t(torch.float64), **args)
+    mean = gp_hall.sample_hall_plain(
+        nh, **dict(t32, eps=torch.zeros_like(t32["eps"])), **args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    scale = float(ex.abs().max())
+    err_k = float((got.double() - ex).abs().max())
+    err_p = float((ref.double() - ex).abs().max())
+    assert err_k <= 4 * err_p + 1e-6 * scale, (err_k, err_p)
+    assert float((got - mean).abs().max()) > 100 * (err_k + 1e-7 * scale)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
