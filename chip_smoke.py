@@ -39,8 +39,26 @@ params_car (ns=20, H=15, four SQP iterations, 4 soft ellipse obstacles):
              tests/goldens/torch_oracle_car.npz; then 12 free-running steps
              (DEMPC.run) with the counters zeroed before and read after,
              SQP iterations and ms per step;
-9. timing  — each kernel at the main paths' shapes (CUDA events, warm,
-             median) beside its plain version and its bound;
+9. timing  — each kernel at the main paths' shapes (CUDA events around
+             back-to-back warm calls queued behind a sleep kernel, median)
+             beside its plain version and its bound;
+kernels 5-7, the batched small-matrix linalg (off the closed loop):
+10. linalg — their own entry point, sampling_gpmpc_torch.microbench_linalg
+             (chol, tri_solve both ways, batched_cholesky(use_kernel=True)
+             at the JAX microbench's shapes and the fs shape B=12000, n=50,
+             m=1), counters zeroed before and read after; then each kernel
+             vs its plain version there and at B=60, n=180 (the JAX tests'
+             bars: 2e-4 factors, 3e-4 solves; upper triangles exactly 0),
+             an indefinite input's NaN pattern, and their timing beside the
+             plain version, torch.linalg and the bound;
+params_car_residual_fs (ns=4000 value-only realizations x 50 steps):
+11. fs     — forward_sample_rollout, cuda float32, replaying the
+             car_residual golden's last plan and on zero inputs, each
+             against the same draws in cuda float64 (at most 1 non-finite
+             realization, 0.25 per realization, 0.15 on the envelope of the
+             first 256, 1.2x the JAX float32 path's own envelope error on
+             all 4000, inside the state box + 10x its width), and sampled
+             steps/s (warm, median of 3);
 then one JSON line listing the kernels, the card line, and the contract
 line {"ok": true, "device": {...}}.
 """
@@ -105,6 +123,25 @@ TF_CAR_TOL_X, TF_CAR_TOL_U = 3.0, 2.0
 # pendulum's does: phases 5-7 hold each kernel alone on the same inputs.
 TF_CAR_KP_TOL_X, TF_CAR_KP_TOL_U = 2.5, 2.0
 CAR_STEP = 5                   # golden step whose solve feeds phases 5-7
+# Batched Cholesky / triangular-solve kernels vs their plain versions: the
+# JAX package's own bars for its kernels (tests/test_batch_linalg.py).
+LINALG_F_TOL, LINALG_S_TOL = 2e-4, 3e-4
+FS_CONFIG = "params_car_residual_fs"
+FS_GOLDEN = os.path.join(HERE, "tests", "goldens", "params_car_residual.npz")
+# Float32 forward sampling against float64 on the same draws, with
+# tests/test_f32_envelope.py's bars: 0.25 per realization (over the
+# survivors), and 0.15 on the per-step min/max envelope over the test's own
+# width of 256 realizations.  The envelope over all 4000 widens with ns,
+# because the extremes are the most chaotic realizations, and the JAX
+# package's own float32 path does not meet 0.15 there: on the CPU, on the
+# same draws, it reads 0.213 over 4000 on the replayed plan (0.096 over the
+# first 256, 0.148 over 1000) and 0.184 on zero inputs
+# (tests/test_torch_reachability.py::test_f32_envelope_by_width_vs_jax).
+# So the full width is held to FS_JAX_ENV_FACTOR times the reference's own
+# reading, and its distance to 0.15 is printed, not enforced.
+FS_REAL_TOL, FS_ENV_TOL, FS_ENV_NS = 0.25, 0.15, 256
+FS_JAX_ENV = {"replay of the golden plan": 0.213, "zero inputs": 0.184}
+FS_JAX_ENV_FACTOR = 1.2
 
 
 def fail(msg):
@@ -164,24 +201,6 @@ def zero_launch_counts():
     for k in (gp_sample.LAUNCHES, gp_hall.LAUNCHES, ipm.LAUNCHES):
         for name in k:
             k[name] = 0
-
-
-def cuda_ms(fn, n=30, warm=3):
-    """Median milliseconds of fn() between CUDA events (warm)."""
-    import torch
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
 
 
 def bound_ms(nbytes, flops):
@@ -343,17 +362,20 @@ class IPMChecks:
     def timing(self, label, qpa, ws, wv):
         """Kernel and plain times of both IPM stages on one QP, with their
         bounds, for this QP's iteration count."""
+        from sampling_gpmpc_torch.microbench_linalg import cuda_ms
         ipm, band = self.ipm, self.qp.WS_BAND
         tol, reg, consts = self.tol, self.reg, self.consts
         qpa = tuple(a.contiguous() for a in qpa)
         nU, m_h, m_s = qpa[1].shape[0], qpa[3].shape[0], qpa[5].shape[0]
         prep = ipm.prepare(*qpa, ws, wv, band)
         t_pk = cuda_ms(lambda: ipm.prepare(*qpa, ws, wv, band))
-        t_pp = cuda_ms(lambda: ipm.prepare_plain(*qpa, ws, wv, band), n=10)
-        t_mk = cuda_ms(lambda: ipm.mehrotra(prep, tol, reg, 150, *consts))
+        t_pp = cuda_ms(lambda: ipm.prepare_plain(*qpa, ws, wv, band), n=10,
+                       k=1)
+        t_mk = cuda_ms(lambda: ipm.mehrotra(prep, tol, reg, 150, *consts),
+                       k=2)
         pp = ipm.prepare_plain(*qpa, ws, wv, band)
         t_mp = cuda_ms(lambda: ipm.mehrotra_plain(pp, tol, reg, 150, *consts),
-                       n=5, warm=1)
+                       n=5, warm=1, k=1)
         iters = int(ipm.mehrotra(prep, tol, reg, 150, *consts)[2])
         m = m_h + m_s
         pb = 4 * (nU * nU + nU + 2 * nU * m + m_h + 6 * m_s
@@ -411,6 +433,221 @@ def gp_report(tag, spec, label, dk, dp, tube, mean64, rel_tol, d0=None):
     return err, rel
 
 
+def linalg_bound(B, n, m=None):
+    """Bound of one batched Cholesky (m None: each matrix's lower triangle
+    read once, its whole factor, zero upper triangle included, written once,
+    n^3/3 flop each) or triangular solve (the factor's lower triangle and
+    the right-hand side read once, the solution written once, n^2 m flop
+    each).  The kernels and their plain versions read no upper triangle."""
+    tri = n * (n + 1) // 2
+    if m is None:
+        return bound_ms(4 * B * (tri + n * n), B * n ** 3 / 3)
+    return bound_ms(4 * B * (tri + 2 * n * m), B * n * n * m)
+
+
+def close_report(label, got, ref, tol):
+    """max |got - ref|, failing past |got - ref| <= tol + tol |ref| (the
+    JAX tests' assert_allclose bar) or on a non-finite entry."""
+    import torch
+    err = torch.abs(got - ref)
+    bad = int((~(err <= tol + tol * torch.abs(ref))).sum())
+    worst = float(err.max())
+    print(f"[linalg] {label}: max|kernel - plain| {worst:.3e} (bar {tol} "
+          f"abs + {tol} rel), {bad} entries past it of {got.numel()}",
+          flush=True)
+    if bad:
+        fail(f"linalg {label}: kernel disagrees with its plain version")
+    return worst
+
+
+def nan_pattern_report(label, got, ref, tol):
+    """An indefinite input: the kernel's NaN entries equal the plain
+    version's and its finite entries agree to the bar."""
+    import torch
+    same = torch.equal(torch.isnan(got), torch.isnan(ref))
+    fin = torch.isfinite(ref) & torch.isfinite(got)
+    err = float(torch.abs(got - ref)[fin].max())
+    n_nan = int(torch.isnan(got).sum())
+    print(f"[linalg] {label}, indefinite input: NaN pattern "
+          f"{'identical' if same else 'DIFFERENT'} ({n_nan} NaN of "
+          f"{got.numel()}); finite entries max|diff| {err:.3e}", flush=True)
+    if not same or err > tol:
+        fail(f"linalg {label}: NaN pattern of an indefinite input")
+
+
+def linalg_phase(dev):
+    """Kernels 5-7 through their own entry point (the microbench of
+    sampling_gpmpc_torch/microbench_linalg.py: chol, tri_solve both ways,
+    batched_cholesky(use_kernel=True) at its shapes and the fs shape), with
+    the launch counts zeroed before it and read after; then each kernel
+    against its plain version at those shapes and at (B=60, n=180), an
+    indefinite input's NaN pattern, and the timing rows."""
+    import torch
+    from sampling_gpmpc_torch import microbench_linalg as mb
+    from sampling_gpmpc_torch.microbench_linalg import cuda_ms
+    from sampling_gpmpc_torch.ops import batch_linalg as bl
+    from sampling_gpmpc_torch.ops import batched_chol as bc
+    for k in (bl.LAUNCHES, bc.LAUNCHES):
+        for name in k:
+            k[name] = 0
+    torch.cuda.synchronize()
+    rows = mb.run(dev, n_iter=30)
+    torch.cuda.synchronize()
+    launches = {**bl.LAUNCHES, **bc.LAUNCHES}
+    print(f"[linalg] microbench (the kernels' entry point) launches "
+          f"{launches}", flush=True)
+    if min(launches.values()) <= 0:
+        fail(f"a linalg kernel was not launched: {launches}")
+    rows.append(mb.measure(60, 180, 8, dev, n_iter=30, seed=1))
+
+    out = {"chol": [], "tri_solve": [], "batched_chol": []}
+    for r in rows:
+        B, n, m, S, R, L = r["B"], r["n"], r["m"], r["S"], r["R"], r["L"]
+        tag = f"B={B} n={n}"
+        e_c = close_report(f"chol {tag}", L, bl.chol_plain(S), LINALG_F_TOL)
+        e_t = max(close_report(f"tri_solve {tag} m={m}", r["X"],
+                               bl.tri_solve_plain(L, R), LINALG_S_TOL),
+                  close_report(f"tri_solve transposed {tag} m={m}", r["Xt"],
+                               bl.tri_solve_plain(L, R, True), LINALG_S_TOL))
+        e_b = close_report(f"batched_chol {tag}", r["Lb"],
+                           bc.batched_cholesky_plain(S), LINALG_F_TOL)
+        lib = torch.linalg.cholesky(S)
+        print(f"[linalg] {tag}: upper triangles exactly 0: chol "
+              f"{bool((torch.triu(L, 1) == 0).all())}, batched_chol "
+              f"{bool((torch.triu(r['Lb'], 1) == 0).all())}; max|chol - "
+              f"torch.linalg.cholesky| {float((L - lib).abs().max()):.3e}",
+              flush=True)
+        if not (torch.triu(L, 1) == 0).all() or \
+                not (torch.triu(r["Lb"], 1) == 0).all():
+            fail(f"linalg {tag}: non-zero upper triangle")
+        t_pc = cuda_ms(lambda: bl.chol_plain(S), n=5, warm=1, k=1)
+        t_pt = cuda_ms(lambda: bl.tri_solve_plain(L, R), n=5, warm=1, k=1)
+        t_pb = cuda_ms(lambda: bc.batched_cholesky_plain(S), n=5, warm=1,
+                       k=1)
+        bc_ms, bc_by = linalg_bound(B, n)
+        bt_ms, bt_by = linalg_bound(B, n, m)
+        common = dict(B=B, n=n)
+        out["chol"].append(dict(common, max_abs_err=e_c, ms=r["chol_ms"],
+                                plain_ms=t_pc, bound_ms=bc_ms,
+                                bound_by=bc_by, library_ms=r["chol_lib_ms"]))
+        out["tri_solve"].append(dict(
+            common, m=m, max_abs_err=e_t, ms=r["tri_ms"],
+            ms_transposed=r["tri_t_ms"], plain_ms=t_pt, bound_ms=bt_ms,
+            bound_by=bt_by, library_ms=r["tri_lib_ms"]))
+        out["batched_chol"].append(dict(
+            common, max_abs_err=e_b, ms=r["bchol_ms"], plain_ms=t_pb,
+            bound_ms=bc_ms, bound_by=bc_by, library_ms=r["chol_lib_ms"]))
+        print(f"[timing] linalg {tag} m={m}: chol kernel {r['chol_ms']:.4f} "
+              f"ms, plain {t_pc:.4f}, torch.linalg {r['chol_lib_ms']:.4f}, "
+              f"bound {bc_ms:.5f} ({bc_by}); tri_solve kernel "
+              f"{r['tri_ms']:.4f} ms (transposed {r['tri_t_ms']:.4f}), plain "
+              f"{t_pt:.4f}, torch.linalg {r['tri_lib_ms']:.4f}, bound "
+              f"{bt_ms:.5f} ({bt_by}); batched_chol kernel "
+              f"{r['bchol_ms']:.4f} ms, plain {t_pb:.4f}", flush=True)
+
+    # a pivot that goes negative mid-way: NaN from that column on, in the
+    # pattern of each TPU kernel (batch_linalg: rows below it NaN in every
+    # lower column; pallas_chol: rows from it down NaN in every column)
+    S_bad = rows[0]["S"].clone()
+    S_bad[:, 17, 17] = -1.0
+    nan_pattern_report("chol", bl.chol(S_bad), bl.chol_plain(S_bad),
+                       LINALG_F_TOL)
+    nan_pattern_report("batched_chol",
+                       bc.batched_cholesky(S_bad, use_kernel=True),
+                       bc.batched_cholesky_plain(S_bad), LINALG_F_TOL)
+    if not (torch.triu(bl.chol(S_bad), 1) == 0).all():
+        fail("linalg chol: non-zero upper triangle on an indefinite input")
+    return out, launches
+
+
+def fs_phase(dev):
+    """forward_sample_rollout at full width (params_car_residual_fs: 4000
+    value-only realizations x 50 steps, ancillary feedback), cuda float32,
+    replaying the car_residual golden's last plan and on zero inputs (as
+    bench.py's fs row), each against the same draws in cuda float64.
+    Returns sampled steps/s per run."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch.config import load_problem
+    from sampling_gpmpc_torch.envs import make_env
+    from sampling_gpmpc_torch.gp.exact import GPHyperArrays
+    from sampling_gpmpc_torch.reachability import forward_sample_rollout
+    f32, f64 = torch.float32, torch.float64
+    params, spec, data = load_problem(
+        os.path.join(HERE, "params", FS_CONFIG + ".yaml"))
+    env = make_env(spec, params)
+    T = spec.num_mpc_iter
+    if (spec.ns, T, spec.Ty) != (4000, 50, 1):
+        fail(f"{FS_CONFIG}: ns={spec.ns}, T={T}, Ty={spec.Ty}")
+    hyp = {d: GPHyperArrays.from_spec(spec.gp, dev, d) for d in (f32, f64)}
+    gp = {d: agent.init_gp_state(spec, env, dev, d, capacity=T, hyp=hyp[d])
+          for d in (f32, f64)}
+    fb = {"K": data.K_fb, "x_eq": data.goal}
+    eps = agent.truncated_normal((T, spec.ns, spec.g_ny, 1, spec.Ty),
+                                 spec.gp.beta,
+                                 torch.Generator().manual_seed(spec.seed),
+                                 dev, f64)
+    lo, hi = data.x_min, data.x_max
+    margin = 10.0 * (hi - lo)
+    U_replay = np.load(FS_GOLDEN)["last_plan_U"][:T]
+    rates = {}
+    for label, U in (("replay of the golden plan", U_replay),
+                     ("zero inputs", np.zeros((T, spec.nu)))):
+        def roll(d):
+            return forward_sample_rollout(spec, env, hyp[d], gp[d],
+                                          data.start, U, use_feedback=fb,
+                                          eps=eps.to(d))[0]
+        torch.cuda.reset_peak_memory_stats(dev)
+        X32 = roll(f32)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            roll(f32)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        X64 = roll(f64).cpu().numpy()
+        X32 = X32.double().cpu().numpy()
+        alive32 = np.isfinite(X32).all(axis=(0, 2))
+        alive = alive32 & np.isfinite(X64).all(axis=(0, 2))
+        n_bad = int((~alive32).sum())
+
+        def env_err(keep):
+            e32 = np.stack([X32[:, keep].min(1), X32[:, keep].max(1)])
+            e64 = np.stack([X64[:, keep].min(1), X64[:, keep].max(1)])
+            return float(np.abs(e32 - e64).max())
+
+        head = alive & (np.arange(spec.ns) < FS_ENV_NS)
+        env_head, env_all = env_err(head), env_err(alive)
+        per_real = float(np.abs(X32[:, alive] - X64[:, alive]).max())
+        inside = bool(np.all(X32[:, alive32] >= lo - margin)
+                      and np.all(X32[:, alive32] <= hi + margin))
+        wall = statistics.median(walls)
+        rates[label] = spec.ns * T / wall
+        env_bar = FS_JAX_ENV_FACTOR * FS_JAX_ENV[label]
+        print(f"[fs] {FS_CONFIG} {label}: ns={spec.ns} x T={T}, cuda "
+              f"float32: non-finite realizations {n_bad} (bar 1), float64 "
+              f"{int((~np.isfinite(X64).all(axis=(0, 2))).sum())}; survivors' "
+              f"per-realization max|X32 - X64| {per_real:.4e} (bar "
+              f"{FS_REAL_TOL}); envelope vs float64 over the first "
+              f"{FS_ENV_NS} {env_head:.4e} (bar {FS_ENV_TOL}), over all "
+              f"{spec.ns} {env_all:.4e} (bar {env_bar:.4f} = "
+              f"{FS_JAX_ENV_FACTOR} x the JAX float32 path's "
+              f"{FS_JAX_ENV[label]}; {FS_ENV_TOL} "
+              f"{'met' if env_all <= FS_ENV_TOL else 'NOT met'}); inside box "
+              f"+ margin {inside}", flush=True)
+        print(f"[fs] {FS_CONFIG} {label}: {rates[label]:.1f} sampled "
+              f"steps/s (ns*T / wall, warm, median of 3 rollouts: "
+              f"{[round(w, 4) for w in walls]} s); peak device memory "
+              f"{peak:.3f} GiB", flush=True)
+        if (n_bad > 1 or per_real > FS_REAL_TOL or env_head > FS_ENV_TOL
+                or env_all > env_bar or not inside):
+            fail(f"fs {label}")
+    return rates
+
+
 def main():
     try:
         import torch
@@ -433,6 +670,7 @@ def main():
     from sampling_gpmpc_torch.dempc import DEMPC, shift_solution
     from sampling_gpmpc_torch.envs import make_env
     from sampling_gpmpc_torch.gp.exact import GPHyperArrays
+    from sampling_gpmpc_torch.microbench_linalg import cuda_ms
     from sampling_gpmpc_torch.ocp import sqp
     from sampling_gpmpc_torch.ocp.spec import make_ocp_data
     from sampling_gpmpc_torch.ops import build, gp_hall, gp_sample
@@ -762,7 +1000,8 @@ def main():
     def time_gp_sample(label, kw):
         ns, Ht, R = kw["Kxm"].shape
         t_k = cuda_ms(lambda: gp_sample.sample_empty_one(**kw))
-        t_p = cuda_ms(lambda: gp_sample.sample_empty_plain(**kw), n=10)
+        t_p = cuda_ms(lambda: gp_sample.sample_empty_plain(**kw), n=10,
+                      k=1)
         cov_batch = (kw["Ktt"] + 1e-3 * torch.eye(Ht, device=dev)
                      ).contiguous()
         t_chol = cuda_ms(lambda: torch.linalg.cholesky(cov_batch))
@@ -784,7 +1023,8 @@ def main():
     for nh, kw in sorted(hall_in.items()):
         ns, Ht, Rr = kw["Kxr"].shape
         t_k = cuda_ms(lambda: gp_hall.sample_hall_one(**kw))
-        t_p = cuda_ms(lambda: gp_hall.sample_hall_plain(**kw), n=5, warm=1)
+        t_p = cuda_ms(lambda: gp_hall.sample_hall_plain(**kw), n=5, warm=1,
+                      k=1)
         C = kw["Linv"] @ kw["Arh"][..., :nh]
         S = (kw["Ahh"][:, :nh, :nh] - C.transpose(1, 2) @ C
              + kw["jitter"] * torch.eye(nh, device=dev)).contiguous()
@@ -820,6 +1060,12 @@ def main():
     results["ipm_mehrotra"]["car"] = car_mehr
     checks.timing("car warm", qp_warm_c, ws_warm_c, wv_warm_c)
 
+    # ---- 10. kernels 5-7 through their own entry point ------------------
+    linalg, launches_linalg = linalg_phase(dev)
+
+    # ---- 11. forward-sampling reachability at full width ----------------
+    fs_phase(dev)
+
     # ---- report -----------------------------------------------------------
     meta = {
         "gp_sample": ("csrc/gp_sample.cu",
@@ -844,6 +1090,27 @@ def main():
             "launches_pendulum": launches_pend[name],
             **{k: r[k] for k in keys},
             **{k: v for k, v in r.items() if k not in keys}})
+    # kernels 5-7: launches from the microbench (their entry point), times
+    # at the forward-sampling shape, every shape under "by_shape"
+    meta_linalg = {
+        "chol": ("csrc/batch_linalg.cu",
+                 "sampling_gpmpc_tpu/ops/batch_linalg.py:87"),
+        "tri_solve": ("csrc/batch_linalg.cu",
+                      "sampling_gpmpc_tpu/ops/batch_linalg.py:166"),
+        "batched_chol": ("csrc/batched_chol.cu",
+                         "sampling_gpmpc_tpu/ops/pallas_chol.py:31"),
+    }
+    for name, (src, rep) in meta_linalg.items():
+        rows = linalg[name]
+        fs_row = max(rows, key=lambda r: r["B"])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "sampling_gpmpc_torch/" + src, "replaces": rep,
+            "launches": launches_linalg[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: fs_row[k] for k in keys if k != "max_abs_err"},
+            "shape": {k: fs_row[k] for k in ("B", "n", "m") if k in fs_row},
+            "by_shape": rows})
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

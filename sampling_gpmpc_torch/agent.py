@@ -83,7 +83,14 @@ def make_epistemic(spec: ProblemSpec, generator: torch.Generator = None,
         generator = torch.Generator().manual_seed(spec.seed)
     shape = (spec.num_mpc_iter, spec.max_sqp_iter, spec.ns, spec.g_ny,
              spec.H, spec.Ty)
-    beta = torch.tensor(spec.gp.beta, dtype=torch.float64)
+    return truncated_normal(shape, spec.gp.beta, generator, device, dtype)
+
+
+def truncated_normal(shape, beta: float, generator: torch.Generator,
+                     device, dtype) -> torch.Tensor:
+    """Standard normal draws truncated to [-beta, beta], by the inverse CDF
+    of uniforms drawn on the CPU from ``generator``, then moved."""
+    beta = torch.tensor(beta, dtype=torch.float64)
     normal = torch.distributions.Normal(0.0, 1.0)
     lo, hi = normal.cdf(-beta), normal.cdf(beta)
     u = torch.rand(shape, generator=generator, dtype=torch.float64)
@@ -330,15 +337,21 @@ def filter_near_duplicates(spec: ProblemSpec, hyp: GPHyperArrays, Xt, dg,
     return newZ, newY
 
 
-def append_hall(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState, Xt, dg,
-                dist=None) -> GPState:
-    """Append this iteration's samples to the hallucination buffer."""
-    newZ, newY = filter_near_duplicates(spec, hyp, Xt, dg, dist=dist)
+def append_hall_raw(gp: GPState, newZ, newY) -> GPState:
+    """Write pre-filtered rows (ns, g_ny, P, ...) into the hallucination
+    buffer at hall_n (into copies: the caller's state stays as it was)."""
     n, P = gp.hall_n, newZ.shape[2]
     hall_Z, hall_Y = gp.hall_Z.clone(), gp.hall_Y.clone()
     hall_Z[:, :, n:n + P] = newZ
     hall_Y[:, :, n:n + P] = newY
     return gp._replace(hall_Z=hall_Z, hall_Y=hall_Y, hall_n=n + P)
+
+
+def append_hall(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState, Xt, dg,
+                dist=None) -> GPState:
+    """Append this iteration's samples to the hallucination buffer."""
+    newZ, newY = filter_near_duplicates(spec, hyp, Xt, dg, dist=dist)
+    return append_hall_raw(gp, newZ, newY)
 
 
 def dyn_linearization(spec: ProblemSpec, env: Env, xu: torch.Tensor,

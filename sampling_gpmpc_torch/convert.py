@@ -49,10 +49,13 @@ def gp_state(real_Z, real_Y, real_fact: dict, hall_Z, hall_Y, hall_n,
 
 def update_factor(uf: dict, device=None, dtype=None) -> dict:
     """The block-update factor dict of the JAX ``batched_update_factor``
-    (keys C, L_s, alpha_r, alpha_h, w_h, mask_h; leading (ns, g_ny))."""
+    (keys C, L_s, alpha_r, alpha_h, w_h, mask_h; leading (ns, g_ny)), or
+    its w-form without the alphas (C, L_s, w_h, mask_h) that the
+    forward-sampling rollout carries."""
     device, dtype = setup.resolve(device, dtype)
-    return {k: _t(uf[k], device, dtype)
-            for k in ("C", "L_s", "alpha_r", "alpha_h", "w_h", "mask_h")}
+    keys = ("C", "L_s", "w_h", "mask_h") + tuple(
+        k for k in ("alpha_r", "alpha_h") if k in uf)
+    return {k: _t(uf[k], device, dtype) for k in keys}
 
 
 def ocp_data(fields: dict, device=None, dtype=None) -> OCPData:

@@ -1,9 +1,11 @@
 // Block-level helpers shared by the port's CUDA kernels (gp_sample.cu,
-// gp_hall.cu, ipm.cu): warp/block reductions, NaN-propagating min/max
+// gp_hall.cu, ipm.cu, batch_linalg.cu, batched_chol.cu): warp/block
+// reductions, NaN-propagating min/max
 // (jnp.maximum / jnp.clip semantics, which the plain torch versions
 // reproduce with torch.maximum / torch.minimum), an in-shared-memory
-// right-looking Cholesky with one __syncthreads() per column, and the GP
-// kernels' shared draw + override tail.
+// right-looking Cholesky with one __syncthreads() per column, the batched
+// Cholesky kernels' per-matrix body, and the GP kernels' shared draw +
+// override tail.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -91,6 +93,40 @@ __device__ void chol_lower(float* A, int n, int lda, float* lbuf) {
   const float* l = lbuf + ((n - 1) & 1) * n;
   for (int a = n - 1 + tid; a < n; a += nt) A[a * lda + n - 1] = l[a];
   __syncthreads();
+}
+
+// Lower Cholesky of one n x n matrix Ai (row-major in global memory) plus
+// jitter on its diagonal, by the whole block, into Li with the upper
+// triangle zeroed.  Only the lower triangle of Ai is read; it is factored
+// in `sm` (n (n + 1) + 2 n floats of shared memory, row stride n + 1, so a
+// column read is conflict-free) by chol_lower.  A non-positive pivot at
+// column j0 writes the NaN pattern of the TPU kernel being replaced:
+// nan_whole_rows false (batch_linalg) turns NaN the columns < j0 of every
+// row > j0, the rest of the lower triangle keeping chol_lower's values
+// (NaN from column j0 on); true (pallas_chol) turns every entry of the
+// rows >= j0 NaN, the upper triangle included.
+__device__ void chol_matrix(const float* __restrict__ Ai, float* __restrict__ Li,
+                            int n, float jitter, bool nan_whole_rows, float* sm) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lda = n + 1;
+  float* sA = sm;                 // n x lda, lower triangle
+  float* lbuf = sA + n * lda;     // 2 n (column buffers of chol_lower)
+  for (int e = tid; e < n * n; e += nt) {
+    const int a = e / n, b = e % n;
+    if (b <= a) sA[a * lda + b] = Ai[e] + (a == b ? jitter : 0.f);
+  }
+  chol_lower(sA, n, lda, lbuf);   // barriers on entry and exit
+  int j0 = n;                     // first failed pivot, n if none
+  for (int j = 0; j < n; ++j) {
+    if (!isfinite(sA[j * lda + j])) { j0 = j; break; }
+  }
+  const float qnan = __int_as_float(0x7fc00000);
+  for (int e = tid; e < n * n; e += nt) {
+    const int a = e / n, b = e % n;
+    float v = b <= a ? sA[a * lda + b] : 0.f;
+    if (nan_whole_rows ? a >= j0 : (b <= a && a > j0 && b < j0)) v = qnan;
+    Li[e] = v;
+  }
 }
 
 // Pathwise draw y = mean + L eps and the override tail of one sample, in

@@ -22,6 +22,7 @@ from sampling_gpmpc_torch.gp.exact import GPHyperArrays
 from sampling_gpmpc_torch.gp.kernel import kernel_matrix
 from sampling_gpmpc_torch.ocp import sqp
 from sampling_gpmpc_torch.ocp.spec import make_ocp_data
+from sampling_gpmpc_torch.reachability import reject_and_resample
 from sampling_gpmpc_torch.utils.termcolor import bcolors
 
 
@@ -60,8 +61,13 @@ class DEMPC:
         self.epistemic = epistemic.to(dtype=self.dtype, device=self.device)
         self.recorder = recorder
         if spec.dynamics_rejection:
-            raise NotImplementedError(
-                "dynamics rejection (reachability) is not ported yet")
+            tight = params["agent"]["tight"]
+            Bd_norm = float(np.sqrt(data.P_term[1][1]))
+            self._var_eps = (float(tight["dyn_eps"])
+                             + float(tight["w_bound"])) * Bd_norm
+            self._reject_fb = ({"K": data.K_fb, "x_eq": data.goal}
+                               if spec.use_feedback else None)
+            self._reject_gen = torch.Generator().manual_seed(spec.seed + 1)
 
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a), dtype=self.dtype,
@@ -104,7 +110,7 @@ class DEMPC:
         X, U = sqp.init_iterate(spec, self.device, self.dtype, self.data.start)
         qp_ws = sqp.init_qp_ws(spec, self.device, self.dtype)
         qp_valid = torch.zeros((), dtype=torch.bool, device=self.device)
-        phys, inputs, plans, times = [], [], [], []
+        phys, inputs, plans, times, survivors = [], [], [], [], []
         qp_iters, statuses, gaps = [], [], []
         for m in range(spec.num_mpc_iter):
             t0 = time.perf_counter()
@@ -134,6 +140,16 @@ class DEMPC:
                 self.recorder.record(phys[-1], plans[-1], inputs[-1],
                                      dt_solve, self)
             x_curr = x_next.reshape(-1)
+            if spec.dynamics_rejection:
+                self.gp_state, n_alive = reject_and_resample(
+                    spec, self.env, self.hyp, self.gp_state, X, U, x_curr,
+                    self.data.ci, self._var_eps, self._reject_gen,
+                    use_feedback=self._reject_fb)
+                survivors.append(n_alive)
+                if self.verbose:
+                    # per-step survivor count (ref: src/agent.py:354,394)
+                    print(f"{bcolors.OKCYAN}Samples remaining in N(k+1): "
+                          f"{n_alive}/{spec.ns}{bcolors.ENDC}")
             if spec.shift_soln:
                 X, U = shift_solution(X, U)
 
@@ -149,4 +165,5 @@ class DEMPC:
             "qp_iters": qp_iters,
             "sqp_status_traj": statuses,
             "qp_gap_traj": gaps,
+            "rejection_survivors": survivors,
         }

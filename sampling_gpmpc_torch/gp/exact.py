@@ -11,8 +11,10 @@ alone (``predict_real``), and later iterations append each sample's
 hallucinated rows by a block Cholesky update (``condition_update``,
 ``predict_update``); both draw with ``sample_with_overrides``.  This is the
 float64/CPU reference path; the float32 CUDA path runs the fused kernels of
-``ops/gp_sample.py`` and ``ops/gp_hall.py`` instead.  Functions accept
-leading batch dimensions.
+``ops/gp_sample.py`` and ``ops/gp_hall.py`` instead.  Forward sampling
+(``reachability.py``) extends a w-form block factor by one point per step
+(``append_rows_update``) and predicts from it (``predict_from_w``), in plain
+torch on both devices.  Functions accept leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -86,6 +88,47 @@ def safe_cholesky(A: torch.Tensor, jitter: float) -> torch.Tensor:
 
 def _tri(L, B, upper=False):
     return torch.linalg.solve_triangular(L, B, upper=upper)
+
+
+def solve_tri_shared(L, R, upper: bool = False, refine: bool = False):
+    """L X = R (or L' X = R when ``upper``) for ONE lower factor L (n, n)
+    and R (..., n, m): the batch folds into the columns of a single
+    (n, batch * m) solve, so L is never broadcast over the batch.  With
+    ``refine`` one step of iterative refinement follows (see
+    ``_solve_refined``), its residual taken in the folded layout."""
+    n = L.shape[-1]
+    Rf = R if R.ndim == 2 else R.movedim(-2, 0).reshape(n, -1)
+    A = L.transpose(-1, -2) if upper else L
+    X = torch.linalg.solve_triangular(A, Rf, upper=upper)
+    if refine:
+        X = X + torch.linalg.solve_triangular(A, Rf - A @ X, upper=upper)
+    if R.ndim == 2:
+        return X
+    return X.reshape((n,) + R.shape[:-2] + R.shape[-1:]).movedim(0, -2)
+
+
+def _solve(L, B, upper: bool = False):
+    """L X = B (or L' X = B when ``upper``) for lower factors L; a 2-D L
+    is one factor shared by every batch entry of B."""
+    if L.ndim == 2:
+        return solve_tri_shared(L, B, upper)
+    return _tri(L.transpose(-1, -2) if upper else L, B, upper=upper)
+
+
+def _solve_refined(L, B, upper: bool = False):
+    """Triangular solve + one step of iterative refinement.
+
+    A float32 solve against an ill-conditioned factor carries relative
+    error ~eps*cond(L); one refinement step (its residual has no
+    cancellation, so it is float32-accurate) brings the error back to
+    ~eps, which keeps the posterior-variance subtraction Ktt - V'V of the
+    forward-sampling rollout below the true-variance scale at beta = 30.
+    """
+    if L.ndim == 2:
+        return solve_tri_shared(L, B, upper, refine=True)
+    A = L.transpose(-1, -2) if upper else L
+    x = _tri(A, B, upper=upper)
+    return x + _tri(A, B - A @ x, upper=upper)
 
 
 def factor_real(Z_r, Y_r, hyp_ls, hyp_os, noise_diag, jitter,
@@ -260,3 +303,126 @@ def sample_with_overrides(Xt, Z, Y, mean, cov, eps, hyp: GPHyperArrays,
     y = torch.minimum(torch.maximum(y, mu - hyp.beta * std),
                       mu + hyp.beta * std)
     return torch.where(torch.isfinite(y), y, mu)
+
+
+def predict_from_w(Xt, Z_r, Z_h, rf, uf, hyp_ls, hyp_os, with_grad: bool,
+                   refine: bool = False):
+    """Joint posterior from the w-form block factorization.
+
+    The math of :func:`predict_update`, with the alphas recovered from
+    (w_r, w_h) by two capacity-sized back-substitutions, so the
+    incremental-append rollout does no O(R^3) work.  ``refine=True``
+    applies one iterative-refinement step to every triangular solve
+    (needed in float32 at the forward-sampling workload's beta = 30).
+
+    Args:
+        Xt: (..., P, D); Z_r: (M_r, D); Z_h: (..., M_h, D).
+        rf: one output's real factor; uf: {"C", "L_s", "w_h", "mask_h"}
+            with the leading dimensions of Xt.
+    Returns:
+        mean (..., Ht), cov (..., Ht, Ht).
+    """
+    solve = _solve_refined if refine else _solve
+    alpha_h = solve(uf["L_s"], uf["w_h"][..., None], True)
+    alpha_r = solve(rf["L"], rf["w"][:, None] - uf["C"] @ alpha_h, True)
+    R_r = rf["mask"].shape[-1]
+    R_h = uf["mask_h"].shape[-1]
+    Zr = Z_r.expand(Xt.shape[:-2] + Z_r.shape)
+    Kall = kernel_matrix(Xt, torch.cat([Zr, Z_h, Xt], dim=-2), hyp_ls,
+                         hyp_os, with_grad)
+    Kx_r = Kall[..., :R_r] * rf["mask"]
+    Kx_h = Kall[..., R_r:R_r + R_h] * uf["mask_h"][..., None, :]
+    Ktt = Kall[..., R_r + R_h:]
+    mean = (Kx_r @ alpha_r + Kx_h @ alpha_h)[..., 0]
+    V_r = solve(rf["L"], Kx_r.transpose(-1, -2))
+    V_h = solve(uf["L_s"], Kx_h.transpose(-1, -2)
+                - uf["C"].transpose(-1, -2) @ V_r)
+    cov = (Ktt - V_r.transpose(-1, -2) @ V_r
+           - V_h.transpose(-1, -2) @ V_h)
+    return mean, 0.5 * (cov + cov.transpose(-1, -2))
+
+
+def append_rows_update(rf, uf, Z_r, Z_h, z_new, y_new, pos: int, hyp_ls,
+                       hyp_os, noise_diag, jitter, with_grad: bool,
+                       refine: bool = False) -> dict:
+    """Rank-Ty append of ONE new conditioning point to a block factor.
+
+    The O(t^2)-per-step path of iterative-conditioning rollouts: instead
+    of refactorizing the hallucination Schur block, extend the factor by
+    the new point's k = Ty rows:
+
+        C   <- [C, c],   c = L_r^-1 A_r,new
+        L_s <- [[L_s, 0], [b', D]],  b = L_s^-1 (A_h,new - C'c)
+        D   = chol(A_new,new - c'c - b'b)
+        w_h <- [w_h, D^-1 (y~_new - c'w_r - b'w_h)]
+
+    Empty buffer slots are identity rows of L_s with zero C / w_h / mask
+    entries, so the result equals :func:`condition_update` of the filled
+    buffer.  The new rows are written into ``uf``'s tensors in place (the
+    JAX package builds new arrays with dynamic_update_slice).
+
+    Args:
+        rf: one output's real factor; uf: {"C", "L_s", "w_h", "mask_h"}
+            with leading batch dimensions (...).
+        Z_h: (..., M_h, D); z_new: (..., 1, D); y_new: (..., 1, Ty) (NaN =
+            masked task, e.g. value-only rollout observations).
+        pos: row offset (filled slots * Ty) of the new rows.
+    Returns:
+        the updated ``uf`` (no alphas: predict with :func:`predict_from_w`).
+    """
+    Ty = y_new.shape[-1]
+    grad = with_grad and Ty > 1
+    y = y_new.reshape(y_new.shape[:-2] + (Ty,))
+    m_new = (~torch.isnan(y)).to(z_new.dtype)
+    y = torch.nan_to_num(y) * m_new
+    m_r = rf["mask"]
+    R_r = m_r.shape[-1]
+    R_h = uf["mask_h"].shape[-1]
+    Zr = Z_r.expand(z_new.shape[:-2] + Z_r.shape)
+    # one kernel evaluation for the real, hall and new-point blocks (the
+    # closed forms are elementwise per pair of points)
+    K_all = kernel_matrix(torch.cat([Zr, Z_h, z_new], dim=-2), z_new,
+                          hyp_ls, hyp_os, grad)
+    A_rn = m_r[:, None] * K_all[..., :R_r, :] * m_new[..., None, :]
+    A_hn = (uf["mask_h"][..., :, None] * K_all[..., R_r:R_r + R_h, :]
+            * m_new[..., None, :])
+    K_nn = K_all[..., R_r + R_h:, :] + torch.diag(noise_diag)
+    A_nn = (m_new[..., :, None] * K_nn * m_new[..., None, :]
+            + torch.diag_embed(1.0 - m_new))
+
+    solve = _solve_refined if refine else _solve
+    c = solve(rf["L"], A_rn)
+    b = solve(uf["L_s"], A_hn - uf["C"].transpose(-1, -2) @ c)
+    S = A_nn - c.transpose(-1, -2) @ c - b.transpose(-1, -2) @ b
+    # The true Schur diagonal is a posterior variance + noise > 0, but f32
+    # roundoff in the incremental c'c + b'b accumulation drives it negative
+    # over long rollouts; floor it relative to the prior variance.
+    rel = 1e-5 if z_new.dtype == torch.float32 else 1e-12
+    dS = torch.diagonal(S, dim1=-2, dim2=-1)
+    dS.copy_(torch.maximum(dS, rel * torch.diagonal(A_nn, dim1=-2,
+                                                    dim2=-1)))
+    D_blk = safe_cholesky(0.5 * (S + S.transpose(-1, -2)), jitter)
+    rhs = (y - (c.transpose(-1, -2) @ rf["w"][:, None])[..., 0]
+           - (b.transpose(-1, -2) @ uf["w_h"][..., None])[..., 0])
+    w_new = _tri(D_blk, rhs[..., None])[..., 0]
+
+    # last-resort sanitizer, per batch entry: an append that still failed
+    # numerically masks its new rows (identity block, zero couplings)
+    # instead of poisoning that realization with NaN for every later step
+    fin = lambda t, k: torch.isfinite(t).flatten(-k).all(-1)
+    ok = fin(c, 2) & fin(b, 2) & fin(D_blk, 2) & fin(w_new, 1)
+    okm = ok[..., None, None]
+    eye = torch.eye(Ty, dtype=z_new.dtype, device=z_new.device)
+    c = torch.where(okm, c, torch.zeros_like(c))
+    b = torch.where(okm, b, torch.zeros_like(b))
+    D_blk = torch.where(okm, D_blk, eye)
+    w_new = torch.where(ok[..., None], w_new, torch.zeros_like(w_new))
+    m_new = torch.where(ok[..., None], m_new, torch.zeros_like(m_new))
+
+    sl = slice(pos, pos + Ty)
+    uf["C"][..., :, sl] = c
+    uf["L_s"][..., sl, :] = b.transpose(-1, -2)
+    uf["L_s"][..., sl, sl] = D_blk
+    uf["w_h"][..., sl] = w_new
+    uf["mask_h"][..., sl] = m_new
+    return uf

@@ -23,7 +23,7 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build")
-SOURCES = ("gp_sample", "gp_hall", "ipm")
+SOURCES = ("gp_sample", "gp_hall", "ipm", "batch_linalg", "batched_chol")
 SMEM_MAX = 232448          # H100 opt-in dynamic shared memory per block (227 KB)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -8,7 +8,12 @@ Usage (on a machine with an NVIDIA GPU):
 Runs ``DEMPC.run`` four times on CUDA float32: untraced to build and warm
 up, untraced again for the wall time, under ``torch.profiler`` with CUDA
 activity only (the kernels, copies and fills on the card), and with CPU
-activity only (the host's torch ops).  Prints one JSON object:
+activity only (the host's torch ops).  With ``--fs`` the traced work is one
+forward-sampling rollout instead (``reachability.forward_sample_rollout``
+over the config's ``num_MPC_itrs`` steps on zero inputs, with the
+ancillary feedback, as ``simulate_forward_sampling`` runs it; e.g.
+``-param params_car_residual_fs --fs``), and a "step" is one propagation
+step.  Prints one JSON object:
 
 * ``wall_ms`` / ``traced_wall_ms``: host clock around the untraced / the
   CUDA-traced run, ending in a sync;
@@ -48,6 +53,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("-param", default="params_pendulum1D_samples")
     parser.add_argument("--trace-dir", default="build")
+    parser.add_argument("--fs", action="store_true",
+                        help="trace a forward-sampling rollout instead of "
+                             "the closed loop")
     args = parser.parse_args(argv)
 
     import torch
@@ -73,6 +81,28 @@ def main(argv=None):
         out = mpc.run()
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0), out
+
+    if args.fs:
+        import numpy as np
+
+        from sampling_gpmpc_torch import agent
+        from sampling_gpmpc_torch.gp.exact import GPHyperArrays
+        from sampling_gpmpc_torch.reachability import forward_sample_rollout
+        hyp = GPHyperArrays.from_spec(spec.gp, dev, torch.float32)
+        gp0 = agent.init_gp_state(spec, env, dev, torch.float32,
+                                  capacity=steps, hyp=hyp)
+        fb = ({"K": data.K_fb, "x_eq": data.goal}
+              if spec.use_feedback and data.K_fb is not None else None)
+        U = np.zeros((steps, spec.nu))
+
+        def run():
+            gen = torch.Generator().manual_seed(spec.seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward_sample_rollout(spec, env, hyp, gp0, data.start, U, gen,
+                                   use_feedback=fb)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0), None
 
     run()                                            # build + warm up
     wall_ms, out = run()
@@ -102,12 +132,16 @@ def main(argv=None):
     host = sorted(prof_cpu.key_averages(),
                   key=lambda a: -a.self_cpu_time_total)[:TOP]
 
-    print(json.dumps({
-        "config": args.param, "steps": steps,
-        "card": torch.cuda.get_device_name(0),
-        "wall_ms": wall_ms,
+    loop = {} if out is None else {
         "solve_ms_sum": 1e3 * sum(out["solver_time"]),
         "first_solve_ms": 1e3 * out["solver_time"][0],
+        "ipm_iters": out["qp_iters"]}
+    print(json.dumps({
+        "config": args.param,
+        "workload": "forward sampling" if args.fs else "closed loop",
+        "steps": steps, "ns": spec.ns,
+        "card": torch.cuda.get_device_name(0),
+        "wall_ms": wall_ms, **loop,
         "traced_wall_ms": traced_wall_ms,
         "device_busy_ms": busy_ms,
         "idle_share": (1.0 - busy_ms / wall_ms) if spans else None,
@@ -117,7 +151,6 @@ def main(argv=None):
         "top_kernels": [{"name": n, "ms": v[0], "count": v[1]}
                         for n, v in top_k],
         "host_traced_wall_ms": wall_cpu_ms,
-        "ipm_iters": out["qp_iters"],
         "host_ops": [{"name": a.key, "self_cpu_ms": a.self_cpu_time_total
                       / 1e3, "calls_per_step": a.count / steps}
                      for a in host],

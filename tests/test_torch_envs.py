@@ -1,6 +1,7 @@
-"""Pendulum1D dynamics of the port vs the JAX package (float64, 1e-12: the
-same closed forms) and its analytic Jacobians vs torch.func autodiff (the
-car's are in tests/test_torch_car.py)."""
+"""Pendulum1D and residual-car (``bicycle_Bdx``) dynamics of the port vs
+the JAX package (float64, 1e-12: the same closed forms) and their analytic
+Jacobians vs torch.func autodiff (the car's are in
+tests/test_torch_car.py)."""
 
 import os
 
@@ -78,8 +79,59 @@ def test_analytic_jacobians_match_autodiff(envs):
                                    Jg.numpy(), atol=TOL)
 
 
-@pytest.mark.parametrize("name", ["params_pendulum", "params_car_residual"])
+@pytest.mark.parametrize("name", ["params_pendulum"])
 def test_unported_envs_raise(name):
     params, spec, _ = tload(os.path.join(PDIR, name + ".yaml"))
     with pytest.raises(NotImplementedError, match="a later port slice"):
         tmake_env(spec, params)
+
+
+def _car_points(n=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(0, 70, n), rng.uniform(0, 6, n),
+                     rng.uniform(-1.1, 1.1, n), rng.uniform(9, 16, n),
+                     rng.uniform(-0.6, 0.6, n), rng.uniform(-2, 2, n)],
+                    axis=-1)                                # (n, nx+nu)
+
+
+@pytest.mark.parametrize("name", ["params_car_residual",
+                                  "params_car_residual_fs"])
+def test_car_residual_matches_jax(name):
+    """Values, g_prior Jacobians, the constant B_d, B_d_dyn = v I,
+    transform_sensitivity (Ty = 3, and the value-only Ty = 1 of the
+    forward-sampling config), the assembled rows and the training grid."""
+    path = os.path.join(PDIR, name + ".yaml")
+    jp, js, _ = jload(path)
+    tp, ts, _ = tload(path)
+    jenv, tenv = jmake_env(js, jp), tmake_env(ts, tp)
+    assert ts.env_name == "bicycle_Bdx"
+    xu = _car_points()
+    txu, jxu = torch.as_tensor(xu), jnp.asarray(xu)
+    dg = np.random.default_rng(1).normal(size=(xu.shape[0], 3, ts.Ty))
+    pairs = [
+        (jax.vmap(jenv.f_val_jac)(jxu), tenv.f_val_jac(txu)),
+        (jax.vmap(jenv.g_val)(jenv.g_inputs(jxu)),
+         tenv.g_val(tenv.g_inputs(txu))),
+        (jax.vmap(jenv.g_prior)(jenv.g_inputs(jxu)),
+         tenv.g_prior(tenv.g_inputs(txu))),
+        (jax.vmap(jenv.B_d)(jxu), tenv.B_d(txu)),
+        (jax.vmap(jenv.B_d_dyn)(jxu), tenv.B_d_dyn(txu)),
+        (jax.vmap(jenv.discrete_dyn)(jxu[:, :4], jxu[:, 4:]),
+         tenv.discrete_dyn(txu[:, :4], txu[:, 4:])),
+        (jax.vmap(jenv.transform_sensitivity)(jnp.asarray(dg), jxu),
+         tenv.transform_sensitivity(torch.as_tensor(dg), txu)),
+        (jax.vmap(jenv.assemble_val_jac)(jxu, jnp.asarray(dg)),
+         tenv.assemble_val_jac(txu, torch.as_tensor(dg))),
+    ]
+    for ref, got in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL,
+                                   rtol=TOL)
+    (jX, jY), (tX, tY) = jenv.training_grid(), tenv.training_grid()
+    assert tX.shape == (45, 2)                     # 5 phi x 9 delta
+    np.testing.assert_allclose(tX, jX, atol=TOL)
+    np.testing.assert_allclose(tY, jY, atol=TOL)
+    # g_prior's gradient entries are the Jacobians of g_val
+    for z in tenv.g_inputs(txu[:4]):
+        Jg = torch.func.jacfwd(tenv.g_val)(z)
+        np.testing.assert_allclose(tenv.g_prior(z)[:, 1:].numpy(),
+                                   Jg.numpy(), atol=TOL)

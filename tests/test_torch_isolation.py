@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from sampling_gpmpc_torch import setup
-from sampling_gpmpc_torch.ops import gp_hall, gp_sample, ipm
+from sampling_gpmpc_torch.ops import (batch_linalg, batched_chol, gp_hall,
+                                      gp_sample, ipm)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -107,6 +108,45 @@ def test_entry_points_raise_without_cuda(no_cuda):
             call()
     # an explicit CPU request runs, in float64 by default
     assert setup.resolve("cpu") == (torch.device("cpu"), torch.float64)
+
+
+def test_fs_and_microbench_entry_points_raise_without_cuda(no_cuda):
+    from sampling_gpmpc_torch import microbench_linalg
+    from sampling_gpmpc_torch import simulate_forward_sampling
+    for call in (lambda: simulate_forward_sampling.main([]),
+                 lambda: microbench_linalg.main([])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_linalg_wrappers_never_fall_back(monkeypatch):
+    """chol, tri_solve and batched_cholesky(use_kernel=True) take their
+    plain version only for a CPU tensor: at a kernel shape on another
+    device they launch or raise, with no exception handler."""
+    for mod, name in ((batch_linalg, "chol_plain"),
+                      (batch_linalg, "tri_solve_plain"),
+                      (batched_chol, "batched_cholesky_plain")):
+        monkeypatch.setattr(mod, name, _refuse)
+    meta = lambda *s: torch.empty(*s, device="meta")
+    n = batch_linalg.MIN_N
+    with pytest.raises(ValueError, match="unsupported device"):
+        batch_linalg.chol(meta(3, n, n))
+    with pytest.raises(ValueError, match="unsupported device"):
+        batch_linalg.tri_solve(meta(3, n, n), meta(3, n, 2))
+    with pytest.raises(ValueError, match="unsupported device"):
+        batched_chol.batched_cholesky(meta(3, n, n), use_kernel=True)
+    for fn, plain, cond in (
+            (batch_linalg.chol, "chol_plain(", 'A.device.type == "cpu"'),
+            (batch_linalg.tri_solve, "tri_solve_plain(",
+             'L.device.type == "cpu"'),
+            (batched_chol.batched_cholesky, "batched_cholesky_plain(",
+             'A.device.type == "cpu"')):
+        src = inspect.getsource(fn)
+        assert "try:" not in src and src.count(plain) == 1 and cond in src
+    # float64 at a kernel shape is refused, naming the dtype
+    with pytest.raises(ValueError, match="float32"):
+        batched_chol.check_supported(n, torch.float64)
+    batched_chol.check_supported(180, torch.float32)
 
 
 def test_profile_busy_time_is_the_union_of_spans():

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from sampling_gpmpc_torch.ocp import qp as qp_mod
-from sampling_gpmpc_torch.ops import gp_hall, gp_sample, ipm
+from sampling_gpmpc_torch.ops import (batch_linalg, batched_chol, gp_hall,
+                                      gp_sample, ipm)
 
 pytestmark = pytest.mark.cuda
 
@@ -141,3 +142,42 @@ def test_ipm_kernels_match_plain(dev, seed):
     np.testing.assert_allclose(warm.z.cpu().numpy(), warm_p.z.cpu().numpy(),
                                atol=2e-4)
     assert abs(int(warm.iters) - int(warm_p.iters)) <= 2
+
+
+def _close(got, ref, tol):
+    """assert_allclose at rtol = atol = tol (the JAX tests' bars)."""
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,n,m", [(64, 60, 8), (60, 180, 8),
+                                   (12000, 50, 1)])
+def test_linalg_kernels_match_plain(dev, B, n, m):
+    """Kernels 5-7 against their plain versions on the same float32
+    inputs: factors 2e-4, solves 3e-4 (tests/test_batch_linalg.py's
+    bars), upper triangles exactly zero."""
+    from sampling_gpmpc_torch.microbench_linalg import spd_inputs
+    S, R = spd_inputs(B, n, m, dev, seed=B)
+    L = batch_linalg.chol(S)
+    _close(L, batch_linalg.chol_plain(S), 2e-4)
+    assert bool((torch.triu(L, 1) == 0).all())
+    for tr in (False, True):
+        _close(batch_linalg.tri_solve(L, R, lower_factor_transposed=tr),
+               batch_linalg.tri_solve_plain(L, R, tr), 3e-4)
+    Lb = batched_chol.batched_cholesky(S, 0.1, use_kernel=True)
+    _close(Lb, batched_chol.batched_cholesky_plain(S, 0.1), 2e-4)
+    assert bool((torch.triu(Lb, 1) == 0).all())
+
+
+def test_linalg_kernels_nan_pattern(dev):
+    """A pivot that goes negative: each kernel's NaN entries are its plain
+    version's, its finite entries agree."""
+    from sampling_gpmpc_torch.microbench_linalg import spd_inputs
+    S, _ = spd_inputs(8, 40, 1, dev)
+    S[:, 11, 11] = -1.0
+    for got, ref in ((batch_linalg.chol(S), batch_linalg.chol_plain(S)),
+                     (batched_chol.batched_cholesky(S, use_kernel=True),
+                      batched_chol.batched_cholesky_plain(S))):
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        fin = torch.isfinite(ref)
+        _close(got[fin], ref[fin], 2e-4)
