@@ -28,12 +28,21 @@ params_car (ns=20, H=15, four SQP iterations, 4 soft ellipse obstacles):
 5. gp      — the GP-sample kernel at the car shape (Ht=60, R=180), each
              output, with the same two checks;
 6. gp_hall — the hall-block kernels at the fills nh = 60, 120, 180 of one
-             solve's iterations 1-3, each output: against the float64
+             solve's iterations 1-3, each output alone (the one-output
+             call) and all three outputs in one launch set (the main
+             path's call), plus all three at nh = 0: against the float64
              reference posterior (tube, 0 violations), pointwise against
-             the plain version, and a check that the pointwise bar would
-             fail a kernel that returned the mean or ignored eps;
+             the plain version of each output, and a check that the
+             pointwise bar would fail a kernel that returned the mean or
+             ignored eps;
 7. ipm     — the three IPM checks on the car's cold step-0 QP and on the
-             warm QP of SQP iteration 2;
+             warm QP of SQP iteration 2, and on seeded QPs: one too wide for
+             the Mehrotra kernel's slices to stay in shared memory (nU=20,
+             m_h=52,000, m_s=512: the streamed branch; the closed loops'
+             QPs take the resident one), and two Schur matrices wider than
+             the closed loops' (nU=64 resident, nU=128 streamed: the
+             block-wide factor and the kernel build for up to 33 Schur
+             pairs a thread);
 8. loop    — 12 teacher-forced car steps through the kernels and through
              the plain versions, against each other and against
              tests/goldens/torch_oracle_car.npz; then 12 free-running steps
@@ -126,6 +135,12 @@ CAR_STEP = 5                   # golden step whose solve feeds phases 5-7
 # Batched Cholesky / triangular-solve kernels vs their plain versions: the
 # JAX package's own bars for its kernels (tests/test_batch_linalg.py).
 LINALG_F_TOL, LINALG_S_TOL = 2e-4, 3e-4
+# A seeded QP at the pendulum's width at ns=512, too wide for the Mehrotra
+# kernel's G slices to stay in shared memory.
+WIDE_QP = (20, 52000, 512)
+# Seeded QPs whose Schur matrices are wider than the closed loops' (nU, m_h,
+# m_s, G slices resident in shared memory).
+WIDE_SCHUR_QPS = ((64, 4000, 400, True), (128, 20000, 1000, False))
 FS_CONFIG = "params_car_residual_fs"
 FS_GOLDEN = os.path.join(HERE, "tests", "goldens", "params_car_residual.npz")
 # Float32 forward sampling against float64 on the same draws, with
@@ -138,7 +153,7 @@ FS_GOLDEN = os.path.join(HERE, "tests", "goldens", "params_car_residual.npz")
 # first 256, 0.148 over 1000) and 0.184 on zero inputs
 # (tests/test_torch_reachability.py::test_f32_envelope_by_width_vs_jax).
 # So the full width is held to FS_JAX_ENV_FACTOR times the reference's own
-# reading, and its distance to 0.15 is printed, not enforced.
+# reading, and 0.15 to the first 256, the width it was written for.
 FS_REAL_TOL, FS_ENV_TOL, FS_ENV_NS = 0.25, 0.15, 256
 FS_JAX_ENV = {"replay of the golden plan": 0.213, "zero inputs": 0.184}
 FS_JAX_ENV_FACTOR = 1.2
@@ -162,15 +177,14 @@ def plain_route():
     versions (same arguments, same results), to run a reference solve on
     the same device; restored on exit."""
     from sampling_gpmpc_torch.ops import gp_hall, gp_sample, ipm
-    saved = (gp_sample.sample_empty_one, gp_hall.sample_hall_one,
-             ipm.run_full)
+    saved = (gp_sample.sample_empty_one, gp_hall.sample_hall, ipm.run_full)
     gp_sample.sample_empty_one = gp_sample.sample_empty_plain
-    gp_hall.sample_hall_one = gp_hall.sample_hall_plain
+    gp_hall.sample_hall = gp_hall.sample_hall_plain_stacked
     ipm.run_full = ipm.run_full_plain
     try:
         yield
     finally:
-        (gp_sample.sample_empty_one, gp_hall.sample_hall_one,
+        (gp_sample.sample_empty_one, gp_hall.sample_hall,
          ipm.run_full) = saved
 
 
@@ -229,6 +243,14 @@ def gp_hall_bound(ns, Ht, Rr, nh):
                   + 2 * Rr * Ht + nh ** 3 / 3 + (Ht + 1) * nh * nh
                   + Ht * (Ht + 1) * nh + 2 * Ht * nh + Ht ** 3 / 3 + Ht * Ht)
     return nbytes, flops
+
+
+def hall_output(st, j):
+    """Output j's arguments of gp_hall.sample_hall_one, from those of
+    gp_hall.sample_hall (every output stacked on a leading axis)."""
+    from sampling_gpmpc_torch.ops import gp_hall
+    return {k: (v[j] if k in gp_hall.STACKED and v is not None else v)
+            for k, v in st.items()}
 
 
 def tube_width(spec, mean64, cov64, prior_var):
@@ -324,9 +346,19 @@ class IPMChecks:
         return self.ipm.Prepared(d.H, d.g, d.Gth.T, d.dh[0], d.Gts.T,
                                  *d.sd[:6], d.qs[0], st, d.sch, d.scs)
 
-    def report(self, label, qp_args, ws, wv):
+    def report(self, label, qp_args, ws, wv, resident=True):
         import torch
         f64 = torch.float64
+        nU, m_h, m_s = (qp_args[1].shape[0], qp_args[3].shape[0],
+                        qp_args[5].shape[0])
+        lay = self.ipm.loop_layout(nU, m_h, m_s)
+        print(f"[ipm] {label}: Mehrotra kernel on a cluster of "
+              f"{self.ipm.cluster_size()} CTAs, G slices and state rows "
+              f"{'in shared memory' if lay.resident else 'streamed from global memory'}"
+              f" ({lay.smem} B of shared memory per CTA)", flush=True)
+        if lay.resident != resident:
+            fail(f"IPM {label}: expected the "
+                 f"{'resident' if resident else 'streamed'} branch")
         k, p, ex = self.solve_pair(qp_args, ws, wv)
         du = float(torch.max(torch.abs(k.z - p.z)))
         ek = float(torch.max(torch.abs(k.z.to(f64) - ex.z)))
@@ -391,10 +423,9 @@ class IPMChecks:
         print(f"[timing] ipm {label} (nU={nU}, m_h={m_h}, m_s={m_s}, "
               f"{iters} iterations): prepare kernel {t_pk:.4f} ms, plain "
               f"{t_pp:.4f} ms, bound {bp:.5f} ms ({byp}); mehrotra kernel "
-              f"{t_mk:.4f} ms, plain {t_mp:.4f} ms, bound {bm:.5f} ms "
-              f"({bym}: {mb} B, {mf:.3e} flop); one-SM L2 estimate "
-              f"4 passes x 4 B x nU x m per iteration = "
-              f"{iters * 16 * nU * m / 1e6:.2f} MB", flush=True)
+              f"{t_mk:.4f} ms, plain "
+              f"{t_mp:.4f} ms, bound {bm:.5f} ms ({bym}: {mb} B, {mf:.3e} "
+              f"flop)", flush=True)
         return (dict(ms=t_pk, plain_ms=t_pp, bound_ms=bp, bound_by=byp),
                 dict(ms=t_mk, plain_ms=t_mp, bound_ms=bm, bound_by=bym,
                      iters=iters))
@@ -635,8 +666,9 @@ def fs_phase(dev):
               f"{FS_ENV_NS} {env_head:.4e} (bar {FS_ENV_TOL}), over all "
               f"{spec.ns} {env_all:.4e} (bar {env_bar:.4f} = "
               f"{FS_JAX_ENV_FACTOR} x the JAX float32 path's "
-              f"{FS_JAX_ENV[label]}; {FS_ENV_TOL} "
-              f"{'met' if env_all <= FS_ENV_TOL else 'NOT met'}); inside box "
+              f"{FS_JAX_ENV[label]}; the first-256 bar {FS_ENV_TOL} would "
+              f"read {'met' if env_all <= FS_ENV_TOL else 'not met'} at this "
+              f"width, as the reference's own does); inside box "
               f"+ margin {inside}", flush=True)
         print(f"[fs] {FS_CONFIG} {label}: {rates[label]:.1f} sampled "
               f"steps/s (ns*T / wall, warm, median of 3 rollouts: "
@@ -673,7 +705,7 @@ def main():
     from sampling_gpmpc_torch.microbench_linalg import cuda_ms
     from sampling_gpmpc_torch.ocp import sqp
     from sampling_gpmpc_torch.ocp.spec import make_ocp_data
-    from sampling_gpmpc_torch.ops import build, gp_hall, gp_sample
+    from sampling_gpmpc_torch.ops import build, gp_hall, gp_sample, ipm
 
     dev = setup.resolve_device("cuda")
     f32, f64 = torch.float32, torch.float64
@@ -855,18 +887,33 @@ def main():
     gp_it, ws, wv = agent.reset_hall(gp_c), None, None
     car_gp_in, hall_in, qp_warm_c = None, {}, None
     gs_errs, gh_errs, gh_rels = [], [], []
+
+    def stacked_report(label, st, dps, d0s, tubes, means):
+        """All outputs in one launch set (the main path's call) against
+        the plain version of each output."""
+        dk = gp_hall.sample_hall(**st)
+        for j in range(spec_c.g_ny):
+            err, rel = gp_report(
+                "gp_hall", spec_c, f"{label}, nh={st['nh']}, all "
+                f"{spec_c.g_ny} outputs in one launch set: output {j}",
+                dk[j], dps[j], tubes[j], means[j], GP_HALL_REL_TOL, d0=d0s[j])
+            gh_errs.append(err)
+            gh_rels.append(rel)
+
     for it in range(spec_c.max_sqp_iter):
         Xt = sqp._linearization_inputs(spec_c, ocp_c, Xc, Uc)[..., gidx]
         eps_it = eps_c[CAR_STEP, it]
         gp64_it = gp_c64._replace(hall_Z=gp_it.hall_Z.to(f64),
                                   hall_Y=gp_it.hall_Y.to(f64),
                                   hall_n=gp_it.hall_n)
+        m64r, c64r = agent._batched_posterior_real(spec_c, hyp_c64, gp64_it,
+                                                   Xt.to(f64))
         if it == 0:
-            m64, c64 = agent._batched_posterior_real(spec_c, hyp_c64,
-                                                     gp64_it, Xt.to(f64))
+            m64, c64 = m64r, c64r
         else:
             m64, c64 = agent._batched_posterior_incremental(
                 spec_c, hyp_c64, gp64_it, Xt.to(f64))
+        dps, d0s, tubes = [], [], []
         for j in range(spec_c.g_ny):
             if it == 0:
                 kw = agent.empty_stage_inputs(spec_c, hyp_c, gp_it, Xt,
@@ -894,12 +941,35 @@ def main():
                 err, rel = gp_report(
                     "gp_hall", spec_c, f"car SQP iteration {it}, nh="
                     f"{kw['nh']} (Rr={kw['Kxr'].shape[-1]}, Rh="
-                    f"{kw['Kxh'].shape[-1]}) output {j}", dk, dp, tube,
-                    m64[:, j], GP_HALL_REL_TOL, d0=d0)
+                    f"{kw['Kxh'].shape[-1]}) output {j} alone", dk, dp,
+                    tube, m64[:, j], GP_HALL_REL_TOL, d0=d0)
                 gh_errs.append(err)
                 gh_rels.append(rel)
-                if j == 0:
-                    hall_in[kw["nh"]] = kw
+                dps.append(dp)
+                d0s.append(d0)
+                tubes.append(tube)
+        if it >= 1:
+            st = agent.hall_stage_inputs_all(spec_c, hyp_c, gp_it, Xt, eps_it)
+            stacked_report(f"car SQP iteration {it}", st, dps, d0s, tubes,
+                           [m64[:, j] for j in range(spec_c.g_ny)])
+            hall_in[st["nh"]] = st
+        if it == 1:
+            # the empty buffer through the hall stage: the real-data
+            # posterior
+            st = agent.hall_stage_inputs_all(
+                spec_c, hyp_c, agent.reset_hall(gp_it), Xt, eps_it)
+            one = [hall_output(st, j) for j in range(spec_c.g_ny)]
+            stacked_report(
+                "car, empty hall buffer", st,
+                [gp_hall.sample_hall_plain(**kw) for kw in one],
+                [gp_hall.sample_hall_plain(
+                    **dict(kw, eps=torch.zeros_like(kw["eps"])))
+                 for kw in one],
+                [tube_width(spec_c, m64r[:, j], c64r[:, j],
+                            one[j]["prior_var"])
+                 for j in range(spec_c.g_ny)],
+                [m64r[:, j] for j in range(spec_c.g_ny)])
+            hall_in[0] = st
         if it == 2:
             qp_warm_c, _, _, _ = sqp.assemble_qp(
                 spec_c, env_c, hyp_c, ocp_c, st_c, Xc, Uc, gp_it, eps_it)
@@ -911,7 +981,7 @@ def main():
             fail(f"car SQP iteration {it}: QP status {int(sol.status)}")
         Xc, Uc, ws, wv = Xn, Un, sol.state, sol.status == 0
     if sorted(hall_in) != [Ty_c * spec_c.H * k
-                           for k in range(1, spec_c.max_sqp_iter)]:
+                           for k in range(spec_c.max_sqp_iter)]:
         fail(f"car hall fills {sorted(hall_in)}")
     results["gp_sample"]["max_abs_err_car"] = max(gs_errs)
     results["gp_hall"].update(max_abs_err=max(gh_errs),
@@ -928,6 +998,18 @@ def main():
                          qp_warm_c, ws_warm_c, wv_warm_c)
     prep_errs.append(p)
     mehr_errs.append(d)
+    qp_wide = ipm.seeded_qp(*WIDE_QP, 3, dev)
+    p, d = checks.report(f"wide seeded QP (nU, m_h, m_s) = {WIDE_QP}",
+                         qp_wide, None, None, resident=False)
+    prep_errs.append(p)
+    mehr_errs.append(d)
+    for nU, m_h, m_s, resident in WIDE_SCHUR_QPS:
+        p, d = checks.report(
+            f"wide Schur seeded QP (nU, m_h, m_s) = {(nU, m_h, m_s)}",
+            ipm.seeded_qp(nU, m_h, m_s, 3, dev), None, None,
+            resident=resident)
+        prep_errs.append(p)
+        mehr_errs.append(d)
     results["ipm_prepare"].update(max_abs_err=max(prep_errs),
                                   err_relative_to="each field's max |plain|")
     results["ipm_mehrotra"]["max_abs_err"] = max(mehr_errs)
@@ -1020,45 +1102,62 @@ def main():
     results["gp_sample"]["car"] = time_gp_sample("car", car_gp_in)
 
     hall_rows = []
-    for nh, kw in sorted(hall_in.items()):
-        ns, Ht, Rr = kw["Kxr"].shape
-        t_k = cuda_ms(lambda: gp_hall.sample_hall_one(**kw))
-        t_p = cuda_ms(lambda: gp_hall.sample_hall_plain(**kw), n=5, warm=1,
-                      k=1)
-        C = kw["Linv"] @ kw["Arh"][..., :nh]
-        S = (kw["Ahh"][:, :nh, :nh] - C.transpose(1, 2) @ C
-             + kw["jitter"] * torch.eye(nh, device=dev)).contiguous()
-        t_chol = cuda_ms(lambda: torch.linalg.cholesky(S))
+    for nh, st in sorted(hall_in.items()):
+        no, ns, Ht, Rr = st["Kxr"].shape
+        kw0 = hall_output(st, 0)
+        t_k = cuda_ms(lambda: gp_hall.sample_hall(**st))
+        t_1 = cuda_ms(lambda: gp_hall.sample_hall_one(**kw0))
+        t_p = cuda_ms(lambda: gp_hall.sample_hall_plain_stacked(**st), n=5,
+                      warm=1, k=1)
+        C = st["Linv"][:, None] @ st["Arh"][..., :nh]
+        S = (st["Ahh"][..., :nh, :nh] - C.transpose(-1, -2) @ C
+             + st["jitter"] * torch.eye(nh, device=dev)).contiguous()
+        t_chol = cuda_ms(lambda: torch.linalg.cholesky(S)) if nh else None
         nb, fl = gp_hall_bound(ns, Ht, Rr, nh)
-        b, by = bound_ms(nb, fl)
+        b1, by1 = bound_ms(nb, fl)
+        b, by = bound_ms(no * nb, no * fl)
         print(f"[timing] gp_hall nh={nh} (ns={ns}, Ht={Ht}, Rr={Rr}, Rh="
-              f"{kw['Kxh'].shape[-1]}): kernels {t_k:.4f} ms, plain "
-              f"{t_p:.4f} ms, bound {b:.5f} ms ({by}: {nb} B, {fl:.3e} flop);"
-              f" partial yardstick torch.linalg.cholesky of the ({ns},{nh},"
-              f"{nh}) Schur batch {t_chol:.4f} ms (only the factorization)",
-              flush=True)
-        hall_rows.append(dict(nh=nh, ms=t_k, plain_ms=t_p, bound_ms=b,
-                              bound_by=by, partial_library_ms=t_chol))
+              f"{st['Kxh'].shape[-1]}): all {no} outputs in one launch set "
+              f"{t_k:.4f} ms (bound {b:.5f} ms, {by}: {no * nb} B, "
+              f"{no * fl:.3e} flop), plain {t_p:.4f} ms; one output "
+              f"{t_1:.4f} ms (bound {b1:.5f} ms); partial yardstick "
+              f"torch.linalg.cholesky of "
+              f"the ({no * ns},{nh},{nh}) Schur batch "
+              f"{'-' if t_chol is None else f'{t_chol:.4f} ms'} (only the "
+              f"factorization)", flush=True)
+        hall_rows.append(dict(nh=nh, ms=t_k, ms_one_output=t_1,
+                              plain_ms=t_p, bound_ms=b, bound_by=by,
+                              bound_ms_one_output=b1,
+                              partial_library_ms=t_chol))
     per_step = launches_car["gp_hall"] / n_car
-    print(f"[timing] gp_hall launches per car MPC step {per_step} "
-          f"({spec_c.g_ny} outputs x {spec_c.max_sqp_iter - 1} hall "
-          f"iterations when every step runs {spec_c.max_sqp_iter})",
-          flush=True)
+    hall_its = sum(k - 1 for k in sqp_its) / n_car
+    print(f"[timing] gp_hall launches per car MPC step {per_step} (one stage "
+          f"call per hall iteration, all {spec_c.g_ny} outputs: "
+          f"{hall_its} hall iterations per step in this run)", flush=True)
     top = hall_rows[-1]
     results["gp_hall"].update(
         ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
         bound_by=top["bound_by"], library_ms=None,
+        ms_one_output=top["ms_one_output"],
         partial_library_ms=top["partial_library_ms"], nh=top["nh"],
-        by_fill=hall_rows, launches_per_mpc_step=per_step)
+        by_fill=hall_rows,
+        launches_per_mpc_step=per_step)
 
     prep_t, mehr_t = checks.timing("pendulum cold", qp0, None, None)
     results["ipm_prepare"].update(prep_t, library_ms=None)
     results["ipm_mehrotra"].update(mehr_t, library_ms=None)
-    checks.timing("pendulum warm", qpm, sa.qp_ws, sa.qp_valid)
+    _, pend_warm_mehr = checks.timing("pendulum warm", qpm, sa.qp_ws,
+                                      sa.qp_valid)
+    results["ipm_mehrotra"]["pendulum_warm"] = pend_warm_mehr
     car_prep, car_mehr = checks.timing("car cold", qp0_c, None, None)
     results["ipm_prepare"]["car"] = car_prep
     results["ipm_mehrotra"]["car"] = car_mehr
-    checks.timing("car warm", qp_warm_c, ws_warm_c, wv_warm_c)
+    _, car_warm_mehr = checks.timing("car warm", qp_warm_c, ws_warm_c,
+                                     wv_warm_c)
+    _, wide_mehr = checks.timing("wide seeded QP, streamed", qp_wide, None,
+                                 None)
+    results["ipm_mehrotra"].update(car_warm=car_warm_mehr,
+                                   wide_streamed=wide_mehr)
 
     # ---- 10. kernels 5-7 through their own entry point ------------------
     linalg, launches_linalg = linalg_phase(dev)

@@ -176,21 +176,31 @@ def hall_stage_inputs(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
         beta=hyp.beta, var_zero=hyp.variance_is_zero, rel_floor=1e-5, ty=Ty)
 
 
+def hall_stage_inputs_all(spec: ProblemSpec, hyp: GPHyperArrays,
+                          gp: GPState, Xt, eps, md=None) -> dict:
+    """Arguments of ``gp_hall.sample_hall``: every output's
+    :func:`hall_stage_inputs` stacked on a leading output axis, with the
+    min-dist override rows ``md`` = (close, ynear), each (ns, g_ny, Ht), or
+    None."""
+    kws = [hall_stage_inputs(spec, hyp, gp, Xt, eps, j)
+           for j in range(spec.g_ny)]
+    out = {k: (torch.stack([kw[k] for kw in kws]) if k in gp_hall.STACKED
+               else v) for k, v in kws[0].items()}
+    if md is not None:
+        out.update(close=md[0].transpose(0, 1).contiguous(),
+                   ynear=md[1].transpose(0, 1).contiguous())
+    return out
+
+
 def _fused_sample_hall(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
                        Xt, eps, md=None):
     """Hall-block GP stage (SQP iterations >= 1) through the fused kernels
-    (ops/gp_hall.py): block-Cholesky pieces, Schur factorization,
-    substitution, covariance Cholesky, pathwise draw and override tail in
-    one launch set per output."""
-    dgs = []
-    for j in range(spec.g_ny):
-        kw = hall_stage_inputs(spec, hyp, gp, Xt, eps, j)
-        if md is not None:
-            kw.update(close=md[0][:, j].contiguous(),
-                      ynear=md[1][:, j].contiguous())
-        dg_j = gp_hall.sample_hall_one(**kw)
-        dgs.append(dg_j.reshape(spec.ns, spec.H, spec.Ty))
-    return torch.stack(dgs, dim=1)                       # (ns, g_ny, H, Ty)
+    (ops/gp_hall.py): the products, one blocked Cholesky of each bordered
+    matrix, pathwise draw and override tail, every output in one launch
+    set."""
+    dg = gp_hall.sample_hall(**hall_stage_inputs_all(spec, hyp, gp, Xt, eps,
+                                                     md))
+    return dg.transpose(0, 1).reshape(spec.ns, spec.g_ny, spec.H, spec.Ty)
 
 
 def _output_factor(gp: GPState, j: int) -> dict:

@@ -132,16 +132,18 @@ __device__ void chol_matrix(const float* __restrict__ Ai, float* __restrict__ Li
 // Pathwise draw y = mean + L eps and the override tail of one sample, in
 // exactly pallas_gp._override_tail's order: relative variance floor, zero
 // variance -> mean (Ty>1: all tasks of the point), min-dist -> nearest
-// train row, beta clip, non-finite -> mean.  L (lower, row stride ldl),
-// mean and var (the posterior variance, floored here in place) sit in
-// shared memory; close/ynear are null when the min-dist override is off.
-// Every thread of the block must call it (one barrier inside).
-__device__ void draw_override_tail(const float* L, int ldl, const float* mean,
-                                   float* var, const float* eps,
-                                   const float* pv, const float* close,
-                                   const float* ynear, float* dg, int Ht,
-                                   int ty, float beta, float var_zero,
-                                   float rel_floor) {
+// train row, beta clip, non-finite -> mean.  L (lower, read as L(t, s) for
+// s <= t through the accessor), mean and var (the posterior variance,
+// floored here in place) sit in shared memory; close/ynear are null when
+// the min-dist override is off.  Every thread of the block must call it
+// (one barrier inside).
+template <class LAt>
+__device__ void draw_override_tail_at(const LAt& L, const float* mean,
+                                      float* var, const float* eps,
+                                      const float* pv, const float* close,
+                                      const float* ynear, float* dg, int Ht,
+                                      int ty, float beta, float var_zero,
+                                      float rel_floor) {
   const int tid = threadIdx.x, nt = blockDim.x;
   // variance floors first: the zero-variance group test reads neighbours
   for (int t = tid; t < Ht; t += nt) {
@@ -152,7 +154,7 @@ __device__ void draw_override_tail(const float* L, int ldl, const float* mean,
   __syncthreads();
   for (int t = tid; t < Ht; t += nt) {
     float d = 0.f;
-    for (int s = 0; s <= t; ++s) d = fmaf(eps[s], L[t * ldl + s], d);
+    for (int s = 0; s <= t; ++s) d = fmaf(eps[s], L(t, s), d);
     const float mu = mean[t];
     const float v = var[t];
     float y = mu + d;
@@ -171,6 +173,23 @@ __device__ void draw_override_tail(const float* L, int ldl, const float* mean,
     y = nclip(y, mu - beta * sd, mu + beta * sd);
     dg[t] = isfinite(y) ? y : mu;
   }
+}
+
+// Row-major lower factor with row stride ld.
+struct RowMajor {
+  const float* L;
+  int ld;
+  __device__ float operator()(int t, int s) const { return L[t * ld + s]; }
+};
+
+__device__ inline void draw_override_tail(const float* L, int ldl, const float* mean,
+                                          float* var, const float* eps,
+                                          const float* pv, const float* close,
+                                          const float* ynear, float* dg, int Ht,
+                                          int ty, float beta, float var_zero,
+                                          float rel_floor) {
+  draw_override_tail_at(RowMajor{L, ldl}, mean, var, eps, pv, close, ynear, dg, Ht,
+                        ty, beta, var_zero, rel_floor);
 }
 
 }  // namespace sgp

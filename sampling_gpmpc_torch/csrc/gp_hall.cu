@@ -1,65 +1,82 @@
-// Fused hall-block GP function-sample stage (SQP iterations >= 1), one output.
+// Fused hall-block GP function-sample stage (SQP iterations >= 1), every GP
+// output in one launch set.
 //
 // Replaces the Pallas TPU kernel sampling_gpmpc_tpu/ops/pallas_gp.py::_hall_kernel
-// (launched by sample_hall_one).  Per sample i, with the masked kernel blocks
-// evaluated outside (Kxr_i Ht x Rr, Kxh_i Ht x Rh, Ktt_i, Arh_i Rr x Rh,
-// Ahh_i Rh x Rh with noise and identity fill, yh_i) and the fixed real factor
-// as Linv = L_r^-1 and w_r = L_r^-1 y_r:
-//   C   = Linv Arh_i                 V_r = Linv Kxr_i'
-//   S   = Ahh_i - C'C + jitter I     L_s = chol(S)
-//   W   = [Kxh_i - V_r'C; yh_i - w_r C] L_s^-T       (rows Vh', w_h)
-//   cov = Ktt_i - V_r'V_r - Vh'Vh + jitter I,  var = diag(cov) - jitter
-//   mean = w_r V_r + w_h Vh,  L = chol(cov),  y = mean + L eps_i
-//   then the override tail (sgp::draw_override_tail).
+// (launched by sample_hall_one, once per output).  Per output o and sample
+// i, with the masked kernel blocks evaluated outside (Kxr Ht x Rr, Kxh
+// Ht x Rh, Ktt, Arh Rr x Rh, Ahh Rh x Rh with noise and identity fill, yh)
+// and the fixed real factor of output o as Linv = L_r^-1 and w_r = L_r^-1 y_r:
+//   C = Linv Arh,  V_r = Linv Kxr',  S = Ahh - C'C + jitter I,
+//   B = [Kxh - V_r'C; yh - w_r C],   K = [[Ktt - V_r'V_r + jitter I, -V_r'w_r],
+//                                         [-w_r'V_r, 0]]
+// and one blocked Cholesky of the bordered matrix M = [[S, B'], [B, K]]:
+//   its first nh columns give L_s and, below them, B L_s^-T = [Vh'; w_h];
+//   their trailing update leaves cov = Ktt - V_r'V_r - Vh'Vh + jitter I in
+//   the K block and -mean (mean = w_r V_r + w_h Vh) in its bordering row;
+//   the next Ht columns, bordering row left out, give L = chol(cov);
+// then y = mean + L eps and the override tail (sgp::draw_override_tail_at).
 // Only the first nh = hall_n * Ty hall rows take part: the rows past the
 // fill are identity rows of S with zero couplings (empty slots are masked),
-// so their Cholesky and substitution steps are exact no-ops for everything
-// read later and their W columns are exactly zero (pallas_gp.py:315-319).
-// No escalating-jitter retry: a non-positive pivot gives NaN, which lands on
-// the non-finite -> mean backstop.
+// whose elimination steps are exact no-ops for everything read later
+// (pallas_gp.py:315-319).  No escalating-jitter retry: a non-positive pivot
+// gives NaN, which spreads through the later columns exactly as in a
+// column-by-column sweep and lands on the non-finite -> mean backstop.
 //
-// What bounds it on the H100.  At the car shape (ns=20, Ht=60, Rr=180,
-// nh=180) the products C, V_r, C'C, V_r'C and V_r'V_r are ~26 MFLOP per
-// sample, ~0.5 GFLOP per launch set: ~8 us at the float32 rate, while the
-// inputs (mostly Arh and Ahh at the 240-row capacity) are ~9 MB, ~3 us at
-// HBM rate: operation-bound on paper.  In practice the two Cholesky sweeps
-// and the substitution sweep are chains of nh + nh + Ht dependent column
-// steps of one CTA each, so the stage is latency-bound.  The design:
-//   1. hall_gemm_kernel (two launches) runs the products as batched 32x32
-//      tiles over every (sample, tile) at once, into a per-sample workspace
-//      in global memory (~7 MB at the car shape, L2-resident): launch 1
-//      forms C and V_r', launch 2 the Schur block S, W's first Ht rows and
-//      Ktt - V_r'V_r, each with its base block subtracted in the epilogue;
-//   2. gp_hall_factor_kernel, one CTA per sample, loads S (nh x nh), W and
-//      the covariance into shared memory (~191 KB at nh=180, opt-in), forms
-//      W's last row and the real-data mean, factors S, runs the
-//      substitution, folds, factors the covariance, draws and writes dg
-//      once.  Every sweep is right-looking with the next column finalized
-//      during the update (one barrier per column).
-// A fill whose factor stage does not fit one CTA's shared memory (nh above
-// ~200 at Ht=60, e.g. the full 240-row capacity) is refused by the wrapper
-// (ops/gp_hall.py check_supported).  The TPU's VMEM chunking over samples
-// (_hall_ns_chunk) is not needed.
+// What bounds it on the H100.  At the car shape (3 outputs x ns=20, Ht=60,
+// Rr=180, nh=180) the products C, V_r, C'C, V_r'C and V_r'V_r are ~26 MFLOP
+// per (output, sample), ~1.6 GFLOP per stage: ~24 us at the float32 rate,
+// against ~27 MB of inputs (~8 us at HBM rate): operation-bound on paper.
+// The factorization is a chain of dependent steps, so the design cuts the
+// chain and keeps every step busy:
+//   1. hall_gemm_kernel (two launches) runs the products as batched 64x64
+//      output tiles, 4x4 register tiles per thread, over every (output,
+//      sample, tile) at once, into a workspace in global memory (~22 MB at
+//      the car shape, L2-resident): launch 1 forms C and V_r', launch 2 the
+//      lower tiles of S, B (its last row yh - w_r C too), the lower tiles
+//      of Ktt - V_r'V_r and the real-data mean V_r'w_r, each with its base
+//      block subtracted in the epilogue;
+//   2. gp_hall_factor_kernel, one CTA per (output, sample), holds the lower
+//      triangle of M as 32x32 tiles (row stride 33: column reads are
+//      conflict-free) in opt-in shared memory, ~152 KB at nh=180, S's last
+//      tile padded to a whole tile by identity rows so the covariance
+//      starts on a tile boundary.  Each 32-column panel is three steps with
+//      one block barrier each: one warp factors the diagonal tile with its
+//      rows in registers (warp_chol32); one thread per row below solves
+//      that row against it in registers; the trailing lower tiles take
+//      P_I P_J' as 4x4
+//      register-tiled FFMA, 64 threads per tile.  ~24 barriers at nh=180
+//      where a column sweep takes ~420.
+// A stage whose tiles do not fit one CTA's shared memory (nh above ~224 at
+// Ht=60, e.g. the full 240-row capacity) is refused by the wrapper
+// (ops/gp_hall.py check_supported).  Full float32 throughout: no TF32.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TILE = 32;
+constexpr int GT = 64;              // product output tile
+constexpr int GK = 16;              // product depth step
 constexpr int GEMM_THREADS = 256;
-constexpr int FACTOR_THREADS = 512;
-constexpr int MAX_JOBS = 3;
+constexpr int TB = 32;              // factor tile and panel width
+constexpr int TLD = TB + 1;         // tile row stride
+constexpr int TILE_FLOATS = TB * TLD;
+constexpr int FACTOR_THREADS = 256;
+constexpr int MAX_JOBS = 5;
 
 // out[b][m][n] = base[b][m][n] + alpha * sum_k A[b](m, k) B[b](k, n)
 //               + (m == n ? diag : 0)
 // with every operand addressed by its strides (a transposed operand is a
-// swap of strides) and base optional.
+// swap of strides); operand X of batch b sits at X + (b / dX) * sXb (dX = 1
+// for a per-sample block, ns for a per-output one); base optional; lower
+// skips the output tiles wholly above the diagonal (their entries are
+// never read).
 struct GemmJob {
-  const float* A; long long sAb; int sAm, sAk;
-  const float* B; long long sBb; int sBk, sBn;
+  const float* A; long long sAb; int dA, sAm, sAk;
+  const float* B; long long sBb; int dB, sBk, sBn;
   const float* D; long long sDb; int sDm;
   float* O; long long sOb; int sOm;
   int M, N, K;
   float alpha, diag;
+  int lower;
   int tiles_m, tiles_n, first_tile;
 };
 
@@ -70,53 +87,64 @@ struct GemmJobs {
 
 __global__ void __launch_bounds__(GEMM_THREADS)
 hall_gemm_kernel(GemmJobs jobs, int nbatch) {
-  __shared__ float As[TILE][TILE + 1];   // As[k][m]
-  __shared__ float Bs[TILE][TILE + 1];   // Bs[k][n]
+  __shared__ float As[GK][GT + 4];   // As[k][m]
+  __shared__ float Bs[GK][GT + 4];   // Bs[k][n]
   int q = 0;
   while (q + 1 < jobs.n && (int)blockIdx.x >= jobs.job[q + 1].first_tile) ++q;
   const GemmJob& jb = jobs.job[q];
   const int per_b = jb.tiles_m * jb.tiles_n;
   const int local = blockIdx.x - jb.first_tile;
   const int b = local / per_b, rem = local % per_b;
-  const int m0 = (rem / jb.tiles_n) * TILE, n0 = (rem % jb.tiles_n) * TILE;
-  if (b >= nbatch) return;
-  const float* A = jb.A + b * jb.sAb;
-  const float* B = jb.B + b * jb.sBb;
+  const int m0 = (rem / jb.tiles_n) * GT, n0 = (rem % jb.tiles_n) * GT;
+  if (b >= nbatch || (jb.lower && n0 > m0 + GT - 1)) return;
+  const float* A = jb.A + (b / jb.dA) * jb.sAb;
+  const float* B = jb.B + (b / jb.dB) * jb.sBb;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  float acc[4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
 
-  for (int k0 = 0; k0 < jb.K; k0 += TILE) {
-    for (int e = tid; e < TILE * TILE; e += GEMM_THREADS) {
+  for (int k0 = 0; k0 < jb.K; k0 += GK) {
+#pragma unroll
+    for (int r = 0; r < GT * GK / GEMM_THREADS; ++r) {
+      const int e = tid + r * GEMM_THREADS;
       // the fast index follows the operand's unit stride (coalesced loads)
       int mm, kk;
-      if (jb.sAk == 1) { kk = e % TILE; mm = e / TILE; }
-      else { mm = e % TILE; kk = e / TILE; }
+      if (jb.sAk == 1) { kk = e % GK; mm = e / GK; }
+      else { mm = e % GT; kk = e / GT; }
       const int m = m0 + mm, k = k0 + kk;
       As[kk][mm] = (m < jb.M && k < jb.K)
                        ? A[(long long)m * jb.sAm + (long long)k * jb.sAk] : 0.f;
       int nn;
-      if (jb.sBk == 1) { kk = e % TILE; nn = e / TILE; }
-      else { nn = e % TILE; kk = e / TILE; }
+      if (jb.sBk == 1) { kk = e % GK; nn = e / GK; }
+      else { nn = e % GT; kk = e / GT; }
       const int n = n0 + nn, k2 = k0 + kk;
       Bs[kk][nn] = (n < jb.N && k2 < jb.K)
                        ? B[(long long)k2 * jb.sBk + (long long)n * jb.sBn] : 0.f;
     }
     __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < TILE; ++kk) {
-      const float a0 = As[kk][ty], a1 = As[kk][ty + 16];
-      const float b0 = Bs[kk][tx], b1 = Bs[kk][tx + 16];
-      acc[0][0] = fmaf(a0, b0, acc[0][0]);
-      acc[0][1] = fmaf(a0, b1, acc[0][1]);
-      acc[1][0] = fmaf(a1, b0, acc[1][0]);
-      acc[1][1] = fmaf(a1, b1, acc[1][1]);
+#pragma unroll
+    for (int kk = 0; kk < GK; ++kk) {
+      float a[4], bb[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) a[u] = As[kk][ty + 16 * u];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) bb[v] = Bs[kk][tx + 16 * v];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(a[u], bb[v], acc[u][v]);
     }
     __syncthreads();
   }
-  for (int u = 0; u < 2; ++u) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
     const int m = m0 + ty + 16 * u;
     if (m >= jb.M) continue;
-    for (int v = 0; v < 2; ++v) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
       const int n = n0 + tx + 16 * v;
       if (n >= jb.N) continue;
       const float base = jb.D ? jb.D[b * jb.sDb + (long long)m * jb.sDm + n] : 0.f;
@@ -127,172 +155,267 @@ hall_gemm_kernel(GemmJobs jobs, int nbatch) {
   }
 }
 
-__global__ void __launch_bounds__(FACTOR_THREADS)
-gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww,
-                      const float* __restrict__ Gw, const float* __restrict__ Cw,
-                      const float* __restrict__ VTw, const float* __restrict__ yh,
-                      const float* __restrict__ w_r, const float* __restrict__ eps,
-                      const float* __restrict__ pv, const float* __restrict__ close,
-                      const float* __restrict__ ynear, float* __restrict__ dg,
-                      int Ht, int Rr, int Rh, int nh, int ty, float jitter,
-                      float beta, float var_zero, float rel_floor) {
-  extern __shared__ float sm[];
-  const int i = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int lds = nh + 1, ldw = nh + 1, ldh = Ht + 1;
-  float* sS = sm;                      // nh x lds: S, then L_s (lower)
-  float* sW = sS + nh * lds;           // (Ht + 1) x ldw: W, then W L_s^-T
-  float* sC = sW + (Ht + 1) * ldw;     // Ht x ldh: cov, then L (lower)
-  float* sMean = sC + Ht * ldh;        // Ht
-  float* sVar = sMean + Ht;            // Ht
-  float* sL2 = sVar + Ht;              // 2 max(nh, Ht) column buffers
+// The lower triangle of an n x n matrix as 32x32 tiles, tile (I, J), I >= J,
+// at index I (I + 1) / 2 + J.
+struct Tiles {
+  float* T;
+  __device__ float* tile(int I, int J) const {
+    return T + (I * (I + 1) / 2 + J) * TILE_FLOATS;
+  }
+  __device__ float& at(int r, int c) const {
+    return tile(r / TB, c / TB)[(r % TB) * TLD + c % TB];
+  }
+};
 
-  const float* S_i = Sw + (size_t)i * nh * nh;
-  const float* W_i = Ww + (size_t)i * Ht * nh;
-  const float* G_i = Gw + (size_t)i * Ht * Ht;
-  const float* C_i = Cw + (size_t)i * Rr * nh;
-  const float* VT_i = VTw + (size_t)i * Ht * Rr;
-  for (int e = tid; e < nh * nh; e += nt) {
-    const int a = e / nh, c = e % nh;
-    if (c <= a) sS[a * lds + c] = S_i[e];
-  }
-  for (int e = tid; e < Ht * nh; e += nt) sW[(e / nh) * ldw + e % nh] = W_i[e];
-  for (int e = tid; e < Ht * Ht; e += nt) {
-    const int a = e / Ht, c = e % Ht;
-    if (c <= a) sC[a * ldh + c] = G_i[e];
-  }
-  // W's last row yh - w_r C and the real-data mean w_r V_r
-  const float* yh_i = yh + (size_t)i * Rh;
-  for (int c = tid; c < nh; c += nt) {
-    float acc = 0.f;
-    for (int r = 0; r < Rr; ++r) acc = fmaf(w_r[r], C_i[(size_t)r * nh + c], acc);
-    sW[Ht * ldw + c] = yh_i[c] - acc;
-  }
-  for (int t = tid; t < Ht; t += nt) {
-    const float* vt = VT_i + (size_t)t * Rr;
-    float acc = 0.f;
-    for (int r = 0; r < Rr; ++r) acc = fmaf(vt[r], w_r[r], acc);
-    sMean[t] = acc;
-  }
-  __syncthreads();
+// The covariance factor inside the tiles, as the draw reads it.
+struct TiledAt {
+  Tiles M;
+  int off;
+  __device__ float operator()(int t, int s) const { return M.at(off + t, off + s); }
+};
 
-  if (nh > 0) {
-    sgp::chol_lower(sS, nh, lds, sL2);    // barriers on entry and exit
-
-    // W <- W L_s^-T, right-looking over columns: column j is final when
-    // step j starts; step j subtracts it from every later column and
-    // finalizes column j+1 (its last update) in the same pass.
-    const int nw = Ht + 1;
-    for (int t = tid; t < nw; t += nt) sW[t * ldw] = sW[t * ldw] / sS[0];
-    __syncthreads();
-    for (int j = 0; j + 1 < nh; ++j) {
-      const int m = nh - 1 - j;
-      const float djn = sS[(j + 1) * lds + j + 1];
-      for (int e = tid; e < nw * m; e += nt) {
-        const int t = e / m, k = j + 1 + e % m;
-        float v = sW[t * ldw + k] - sW[t * ldw + j] * sS[k * lds + j];
-        if (k == j + 1) v = v / djn;
-        sW[t * ldw + k] = v;
+// In-place lower Cholesky of an n x n matrix (n <= 32) whose lower triangle
+// sits in shared memory A (row stride lda), by one warp with the rows in
+// registers (lane i holds row i; column j's entries come from the other
+// lanes by shuffles): no barrier and no shared-memory traffic inside the
+// sweep.  The same right-looking arithmetic as sgp::chol_lower: column j is
+// scaled by 1/sqrt(pivot), the diagonal becomes pivot/sqrt(pivot); a
+// non-positive pivot yields NaN from that column on.  Only the lower
+// triangle is read and written.  Every lane of the warp must call it.
+__device__ __forceinline__ void warp_chol32(float* A, int lda, int n) {
+  const int lane = threadIdx.x & 31;
+  float a[32];
+#pragma unroll
+  for (int c = 0; c < 32; ++c) a[c] = (c <= lane && lane < n) ? A[lane * lda + c] : 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (j < n) {
+      const float d = __shfl_sync(0xffffffffu, a[j], j);
+      const float r = 1.0f / sqrtf(d);
+      a[j] = lane == j ? d * r : a[j] * r;
+#pragma unroll
+      for (int c = j + 1; c < 32; ++c) {
+        const float lc = __shfl_sync(0xffffffffu, a[j], c);
+        if (c < n) a[c] = fmaf(-a[j], lc, a[c]);
       }
-      __syncthreads();
     }
   }
-
-  // fold: cov -= Vh'Vh (+ jitter on the diagonal), mean += w_h Vh
-  for (int e = tid; e < Ht * Ht; e += nt) {
-    const int a = e / Ht, c = e % Ht;
-    if (c > a) continue;
-    const float* wa = sW + a * ldw;
-    const float* wc = sW + c * ldw;
-    float g = 0.f;
-    for (int k = 0; k < nh; ++k) g = fmaf(wa[k], wc[k], g);
-    const float s = sC[a * ldh + c] - g + (a == c ? jitter : 0.f);
-    sC[a * ldh + c] = s;
-    if (a == c) sVar[a] = s - jitter;
-  }
-  for (int t = tid; t < Ht; t += nt) {
-    const float* wt = sW + t * ldw;
-    const float* wy = sW + Ht * ldw;
-    float acc = 0.f;
-    for (int k = 0; k < nh; ++k) acc = fmaf(wt[k], wy[k], acc);
-    sMean[t] += acc;
-  }
-  sgp::chol_lower(sC, Ht, ldh, sL2);       // barriers on entry and exit
-
-  const size_t row = (size_t)i * Ht;
-  sgp::draw_override_tail(sC, ldh, sMean, sVar, eps + row, pv,
-                          close ? close + row : nullptr,
-                          ynear ? ynear + row : nullptr, dg + row, Ht, ty, beta,
-                          var_zero, rel_floor);
+#pragma unroll
+  for (int c = 0; c < 32; ++c)
+    if (c <= lane && lane < n) A[lane * lda + c] = a[c];
+  __syncwarp();
 }
 
-GemmJob job(const float* A, long long sAb, int sAm, int sAk, const float* B,
-            long long sBb, int sBk, int sBn, const float* D, long long sDb,
+// One panel of the right-looking blocked Cholesky: columns 32k .. 32k+nc-1
+// of the rows < nrows (nc < 32 only on a last panel, which has no rows
+// below it).  Three block barriers.
+__device__ void factor_panel(const Tiles& M, int k, int nrows) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int c0 = k * TB, nc = min(TB, nrows - c0);
+  float* D = M.tile(k, k);
+  // (a) the diagonal tile in one warp, its rows in registers
+  if (tid < 32) warp_chol32(D, TLD, nc);
+  __syncthreads();
+  const int nrow_below = nrows - c0 - TB;
+  if (nrow_below <= 0) return;
+  // (b) every row below the tile: x <- x L_kk^-T, in registers
+  for (int rr = tid; rr < nrow_below; rr += nt) {
+    const int r = c0 + TB + rr;
+    float* row = M.tile(r / TB, k) + (r % TB) * TLD;
+    float x[TB];
+#pragma unroll
+    for (int j = 0; j < TB; ++j) x[j] = row[j];
+#pragma unroll
+    for (int j = 0; j < TB; ++j) {
+      x[j] = x[j] / D[j * TLD + j];
+#pragma unroll
+      for (int c = j + 1; c < TB; ++c) x[c] = fmaf(-x[j], D[c * TLD + j], x[c]);
+    }
+#pragma unroll
+    for (int j = 0; j < TB; ++j) row[j] = x[j];
+  }
+  __syncthreads();
+  // (c) trailing lower tiles (I, J), k < J <= I: T_IJ -= P_I P_J'
+  const int tl = (nrows + TB - 1) / TB, m = tl - k - 1;
+  const int jobs = m * (m + 1) / 2 * 64;
+  for (int e = tid; e < jobs; e += nt) {
+    const int q = e / 64, t = e % 64;
+    int a = (int)((sqrtf(8.f * q + 1.f) - 1.f) * 0.5f);
+    while ((a + 1) * (a + 2) / 2 <= q) ++a;
+    while (a * (a + 1) / 2 > q) --a;
+    const int I = k + 1 + a, J = k + 1 + (q - a * (a + 1) / 2);
+    const float* PI = M.tile(I, k);
+    const float* PJ = M.tile(J, k);
+    float* O = M.tile(I, J);
+    const int ty = t / 8, tx = t % 8;
+    float acc[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+#pragma unroll 8
+    for (int kk = 0; kk < TB; ++kk) {
+      float pa[4], pb[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) pa[u] = PI[(ty + 8 * u) * TLD + kk];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) pb[v] = PJ[(tx + 8 * v) * TLD + kk];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(pa[u], pb[v], acc[u][v]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) O[(ty + 8 * u) * TLD + tx + 8 * v] -= acc[u][v];
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(FACTOR_THREADS)
+gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww,
+                      const float* __restrict__ Gw, const float* __restrict__ Bw,
+                      const float* __restrict__ MRw, const float* __restrict__ eps,
+                      const float* __restrict__ pv, const float* __restrict__ close,
+                      const float* __restrict__ ynear, float* __restrict__ dg,
+                      int ns, int Ht, int nh, int ty, float jitter,
+                      float beta, float var_zero, float rel_floor) {
+  extern __shared__ float sm[];
+  const int b = blockIdx.x, o = b / ns, tid = threadIdx.x, nt = blockDim.x;
+  const int nhp = (nh + TB - 1) / TB * TB;     // S padded to whole tiles
+  const int n2 = nhp + Ht, ntot = n2 + 1;      // covariance end, bordering row
+  const int nt_tiles = (ntot + TB - 1) / TB;
+  const int ntile = nt_tiles * (nt_tiles + 1) / 2;
+  const Tiles M{sm};
+  float* sMean = sm + ntile * TILE_FLOATS;     // Ht
+  float* sVar = sMean + Ht;                    // Ht
+  float* sEps = sVar + Ht;                     // Ht
+
+  const float* S_i = Sw + (size_t)b * nh * nh;
+  const float* W_i = Ww + (size_t)b * Ht * nh;
+  const float* G_i = Gw + (size_t)b * Ht * Ht;
+  const float* B_i = Bw + (size_t)b * nh;
+  const float* MR_i = MRw + (size_t)b * Ht;
+  for (int e = tid; e < ntile * TILE_FLOATS; e += nt) sm[e] = 0.f;
+  for (int t = tid; t < Ht; t += nt) sEps[t] = eps[(size_t)b * Ht + t];
+  __syncthreads();
+  for (int e = tid; e < nh * nh; e += nt) {
+    const int a = e / nh, c = e % nh;
+    if (c <= a) M.at(a, c) = S_i[e];
+  }
+  for (int a = nh + tid; a < nhp; a += nt) M.at(a, a) = 1.f;
+  for (int e = tid; e < Ht * nh; e += nt) M.at(nhp + e / nh, e % nh) = W_i[e];
+  for (int e = tid; e < Ht * Ht; e += nt) {
+    const int a = e / Ht, c = e % Ht;
+    if (c <= a) M.at(nhp + a, nhp + c) = G_i[e] + (a == c ? jitter : 0.f);
+  }
+  // the bordering row: yh - w_r C under S, -V_r'w_r under the covariance
+  for (int c = tid; c < nh; c += nt) M.at(n2, c) = B_i[c];
+  for (int t = tid; t < Ht; t += nt) M.at(n2, nhp + t) = -MR_i[t];
+  __syncthreads();
+
+  // the hall columns, bordering row included
+  for (int k = 0; k < nhp / TB; ++k) factor_panel(M, k, ntot);
+  for (int t = tid; t < Ht; t += nt) {
+    sMean[t] = -M.at(n2, nhp + t);
+    sVar[t] = M.at(nhp + t, nhp + t) - jitter;
+  }
+  __syncthreads();
+  // the covariance columns, bordering row left out
+  for (int k = nhp / TB; k * TB < n2; ++k) factor_panel(M, k, n2);
+
+  const size_t row = (size_t)b * Ht;
+  sgp::draw_override_tail_at(TiledAt{M, nhp}, sMean, sVar, sEps, pv + (size_t)o * Ht,
+                             close ? close + row : nullptr,
+                             ynear ? ynear + row : nullptr, dg + row, Ht, ty, beta,
+                             var_zero, rel_floor);
+}
+
+GemmJob job(const float* A, long long sAb, int dA, int sAm, int sAk, const float* B,
+            long long sBb, int dB, int sBk, int sBn, const float* D, long long sDb,
             int sDm, float* O, long long sOb, int sOm, int M, int N, int K,
-            float alpha, float diag) {
-  GemmJob j{A, sAb, sAm, sAk, B, sBb, sBk, sBn, D, sDb, sDm, O, sOb, sOm,
-            M, N, K, alpha, diag, (M + TILE - 1) / TILE, (N + TILE - 1) / TILE, 0};
+            float alpha, float diag, int lower) {
+  GemmJob j{A, sAb, dA, sAm, sAk, B, sBb, dB, sBk, sBn, D, sDb, sDm, O, sOb, sOm,
+            M, N, K, alpha, diag, lower, (M + GT - 1) / GT, (N + GT - 1) / GT, 0};
   return j;
 }
 
-cudaError_t launch_gemms(GemmJobs jobs, int ns, cudaStream_t stream) {
+cudaError_t launch_gemms(GemmJobs jobs, int nb, cudaStream_t stream) {
   int tiles = 0;
   for (int q = 0; q < jobs.n; ++q) {
     jobs.job[q].first_tile = tiles;
-    tiles += ns * jobs.job[q].tiles_m * jobs.job[q].tiles_n;
+    tiles += nb * jobs.job[q].tiles_m * jobs.job[q].tiles_n;
   }
-  if (tiles > 0) hall_gemm_kernel<<<tiles, GEMM_THREADS, 0, stream>>>(jobs, ns);
+  if (tiles > 0) hall_gemm_kernel<<<tiles, GEMM_THREADS, 0, stream>>>(jobs, nb);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Workspace (float32, ns * (Rr*nh + Ht*Rr + nh*nh + Ht*nh + Ht*Ht)): C, V_r',
-// S, W's first Ht rows, Ktt - V_r'V_r, per sample.
+// Inputs stacked over no outputs (leading axis): Kxr (no, ns, Ht, Rr), Kxh
+// (no, ns, Ht, Rh), Ktt (no, ns, Ht, Ht), Arh (no, ns, Rr, Rh), Ahh (no, ns,
+// Rh, Rh), yh (no, ns, Rh), eps (no, ns, Ht), Linv (no, Rr, Rr), w_r (no,
+// Rr), pv (no, Ht), close/ynear (no, ns, Ht) or null; dg (no, ns, Ht).
+// Workspace (float32, no * ns * (Rr*nh + Ht*Rr + nh*nh + Ht*nh + Ht*Ht + nh
+// + Ht)): C, V_r', S, B's first Ht rows, Ktt - V_r'V_r, B's last row
+// yh - w_r C and the real-data mean V_r'w_r, per (output, sample).
 extern "C" int gp_hall_sample(const float* Kxr, const float* Kxh, const float* Ktt,
                               const float* Arh, const float* Ahh, const float* yh,
                               const float* eps, const float* Linv, const float* w_r,
                               const float* pv, const float* close, const float* ynear,
-                              float* dg, float* work, int ns, int Ht, int Rr, int Rh,
-                              int nh, int ty, float jitter, float beta, float var_zero,
-                              float rel_floor, int smem_bytes, void* stream_) {
+                              float* dg, float* work, int no, int ns, int Ht, int Rr,
+                              int Rh, int nh, int ty, float jitter, float beta,
+                              float var_zero, float rel_floor, int smem_bytes,
+                              void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
+  const int nb = no * ns;
   float* C = work;
-  float* VT = C + (size_t)ns * Rr * nh;
-  float* S = VT + (size_t)ns * Ht * Rr;
-  float* W = S + (size_t)ns * nh * nh;
-  float* G = W + (size_t)ns * Ht * nh;
+  float* VT = C + (size_t)nb * Rr * nh;
+  float* S = VT + (size_t)nb * Ht * Rr;
+  float* W = S + (size_t)nb * nh * nh;
+  float* G = W + (size_t)nb * Ht * nh;
+  float* Bl = G + (size_t)nb * Ht * Ht;
+  float* MR = Bl + (size_t)nb * nh;
   const long long HR = (long long)Ht * Rr, RN = (long long)Rr * nh;
+  const long long RR = (long long)Rr * Rr;
 
   GemmJobs first{};
   first.n = 2;
-  // C = Linv Arh_i[:, :nh]
-  first.job[0] = job(Linv, 0, Rr, 1, Arh, (long long)Rr * Rh, Rh, 1, nullptr, 0, 0,
-                     C, RN, nh, Rr, nh, Rr, 1.f, 0.f);
-  // V_r' = Kxr_i Linv'
-  first.job[1] = job(Kxr, HR, Rr, 1, Linv, 0, 1, Rr, nullptr, 0, 0, VT, HR, Rr,
-                     Ht, Rr, Rr, 1.f, 0.f);
-  cudaError_t err = launch_gemms(first, ns, stream);
+  // C = Linv Arh[:, :nh]
+  first.job[0] = job(Linv, RR, ns, Rr, 1, Arh, (long long)Rr * Rh, 1, Rh, 1, nullptr, 0,
+                     0, C, RN, nh, Rr, nh, Rr, 1.f, 0.f, 0);
+  // V_r' = Kxr Linv'
+  first.job[1] = job(Kxr, HR, 1, Rr, 1, Linv, RR, ns, 1, Rr, nullptr, 0, 0, VT, HR, Rr,
+                     Ht, Rr, Rr, 1.f, 0.f, 0);
+  cudaError_t err = launch_gemms(first, nb, stream);
   if (err != cudaSuccess) return (int)err;
 
   GemmJobs second{};
-  second.n = 3;
-  // S = Ahh_i[:nh, :nh] - C'C + jitter I
-  second.job[0] = job(C, RN, 1, nh, C, RN, nh, 1, Ahh, (long long)Rh * Rh, Rh, S,
-                      (long long)nh * nh, nh, nh, nh, Rr, -1.f, jitter);
-  // W[:Ht] = Kxh_i[:, :nh] - V_r'C
-  second.job[1] = job(VT, HR, Rr, 1, C, RN, nh, 1, Kxh, (long long)Ht * Rh, Rh, W,
-                      (long long)Ht * nh, nh, Ht, nh, Rr, -1.f, 0.f);
-  // Ktt_i - V_r'V_r
-  second.job[2] = job(VT, HR, Rr, 1, VT, HR, 1, Rr, Ktt, (long long)Ht * Ht, Ht, G,
-                      (long long)Ht * Ht, Ht, Ht, Ht, Rr, -1.f, 0.f);
-  err = launch_gemms(second, ns, stream);
+  second.n = 5;
+  // S = Ahh[:nh, :nh] - C'C + jitter I (lower tiles)
+  second.job[0] = job(C, RN, 1, 1, nh, C, RN, 1, nh, 1, Ahh, (long long)Rh * Rh, Rh, S,
+                      (long long)nh * nh, nh, nh, nh, Rr, -1.f, jitter, 1);
+  // B[:Ht] = Kxh[:, :nh] - V_r'C
+  second.job[1] = job(VT, HR, 1, Rr, 1, C, RN, 1, nh, 1, Kxh, (long long)Ht * Rh, Rh, W,
+                      (long long)Ht * nh, nh, Ht, nh, Rr, -1.f, 0.f, 0);
+  // Ktt - V_r'V_r (lower tiles)
+  second.job[2] = job(VT, HR, 1, Rr, 1, VT, HR, 1, 1, Rr, Ktt, (long long)Ht * Ht, Ht, G,
+                      (long long)Ht * Ht, Ht, Ht, Ht, Rr, -1.f, 0.f, 1);
+  // B's last row yh[:nh] - w_r C (one output row)
+  second.job[3] = job(w_r, Rr, ns, 0, 1, C, RN, 1, nh, 1, yh, Rh, 0, Bl, nh, 0, 1, nh,
+                      Rr, -1.f, 0.f, 0);
+  // the real-data mean V_r'w_r (one output column)
+  second.job[4] = job(VT, HR, 1, Rr, 1, w_r, Rr, ns, 1, 0, nullptr, 0, 0, MR, Ht, 1, Ht,
+                      1, Rr, 1.f, 0.f, 0);
+  err = launch_gemms(second, nb, stream);
   if (err != cudaSuccess) return (int)err;
 
   err = cudaFuncSetAttribute(gp_hall_factor_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  gp_hall_factor_kernel<<<ns, FACTOR_THREADS, smem_bytes, stream>>>(
-      S, W, G, C, VT, yh, w_r, eps, pv, close, ynear, dg, Ht, Rr, Rh, nh, ty,
-      jitter, beta, var_zero, rel_floor);
+  gp_hall_factor_kernel<<<nb, FACTOR_THREADS, smem_bytes, stream>>>(
+      S, W, G, Bl, MR, eps, pv, close, ynear, dg, ns, Ht, nh, ty, jitter, beta,
+      var_zero, rel_floor);
   return (int)cudaGetLastError();
 }

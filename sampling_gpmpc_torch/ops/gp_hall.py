@@ -12,19 +12,28 @@ factor (``Linv`` = L_r^-1, ``w_r`` = L_r^-1 y_r):
     cov = Ktt_i - V_r'V_r - Vh'Vh + jitter I,  mean = w_r V_r + w_h Vh,
     y = mean + chol(cov) eps_i,  then the override tail.
 
+All of it is one right-looking blocked Cholesky of the bordered matrix
+(:func:`bordered_matrix`) in panels of ``panel`` columns
+(:func:`bordered_factor`): its first nh columns give L_s and [Vh'; w_h]
+below it, whose trailing update leaves cov and -mean in the last rows; the
+next Ht columns, bordering row left out, give chol(cov).  Panel width 1 is
+the column sweep of the earlier design (Schur Cholesky, substitution, fold,
+covariance Cholesky); the kernel runs width 32.
+
 Only the first ``nh`` (= hall_n * Ty, the fill) hall rows take part: the
 rows past the fill are masked empty slots, identity rows of S with zero
-couplings, whose factorization and substitution steps are exact no-ops and
-whose W columns are exactly zero.  As in ``gp_sample``, the solves against
-the fixed real factor are matmuls with ``Linv`` and there is no
-escalating-jitter retry (a failed factorization gives NaN, and NaN samples
-fall back to the mean); the float64 reference path is
+couplings, whose elimination steps are exact no-ops.  As in ``gp_sample``,
+the solves against the fixed real factor are matmuls with ``Linv`` and
+there is no escalating-jitter retry (a failed factorization gives NaN, and
+NaN samples fall back to the mean); the float64 reference path is
 ``gp/exact.py`` condition_update + predict_update + sample_with_overrides.
 
-``sample_hall_one`` runs the plain version for CPU tensors and the CUDA
-kernels (``csrc/gp_hall.cu``: two batched product launches and one factor
-launch) for CUDA tensors; it never falls back: a CUDA stage the kernels
-cannot take raises (:func:`check_supported`).
+:func:`sample_hall` takes every GP output at once (inputs stacked on a
+leading output axis) and runs the plain version for CPU tensors and the
+CUDA kernels (``csrc/gp_hall.cu``: two batched product launches and one
+factor launch, each over every (output, sample)) for CUDA tensors;
+:func:`sample_hall_one` is its one-output case.  Neither falls back: a CUDA
+stage the kernels cannot take raises (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -37,18 +46,27 @@ from sampling_gpmpc_torch.ops import build
 from sampling_gpmpc_torch.ops.gp_sample import chol_right_looking, override_tail
 
 LAUNCHES = {"gp_hall": 0}
+PANEL = 32          # the kernel's tile and panel width
+TILE_FLOATS = PANEL * (PANEL + 1)
+# per-output arguments of sample_hall_one, stacked on a leading axis by
+# sample_hall
+STACKED = ("Kxr", "Kxh", "Ktt", "Arh", "Ahh", "yh", "eps", "Linv", "w_r",
+           "prior_var", "close", "ynear")
 
 
 def factor_smem_bytes(Ht: int, nh: int) -> int:
-    """Dynamic shared memory of one factor CTA (csrc/gp_hall.cu layout: S,
-    W, the covariance tile and row buffers)."""
-    return 4 * (nh * (nh + 1) + (Ht + 1) * (nh + 1) + Ht * (Ht + 1)
-                + 2 * Ht + 2 * max(nh, Ht))
+    """Dynamic shared memory of one factor CTA (csrc/gp_hall.cu layout: the
+    lower tiles of the bordered matrix, S padded to whole tiles, then the
+    mean, variance and draw rows)."""
+    nhp = -(-nh // PANEL) * PANEL
+    tiles = -(-(nhp + Ht + 1) // PANEL)
+    return 4 * (tiles * (tiles + 1) // 2 * TILE_FLOATS + 3 * Ht)
 
 
-def workspace_floats(ns: int, Ht: int, Rr: int, nh: int) -> int:
-    """Per-launch global workspace: C, V_r', S, W[:Ht] and Ktt - V_r'V_r."""
-    return ns * (Rr * nh + Ht * Rr + nh * nh + Ht * nh + Ht * Ht)
+def workspace_floats(nb: int, Ht: int, Rr: int, nh: int) -> int:
+    """Global workspace of nb (output, sample) pairs: C, V_r', S, B[:Ht],
+    Ktt - V_r'V_r, B's last row and the real-data mean."""
+    return nb * (Rr * nh + Ht * Rr + nh * nh + Ht * nh + Ht * Ht + nh + Ht)
 
 
 def check_supported(Ht: int, Rr: int, Rh: int, nh: int, dtype) -> None:
@@ -79,29 +97,89 @@ def subst_right_looking(W: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     return W
 
 
-def sample_hall_plain(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
-                      prior_var, jitter: float, beta: float, var_zero: float,
-                      rel_floor: float, ty: int = 1, close=None, ynear=None):
-    """Plain torch version of the kernels; same arguments and result as
-    :func:`sample_hall_one`."""
+def bordered_matrix(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r,
+                    jitter: float):
+    """The bordered matrix [[S, B'], [B, K]] of every sample, (ns, n, n)
+    with n = nh + Ht + 1: S = Ahh - C'C + jitter I (nh x nh), B = [Kxh -
+    V_r'C; yh - w_r C], K = [[Ktt - V_r'V_r + jitter I, -V_r'w_r],
+    [-w_r'V_r, 0]]."""
     nh = int(nh)
-    Ht = Kxr.shape[1]
+    ns, Ht = Kxr.shape[:2]
+    dt, dev = Kxr.dtype, Kxr.device
     C = Linv @ Arh[..., :nh]                               # (ns, Rr, nh)
     Vr = Linv @ Kxr.transpose(1, 2)                        # (ns, Rr, Ht)
     Ct, Vrt = C.transpose(1, 2), Vr.transpose(1, 2)
-    S = (Ahh[:, :nh, :nh] - Ct @ C
-         + jitter * torch.eye(nh, dtype=C.dtype, device=C.device))
-    W = torch.cat([Kxh[..., :nh] - Vrt @ C,
+    S = Ahh[:, :nh, :nh] - Ct @ C + jitter * torch.eye(nh, dtype=dt,
+                                                       device=dev)
+    B = torch.cat([Kxh[..., :nh] - Vrt @ C,
                    (yh[:, :nh] - (w_r @ C))[:, None]], dim=1)  # (ns, Ht+1, nh)
-    W = subst_right_looking(W, chol_right_looking(S))
-    Vh, wh = W[:, :Ht], W[:, Ht]
-    cov = (Ktt - Vrt @ Vr - Vh @ Vh.transpose(1, 2)
-           + jitter * torch.eye(Ht, dtype=C.dtype, device=C.device))
-    mean = (Vrt @ w_r[:, None])[..., 0] + (Vh @ wh[..., None])[..., 0]
-    var = torch.diagonal(cov, dim1=-2, dim2=-1) - jitter
-    y = mean + (chol_right_looking(cov) @ eps[..., None])[..., 0]
+    K = torch.zeros((ns, Ht + 1, Ht + 1), dtype=dt, device=dev)
+    K[:, :Ht, :Ht] = Ktt - Vrt @ Vr + jitter * torch.eye(Ht, dtype=dt,
+                                                         device=dev)
+    mean_r = (Vrt @ w_r[:, None])[..., 0]
+    K[:, :Ht, Ht] = -mean_r
+    K[:, Ht, :Ht] = -mean_r
+    return torch.cat([torch.cat([S, B.transpose(1, 2)], dim=2),
+                      torch.cat([B, K], dim=2)], dim=1)
+
+
+def factor_panels(A, c0: int, c1: int, n: int, panel: int):
+    """Right-looking blocked Cholesky, in place, of columns [c0, c1) of
+    A[..., :n, :n] (symmetric, its earlier columns already eliminated):
+    per panel of ``panel`` columns, the diagonal block's column sweep, the
+    rows below solved against it, the trailing block updated.  A
+    non-positive pivot gives NaN from that column on."""
+    for k0 in range(c0, c1, panel):
+        k1 = min(k0 + panel, c1)
+        L = chol_right_looking(A[..., k0:k1, k0:k1])
+        P = subst_right_looking(A[..., k1:n, k0:k1], L)
+        A[..., k0:k1, k0:k1] = L
+        A[..., k1:n, k0:k1] = P
+        A[..., k1:n, k1:n] -= P @ P.transpose(-1, -2)
+    return A
+
+
+def bordered_factor(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r,
+                    jitter: float, panel: int = PANEL):
+    """The covariance factor L, the mean and the variance (diag(cov) -
+    jitter) of every sample, from one blocked Cholesky of the bordered
+    matrix: its first nh columns with the bordering row, then the next Ht
+    without it."""
+    nh = int(nh)
+    Ht = Kxr.shape[1]
+    n2 = nh + Ht
+    M = bordered_matrix(nh, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r, jitter)
+    factor_panels(M, 0, nh, n2 + 1, panel)
+    mean = -M[:, n2, nh:n2].clone()
+    var = torch.diagonal(M[:, nh:n2, nh:n2], dim1=-2, dim2=-1) - jitter
+    factor_panels(M, nh, n2, n2, panel)
+    return torch.tril(M[:, nh:n2, nh:n2]), mean, var
+
+
+def sample_hall_plain(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
+                      prior_var, jitter: float, beta: float, var_zero: float,
+                      rel_floor: float, ty: int = 1, close=None, ynear=None,
+                      panel: int = PANEL):
+    """Plain torch version of the kernels for ONE output; same arguments
+    and result as :func:`sample_hall_one`, ``panel`` the blocked
+    factorization's panel width (1: the column sweep)."""
+    L, mean, var = bordered_factor(nh, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv,
+                                   w_r, jitter, panel)
+    y = mean + (L @ eps[..., None])[..., 0]
     return override_tail(mean, y, var, prior_var, beta, var_zero, rel_floor,
                          ty, close, ynear)
+
+
+def sample_hall_plain_stacked(nh: int, jitter: float, beta: float,
+                              var_zero: float, rel_floor: float, ty: int = 1,
+                              **stacked):
+    """Plain version of :func:`sample_hall`: one :func:`sample_hall_plain`
+    per output."""
+    no = stacked["Kxr"].shape[0]
+    return torch.stack([sample_hall_plain(
+        nh, jitter=jitter, beta=beta, var_zero=var_zero, rel_floor=rel_floor,
+        ty=ty, **{k: None if v is None else v[o] for k, v in stacked.items()})
+        for o in range(no)])
 
 
 def sample_hall_one(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
@@ -130,36 +208,60 @@ def sample_hall_one(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
         return sample_hall_plain(nh, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv,
                                  w_r, prior_var, jitter, beta, var_zero,
                                  rel_floor, ty=ty, close=close, ynear=ynear)
+    one = lambda t: None if t is None else t[None]
+    return sample_hall(nh, one(Kxr), one(Kxh), one(Ktt), one(Arh), one(Ahh),
+                       one(yh), one(eps), one(Linv), one(w_r),
+                       one(prior_var), jitter, beta, var_zero, rel_floor,
+                       ty=ty, close=one(close), ynear=one(ynear))[0]
+
+
+def sample_hall(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
+                prior_var, jitter: float, beta: float, var_zero: float,
+                rel_floor: float, ty: int = 1, close=None, ynear=None):
+    """Run the fused hall-block stage for every GP output in one launch set.
+
+    The arguments are :func:`sample_hall_one`'s, each per-output tensor
+    stacked on a leading axis of ``no`` outputs: Kxr (no, ns, Ht, Rr), Kxh
+    (no, ns, Ht, Rh), Ktt (no, ns, Ht, Ht), Arh (no, ns, Rr, Rh), Ahh (no,
+    ns, Rh, Rh), yh (no, ns, Rh), eps (no, ns, Ht), Linv (no, Rr, Rr), w_r
+    (no, Rr), prior_var (no, Ht), close/ynear (no, ns, Ht) or None; the
+    scalars are shared.  Returns (no, ns, Ht) sampled rows.
+    """
+    if Kxr.device.type == "cpu":
+        return sample_hall_plain_stacked(
+            nh, jitter, beta, var_zero, rel_floor, ty, Kxr=Kxr, Kxh=Kxh,
+            Ktt=Ktt, Arh=Arh, Ahh=Ahh, yh=yh, eps=eps, Linv=Linv, w_r=w_r,
+            prior_var=prior_var, close=close, ynear=ynear)
     if Kxr.device.type != "cuda":
         raise ValueError(f"gp_hall: unsupported device {Kxr.device}")
-    ns, Ht, Rr = Kxr.shape
+    no, ns, Ht, Rr = Kxr.shape
     Rh = Kxh.shape[-1]
     nh = int(nh)
     dev = Kxr.device
     check_supported(Ht, Rr, Rh, nh, Kxr.dtype)
-    args = [("Kxr", Kxr, (ns, Ht, Rr)), ("Kxh", Kxh, (ns, Ht, Rh)),
-            ("Ktt", Ktt, (ns, Ht, Ht)), ("Arh", Arh, (ns, Rr, Rh)),
-            ("Ahh", Ahh, (ns, Rh, Rh)), ("yh", yh, (ns, Rh)),
-            ("eps", eps, (ns, Ht)), ("Linv", Linv, (Rr, Rr)),
-            ("w_r", w_r, (Rr,)), ("prior_var", prior_var, (Ht,))]
+    args = [("Kxr", Kxr, (no, ns, Ht, Rr)), ("Kxh", Kxh, (no, ns, Ht, Rh)),
+            ("Ktt", Ktt, (no, ns, Ht, Ht)), ("Arh", Arh, (no, ns, Rr, Rh)),
+            ("Ahh", Ahh, (no, ns, Rh, Rh)), ("yh", yh, (no, ns, Rh)),
+            ("eps", eps, (no, ns, Ht)), ("Linv", Linv, (no, Rr, Rr)),
+            ("w_r", w_r, (no, Rr)), ("prior_var", prior_var, (no, Ht))]
     if close is not None:
-        args += [("close", close, (ns, Ht)), ("ynear", ynear, (ns, Ht))]
+        args += [("close", close, (no, ns, Ht)), ("ynear", ynear, (no, ns, Ht))]
     for name, t, shape in args:
         build.check_tensor(name, t, shape, dev)
     fn = build.load("gp_hall").gp_hall_sample
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P] * 14 + [I] * 6 + [F] * 4 + [I, P]
+    fn.argtypes = [P] * 14 + [I] * 7 + [F] * 4 + [I, P]
     fn.restype = I
-    dg = torch.empty((ns, Ht), dtype=torch.float32, device=dev)
-    work = torch.empty((max(workspace_floats(ns, Ht, Rr, nh), 1),),
+    dg = torch.empty((no, ns, Ht), dtype=torch.float32, device=dev)
+    work = torch.empty((max(workspace_floats(no * ns, Ht, Rr, nh), 1),),
                        dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         rc = fn(Kxr.data_ptr(), Kxh.data_ptr(), Ktt.data_ptr(),
                 Arh.data_ptr(), Ahh.data_ptr(), yh.data_ptr(), eps.data_ptr(),
                 Linv.data_ptr(), w_r.data_ptr(), prior_var.data_ptr(),
-                ptr(close), ptr(ynear), dg.data_ptr(), work.data_ptr(), ns,
-                Ht, Rr, Rh, nh, int(ty), float(jitter), float(beta),
+                ptr(close), ptr(ynear), dg.data_ptr(), work.data_ptr(), no,
+                ns, Ht, Rr, Rh, nh, int(ty), float(jitter), float(beta),
                 float(var_zero), float(rel_floor), factor_smem_bytes(Ht, nh),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "gp_hall_sample launch")

@@ -15,7 +15,8 @@ with the soft slacks eliminated analytically, so every Newton system is the
   at mu0 = qscale, the duals-only warm start mapped into the new scaling
   (staleness tau, complementarity band ``ws_band``·mu_ws), and the warm/cold
   choice by their KKT residuals at u = 0.
-* ``ipm_mehrotra`` (kernel 2): the predictor-corrector loop with Jacobi
+* ``ipm_mehrotra`` (kernel 2), one QP on a thread-block cluster
+  (:func:`loop_layout`): the predictor-corrector loop with Jacobi
   scaling + ``reg`` before the Cholesky, a 0.99 step to the boundary,
   sigma = (mu_aff/mu)^3, non-finite step rejection, best iterate by
   relative KKT residual, the stall exit (STALL_ITERS without a STALL_RTOL
@@ -329,22 +330,82 @@ def run_full_plain(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
     return best, best_res, it, p.scale_h, p.scale_s
 
 
+def seeded_qp(nU: int, m_h: int, m_s: int, seed: int, device,
+              dtype=torch.float32) -> tuple:
+    """A QP of the JAX package's IPM test family (tests/test_pallas_ipm.py),
+    made with numpy from ``seed``: H = A A' + I, u = 0 strictly feasible for
+    the hard rows, soft rows with lo < 0 < hi.  Returns solve_qp_soft's
+    first eleven arguments."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(nU, nU))
+    prob = [A @ A.T + np.eye(nU), rng.normal(size=nU) * 3,
+            rng.normal(size=(m_h, nU)), rng.uniform(0.1, 1.5, size=m_h),
+            rng.normal(size=(m_s, nU)), rng.uniform(-0.5, -0.1, size=m_s),
+            rng.uniform(0.05, 2.0, size=m_s), np.full(m_s, 3.0),
+            np.full(m_s, 2.0), np.full(m_s, 5.0), np.full(m_s, 4.0)]
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+                 for a in prob)
+
+
 # --------------------------------------------------------------------------
 # CUDA kernels
 # --------------------------------------------------------------------------
 
 def _schur_chunk(nU: int) -> int:
-    """Rows of G staged per Schur pass: the largest power of two with the
-    (nU, chunk+1) tile within 64 KB, at most 1024."""
+    """Rows of G staged per Schur pass of a streamed slice: the largest
+    power of two with the (nU, chunk+1) tile within 64 KB, at most 1024."""
     c = 1024
     while c > 16 and nU * (c + 1) * 4 > 65536:
         c //= 2
     return c
 
 
-def smem_bytes(nU: int, chunk: int) -> int:
-    """Dynamic shared memory of the loop kernel (csrc/ipm.cu layout)."""
-    return 4 * (nU * (nU + 1) + nU * (chunk + 1) + chunk + 12 * nU + 40)
+PUB = 136            # floats of one publish buffer (csrc/ipm.cu)
+CLUSTER = 16         # CTAs of the cluster that runs one QP (csrc/ipm.cu)
+
+
+class LoopLayout(NamedTuple):
+    """How the loop kernel lays one QP over its cluster (csrc/ipm.cu)."""
+    resident: bool       # G slices and state rows in shared memory
+    chunk: int           # rows of G staged per Schur pass when streamed
+    smem: int            # dynamic shared memory of each CTA, bytes
+
+
+def loop_layout(nU: int, m_h: int, m_s: int) -> LoopLayout:
+    """Each CTA owns ceil(m / CLUSTER) rows at most; its columns of G and
+    its state rows (9 floats per hard row, 36 per soft row) stay in shared
+    memory when they fit beside the Schur matrices and vectors, else the
+    same kernel reads them from global memory (streamed)."""
+    hmax, smax = -(-m_h // CLUSTER), -(-m_s // CLUSTER)
+    base = 2 * nU * (nU + 1) + 2 * PUB + 8 * (nU + 8) + 2 * nU + 72
+    # G slices at odd row strides (hmax | 1, smax | 1)
+    resident = (base + nU * ((hmax | 1) + (smax | 1)) + 9 * hmax
+                + 36 * smax)
+    if 4 * resident <= build.SMEM_MAX:
+        return LoopLayout(True, 0, 4 * resident)
+    chunk = _schur_chunk(nU)
+    return LoopLayout(False, chunk, 4 * (base + nU * (chunk + 1) + chunk))
+
+
+_CLUSTER: dict = {}
+
+
+def cluster_size() -> int:
+    """CTAs per QP, CLUSTER; raises if the card cannot co-schedule a
+    cluster of that many of the loop kernel's CTAs (asked of the CUDA
+    runtime once)."""
+    if "n" not in _CLUSTER:
+        fn = build.load("ipm").ipm_mehrotra_cluster_size
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        n = fn()
+        if n != CLUSTER:
+            raise RuntimeError(
+                f"ipm_mehrotra: this card cannot co-schedule a cluster of "
+                f"{CLUSTER} CTAs of the loop kernel (returned {n}; a negative "
+                f"value is a CUDA error)")
+        _CLUSTER["n"] = n
+    return _CLUSTER["n"]
 
 
 class Device(NamedTuple):
@@ -369,7 +430,7 @@ def _lib_fns():
     prep, loop = lib.ipm_prepare, lib.ipm_mehrotra
     prep.argtypes = [P] * 30 + [I, I, I, F, F, P]
     prep.restype = I
-    loop.argtypes = [P] * 15 + [I, I, I, F, F, I, I, F, F, I, I, P]
+    loop.argtypes = [P] * 15 + [I, I, I, F, F, I, I, F, F, I, I, I, P]
     loop.restype = I
     return prep, loop
 
@@ -436,10 +497,10 @@ def mehrotra(d: Device, tol: float, reg: float, max_iter: int,
     """
     dev = d.g.device
     nU, m_h, m_s = d.g.shape[0], d.dh.shape[1], d.sd.shape[1]
-    chunk = _schur_chunk(nU)
-    smem = smem_bytes(nU, chunk)
-    if smem > build.SMEM_MAX:
-        raise ValueError(f"ipm: {smem} B of shared memory exceeds "
+    cluster_size()
+    lay = loop_layout(nU, m_h, m_s)
+    if lay.smem > build.SMEM_MAX:
+        raise ValueError(f"ipm: {lay.smem} B of shared memory exceeds "
                          f"{build.SMEM_MAX} B")
     out = torch.empty(nU + 2 * m_h + 8 * m_s + 1, dtype=torch.float32,
                       device=dev)
@@ -454,7 +515,8 @@ def mehrotra(d: Device, tol: float, reg: float, max_iter: int,
                                            bit, d.work)),
                   nU, m_h, m_s, float(tol), float(reg), int(max_iter),
                   int(stall_iters), float(stall_rtol), float(mu_grind),
-                  chunk, smem, torch.cuda.current_stream(dev).cuda_stream)
+                  lay.chunk, int(lay.resident), lay.smem,
+                  torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "ipm_mehrotra launch")
     LAUNCHES["ipm_mehrotra"] += 1
     best = (bu, bs[2], bs[3], bh[0], bh[1], bs[0], bs[4], bs[1], bs[5],

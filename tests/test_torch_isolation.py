@@ -190,6 +190,27 @@ def test_gp_hall_wrapper_never_falls_back(monkeypatch):
     assert 'Kxr.device.type == "cpu"' in src
 
 
+def test_gp_hall_stacked_wrapper_never_falls_back(monkeypatch):
+    """The every-output stage the agent calls: the plain version only for
+    CPU tensors, a raise for any other device."""
+    monkeypatch.setattr(gp_hall, "sample_hall_plain_stacked", _refuse)
+    no, ns, Ht, Rr, Rh = 3, 2, 6, 4, 8
+    meta = lambda *s: torch.empty(*s, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        gp_hall.sample_hall(4, meta(no, ns, Ht, Rr), meta(no, ns, Ht, Rh),
+                            meta(no, ns, Ht, Ht), meta(no, ns, Rr, Rh),
+                            meta(no, ns, Rh, Rh), meta(no, ns, Rh),
+                            meta(no, ns, Ht), meta(no, Rr, Rr), meta(no, Rr),
+                            meta(no, Ht), 1e-6, 2.5, -1.0, 1e-5, ty=3)
+    src = inspect.getsource(gp_hall.sample_hall)
+    assert "try:" not in src and src.count("sample_hall_plain_stacked(") == 1
+    assert 'Kxr.device.type == "cpu"' in src
+    # the agent's hall stage is one call of it
+    from sampling_gpmpc_torch import agent
+    src = inspect.getsource(agent._fused_sample_hall)
+    assert src.count("gp_hall.sample_hall(") == 1 and "for j" not in src
+
+
 def test_ipm_wrapper_never_falls_back(monkeypatch):
     monkeypatch.setattr(ipm, "run_full_plain", _refuse)
     nU, m_h, m_s = 3, 4, 2

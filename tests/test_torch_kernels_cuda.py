@@ -112,6 +112,83 @@ def test_gp_hall_kernel_matches_plain(dev, ns, H, ty, Rr, Rh, nh):
     assert float((got - mean).abs().max()) > 100 * (err_k + 1e-7 * scale)
 
 
+@pytest.mark.parametrize("nh", [0, 45, 180])
+def test_gp_hall_stacked_outputs_match_plain(dev, nh):
+    """Three outputs at the car shape in one launch set (the agent's call)
+    against the plain version of each output, by the same criterion as the
+    one-output test; and each output equal to its own one-output call."""
+    ns, Ht, ty, Rr, Rh = 20, 60, 4, 180, 240
+    probs = [_hall_problem(ns, Ht, Rr, Rh, nh, seed=100 + o) for o in range(3)]
+    args = dict(jitter=1e-6, beta=2.5, var_zero=-1.0, rel_floor=1e-5, ty=ty)
+    t = lambda kw, dtype: {k: torch.as_tensor(v, dtype=dtype, device=dev)
+                           .contiguous() for k, v in kw.items()}
+    t32 = [t(kw, torch.float32) for kw in probs]
+    stacked = {k: torch.stack([kw[k] for kw in t32]) for k in t32[0]}
+    got = gp_hall.sample_hall(nh, **stacked, **args)
+    assert got.shape == (3, ns, Ht)
+    for o in range(3):
+        ref = gp_hall.sample_hall_plain(nh, **t32[o], **args)
+        ex = gp_hall.sample_hall_plain(nh, **t(probs[o], torch.float64),
+                                       **args)
+        one = gp_hall.sample_hall_one(nh, **t32[o], **args)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got[o]).all())
+        scale = float(ex.abs().max())
+        err_k = float((got[o].double() - ex).abs().max())
+        err_p = float((ref.double() - ex).abs().max())
+        assert err_k <= 4 * err_p + 1e-6 * scale, (o, err_k, err_p)
+        np.testing.assert_allclose(one.cpu().numpy(), got[o].cpu().numpy(),
+                                   rtol=0, atol=1e-6 * scale)
+
+
+def _mehrotra_vs_f64(dev, nU, mh, ms, resident):
+    """The loop kernel and the plain loop on the same prepared seeded QP,
+    both held to the float64 solution: the kernel no farther from it than
+    twice the plain float32 loop plus 1e-3 of its scale (chip_smoke.py's
+    bar), both within the status tolerance."""
+    args = ipm.seeded_qp(nU, mh, ms, 3, dev)
+    assert ipm.loop_layout(nU, mh, ms).resident == resident
+    d = ipm.prepare(*args, None, None)
+    consts = (qp_mod.STALL_ITERS, qp_mod.STALL_RTOL, qp_mod.MU_GRIND)
+    bk, rk, _ = ipm.mehrotra(d, 3e-5, 1e-7, 150, *consts)
+    h, s = d.h0, d.s0
+    st = (torch.zeros_like(d.g), s[2], s[3], h[0], h[1], s[0], s[4], s[1],
+          s[5], s[6], s[7])
+    p = ipm.Prepared(d.H, d.g, d.Gth.T, d.dh[0], d.Gts.T, *d.sd[:6], d.qs[0],
+                     st, d.sch, d.scs)
+    bp, rp, _ = ipm.mehrotra_plain(p, 3e-5, 1e-7, 150, *consts)
+    ex = qp_mod._finish(*ipm.run_full_plain(
+        *[a.double() for a in args], None, None, 1e-12, 1e-13, 150, *consts,
+        qp_mod.WS_BAND), 1e-12)
+    torch.cuda.synchronize()
+    assert int(ex.status) == 0
+    assert float(rk) <= 3e-5 * qp_mod.STATUS_RTOL
+    assert float(rp) <= 3e-5 * qp_mod.STATUS_RTOL
+    err_k = float((bk[0].double() - ex.z).abs().max())
+    err_p = float((bp[0].double() - ex.z).abs().max())
+    scale = 1.0 + float(ex.z.abs().max())
+    assert err_k <= 2.0 * err_p + 1e-3 * scale, (err_k, err_p)
+
+
+@pytest.mark.parametrize("nU,mh,ms", [
+    (20, 52000, 512),    # the pendulum's width at ns=512, one-warp factor
+    (64, 30000, 1000),   # block-wide factor
+    (128, 20000, 1000),  # the widest Schur matrix, 33 pairs a thread
+])
+def test_ipm_mehrotra_streamed_slices_match_plain(dev, nU, mh, ms):
+    """QPs too wide for their G slices to stay in shared memory: the loop
+    kernel reads them from global memory."""
+    _mehrotra_vs_f64(dev, nU, mh, ms, resident=False)
+
+
+@pytest.mark.parametrize("nU,mh,ms", [(64, 4000, 400), (128, 1500, 200)])
+def test_ipm_mehrotra_wide_schur_resident_matches_plain(dev, nU, mh, ms):
+    """Schur matrices past the closed loops' (nU > 38: the kernel build of
+    33 Schur pairs a thread, the block-wide factor) with the G slices in
+    shared memory."""
+    _mehrotra_vs_f64(dev, nU, mh, ms, resident=True)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_ipm_kernels_match_plain(dev, seed):
     """The test_pallas_ipm problem family, cold and warm, float32."""
