@@ -58,8 +58,9 @@ kernels 5-7, the batched small-matrix linalg (off the closed loop):
              m=1), counters zeroed before and read after; then each kernel
              vs its plain version there and at B=60, n=180 (the JAX tests'
              bars: 2e-4 factors, 3e-4 solves; upper triangles exactly 0),
-             an indefinite input's NaN pattern, and their timing beside the
-             plain version, torch.linalg and the bound;
+             the NaN pattern of a failed pivot (column 17 at n = 60; 17, 32
+             and 100 at n = 180), and their timing beside the plain
+             version, torch.linalg and the bound;
 params_car_residual_fs (ns=4000 value-only realizations x 50 steps):
 11. fs     — forward_sample_rollout, cuda float32, replaying the
              car_residual golden's last plan and on zero inputs, each
@@ -511,8 +512,8 @@ def linalg_phase(dev):
     sampling_gpmpc_torch/microbench_linalg.py: chol, tri_solve both ways,
     batched_cholesky(use_kernel=True) at its shapes and the fs shape), with
     the launch counts zeroed before it and read after; then each kernel
-    against its plain version at those shapes and at (B=60, n=180), an
-    indefinite input's NaN pattern, and the timing rows."""
+    against its plain version at those shapes and at (B=60, n=180), the
+    NaN patterns of failed pivots, and the timing rows."""
     import torch
     from sampling_gpmpc_torch import microbench_linalg as mb
     from sampling_gpmpc_torch.microbench_linalg import cuda_ms
@@ -578,16 +579,22 @@ def linalg_phase(dev):
 
     # a pivot that goes negative mid-way: NaN from that column on, in the
     # pattern of each TPU kernel (batch_linalg: rows below it NaN in every
-    # lower column; pallas_chol: rows from it down NaN in every column)
-    S_bad = rows[0]["S"].clone()
-    S_bad[:, 17, 17] = -1.0
-    nan_pattern_report("chol", bl.chol(S_bad), bl.chol_plain(S_bad),
-                       LINALG_F_TOL)
-    nan_pattern_report("batched_chol",
-                       bc.batched_cholesky(S_bad, use_kernel=True),
-                       bc.batched_cholesky_plain(S_bad), LINALG_F_TOL)
-    if not (torch.triu(bl.chol(S_bad), 1) == 0).all():
-        fail("linalg chol: non-zero upper triangle on an indefinite input")
+    # lower column; pallas_chol: rows from it down NaN in every column); at
+    # n = 180 inside a 32-column panel (17), on a panel's first column (32)
+    # and deep in the factor (100)
+    for row, j0 in ((rows[0], 17), (rows[-1], 17), (rows[-1], 32),
+                    (rows[-1], 100)):
+        S_bad = row["S"].clone()
+        S_bad[:, j0, j0] = -1.0
+        tag = f"B={row['B']} n={row['n']} pivot {j0}"
+        nan_pattern_report(f"chol {tag}", bl.chol(S_bad),
+                           bl.chol_plain(S_bad), LINALG_F_TOL)
+        nan_pattern_report(f"batched_chol {tag}",
+                           bc.batched_cholesky(S_bad, use_kernel=True),
+                           bc.batched_cholesky_plain(S_bad), LINALG_F_TOL)
+        if not (torch.triu(bl.chol(S_bad), 1) == 0).all():
+            fail(f"linalg chol {tag}: non-zero upper triangle on an "
+                 "indefinite input")
     return out, launches
 
 

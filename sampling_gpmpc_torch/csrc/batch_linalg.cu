@@ -7,16 +7,22 @@
 // layout: the TPU's moveaxis/lane padding glue is gone.
 //
 // chol_kernel (the body is sgp::chol_matrix in common.cuh, shared with
-// batched_chol.cu): the lower triangle of A_i goes to dynamic shared memory
-// (row stride n + 1, so a column read is conflict-free; 131,760 B at
-// n = 180, hence the opt-in above 48 KB), sgp::chol_lower factors it
-// right-looking with one barrier per column, and the write-out
-// zeroes the upper triangle.  Only the lower triangle is read: for a
-// symmetric input the TPU kernel's row read is the same numbers.  A
-// non-positive pivot at column j0 gives NaN from that column on, and, as
-// the TPU kernel's masked rank-1 update does (NaN * 0 in its rows > j0,
-// columns < j0), NaN in the earlier columns of every row below j0; rows
-// up to j0 keep their finite entries.
+// batched_chol.cu): a right-looking blocked Cholesky in 32-column panels,
+// the factor gp_hall.cu runs (sgp::factor_panel).  The lower triangle of
+// A_i goes by cp.async into 32x32 lower tiles of dynamic shared memory
+// (row stride 33, so a column read is conflict-free; 88,704 B at n = 180,
+// hence the opt-in above 48 KB); each panel is one warp's register
+// Cholesky of the diagonal tile, per-row register solves below it and 4x4
+// register-tiled trailing updates, about three barriers per panel (18 at
+// n = 180 where the earlier column sweep took 179).  The write-out zeroes
+// the upper triangle.  Only the lower triangle is read: for a symmetric
+// input the TPU kernel's row read is the same numbers.  A non-positive
+// pivot at column j0 gives NaN from that column on, and, as the TPU
+// kernel's masked rank-1 update does (NaN * 0 in its rows > j0, columns <
+// j0), NaN in the earlier columns of every row below j0; rows up to j0
+// keep their finite entries.  The launch shape follows n (common.cuh):
+// a 128-thread CTA per matrix up to n = 64 (two panels), 512 threads
+// above.
 //
 // tri_solve_kernel: the lower triangle of L_i and the n x m right-hand
 // side sit in shared memory.  Column-oriented substitution, forward for
@@ -32,15 +38,18 @@
 // triangle read once, the whole factor written once), 54 us at 3.35 TB/s,
 // against 5e8 flop (7.5 us at 67 TFLOP/s); a solve with m = 1 moves 66 MB
 // (the factor's lower triangle and the right-hand side read, the solution
-// written), 20 us, against 3e7 flop.  One CTA per matrix gives 12,000 CTAs
-// of 10-11 KB of shared
-// memory at that shape, several resident per SM; at n = 180 the 130 KB
-// tile leaves one CTA per SM and the n dependent column steps dominate.
+// written), 20 us, against 3e7 flop.  The Cholesky keeps several
+// matrices resident per SM at that shape (registers allow six 128-thread
+// CTAs), each thread's copies in flight at once (cp.async), so the loads
+// of some matrices overlap the panels of others; at n = 180 (B = 60, fewer
+// CTAs than SMs) the chain of panels sets its time.  The solve runs one
+// CTA per matrix, its n dependent column steps a barrier each.
 #include "common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(256)
+template <int NT>
+__global__ void __launch_bounds__(NT)
 chol_kernel(const float* __restrict__ A, float* __restrict__ L, int n) {
   extern __shared__ float sm[];
   const size_t off = (size_t)blockIdx.x * n * n;
@@ -92,11 +101,12 @@ int threads_for(int work) {
 
 extern "C" int batch_chol(const float* A, float* L, int B, int n, int smem_bytes,
                           void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      chol_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  chol_kernel<<<B, 256, smem_bytes, (cudaStream_t)stream>>>(A, L, n);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n <= sgp::CHOL_SMALL_N)
+    return sgp::launch_chol(chol_kernel<sgp::CHOL_SMALL_THREADS>, B,
+                            sgp::CHOL_SMALL_THREADS, smem_bytes, s, A, L, n);
+  return sgp::launch_chol(chol_kernel<sgp::CHOL_THREADS>, B, sgp::CHOL_THREADS,
+                          smem_bytes, s, A, L, n);
 }
 
 extern "C" int batch_tri_solve(const float* L, const float* R, float* X, int B,

@@ -4,14 +4,16 @@
 // _chol_kernel (launched by batched_cholesky(use_pallas=True)): a per-
 // matrix right-looking factorization whose column reads are masked
 // reductions and whose factor accumulates as rank-1 outer products (Pallas
-// on the TPU has no dynamic slice of a value).  On the H100 a column is
-// just a strided read of shared memory, so the kernel is the plain right-
-// looking sweep of sgp::chol_matrix (common.cuh, shared with
-// batch_linalg.cu's chol_kernel): the lower triangle of A_i plus jitter on
-// its diagonal goes to dynamic shared memory, sgp::chol_lower factors it
-// with one barrier per column, and the write-out zeroes the upper
-// triangle.  Only the lower triangle is read (the TPU kernel reads columns
-// from the diagonal down, the same entries).
+// on the TPU has no dynamic slice of a value).  On the H100 the kernel is
+// the right-looking blocked Cholesky of sgp::chol_matrix (common.cuh,
+// shared with batch_linalg.cu's chol_kernel and, through
+// sgp::factor_panel, with gp_hall.cu): the lower triangle of A_i goes into
+// 32x32 lower tiles of dynamic shared memory with the jitter added on its
+// diagonal, each 32-column panel is a warp's register Cholesky of the
+// diagonal tile, per-row register solves below it and 4x4 register-tiled
+// trailing updates (about three barriers per panel), and the write-out
+// zeroes the upper triangle.  Only the lower triangle is read (the TPU
+// kernel reads columns from the diagonal down, the same entries).
 //
 // A non-positive pivot at column j0: the TPU kernel's outer products carry
 // NaN * 0 into every column of the rows from j0 down (its factor update
@@ -21,13 +23,15 @@
 //
 // What bounds it on the H100: bytes, as for batch_linalg.cu's Cholesky
 // (the lower triangle read once and the whole factor written once; n^3/3
-// flop each is far below the float32 rate at these sizes).  One CTA per
-// matrix; at n = 180 the 131,760 B tile needs the opt-in above 48 KB.
+// flop each is far below the float32 rate at these sizes).  One matrix per
+// CTA, 128 threads up to n = 64 and 512 above, as there; the tiles take
+// 88,704 B at n = 180 and 152,064 B at n = 239 (the opt-in above 48 KB).
 #include "common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(256)
+template <int NT>
+__global__ void __launch_bounds__(NT)
 batched_chol_kernel(const float* __restrict__ A, float* __restrict__ L, int n,
                     float jitter) {
   extern __shared__ float sm[];
@@ -39,9 +43,11 @@ batched_chol_kernel(const float* __restrict__ A, float* __restrict__ L, int n,
 
 extern "C" int batched_chol(const float* A, float* L, int B, int n, float jitter,
                             int smem_bytes, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      batched_chol_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  batched_chol_kernel<<<B, 256, smem_bytes, (cudaStream_t)stream>>>(A, L, n, jitter);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n <= sgp::CHOL_SMALL_N)
+    return sgp::launch_chol(batched_chol_kernel<sgp::CHOL_SMALL_THREADS>, B,
+                            sgp::CHOL_SMALL_THREADS, smem_bytes, s, A, L, n,
+                            jitter);
+  return sgp::launch_chol(batched_chol_kernel<sgp::CHOL_THREADS>, B,
+                          sgp::CHOL_THREADS, smem_bytes, s, A, L, n, jitter);
 }

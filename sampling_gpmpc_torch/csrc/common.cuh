@@ -3,9 +3,10 @@
 // reductions, NaN-propagating min/max
 // (jnp.maximum / jnp.clip semantics, which the plain torch versions
 // reproduce with torch.maximum / torch.minimum), an in-shared-memory
-// right-looking Cholesky with one __syncthreads() per column, the batched
-// Cholesky kernels' per-matrix body, and the GP kernels' shared draw +
-// override tail.
+// right-looking Cholesky with one __syncthreads() per column (gp_sample,
+// ipm), the right-looking blocked Cholesky in 32-column panels over 32x32
+// lower tiles (gp_hall, and the batched Cholesky kernels' per-matrix body
+// chol_matrix), and the GP kernels' shared draw + override tail.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -95,38 +96,221 @@ __device__ void chol_lower(float* A, int n, int lda, float* lbuf) {
   __syncthreads();
 }
 
+constexpr int TB = 32;              // blocked factor's tile and panel width
+constexpr int TLD = TB + 1;         // tile row stride: column reads are conflict-free
+constexpr int TILE_FLOATS = TB * TLD;
+
+// The lower triangle of an n x n matrix as 32x32 tiles, tile (I, J), I >= J,
+// at index I (I + 1) / 2 + J.
+struct Tiles {
+  float* T;
+  __device__ float* tile(int I, int J) const {
+    return T + (I * (I + 1) / 2 + J) * TILE_FLOATS;
+  }
+  __device__ float& at(int r, int c) const {
+    return tile(r / TB, c / TB)[(r % TB) * TLD + c % TB];
+  }
+};
+
+// In-place lower Cholesky of an n x n matrix (n <= 32) whose lower triangle
+// sits in shared memory A (row stride lda), by one warp with the rows in
+// registers (lane i holds row i; column j's entries come from the other
+// lanes by shuffles): no barrier and no shared-memory traffic inside the
+// sweep.  The same right-looking arithmetic as chol_lower: column j is
+// scaled by 1/sqrt(pivot), the diagonal becomes pivot/sqrt(pivot); a
+// non-positive pivot yields NaN from that column on.  Only the lower
+// triangle is read and written.  Every lane of the warp must call it.
+__device__ __forceinline__ void warp_chol32(float* A, int lda, int n) {
+  const int lane = threadIdx.x & 31;
+  float a[32];
+#pragma unroll
+  for (int c = 0; c < 32; ++c) a[c] = (c <= lane && lane < n) ? A[lane * lda + c] : 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (j < n) {
+      const float d = __shfl_sync(0xffffffffu, a[j], j);
+      const float r = 1.0f / sqrtf(d);
+      a[j] = lane == j ? d * r : a[j] * r;
+#pragma unroll
+      for (int c = j + 1; c < 32; ++c) {
+        const float lc = __shfl_sync(0xffffffffu, a[j], c);
+        if (c < n) a[c] = fmaf(-a[j], lc, a[c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 32; ++c)
+    if (c <= lane && lane < n) A[lane * lda + c] = a[c];
+  __syncwarp();
+}
+
+// One panel of the right-looking blocked Cholesky of the tiles M by the
+// whole block: columns 32k .. 32k+nc-1 of the rows < nrows (nc < 32 only on
+// a last panel, which has no rows below it).  Three block barriers:
+// (a) one warp factors the diagonal tile with its rows in registers
+// (warp_chol32); (b) one thread per row below solves that row against it in
+// registers; (c) the trailing lower tiles take P_I P_J' as 4x4
+// register-tiled FFMA, 64 threads per tile.  Tile entries past nrows must
+// be finite (they are read by (c) and written only there).
+__device__ void factor_panel(const Tiles& M, int k, int nrows) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int c0 = k * TB, nc = min(TB, nrows - c0);
+  float* D = M.tile(k, k);
+  // (a) the diagonal tile in one warp, its rows in registers
+  if (tid < 32) warp_chol32(D, TLD, nc);
+  __syncthreads();
+  const int nrow_below = nrows - c0 - TB;
+  if (nrow_below <= 0) return;
+  // (b) every row below the tile: x <- x L_kk^-T, in registers
+  for (int rr = tid; rr < nrow_below; rr += nt) {
+    const int r = c0 + TB + rr;
+    float* row = M.tile(r / TB, k) + (r % TB) * TLD;
+    float x[TB];
+#pragma unroll
+    for (int j = 0; j < TB; ++j) x[j] = row[j];
+#pragma unroll
+    for (int j = 0; j < TB; ++j) {
+      x[j] = x[j] / D[j * TLD + j];
+#pragma unroll
+      for (int c = j + 1; c < TB; ++c) x[c] = fmaf(-x[j], D[c * TLD + j], x[c]);
+    }
+#pragma unroll
+    for (int j = 0; j < TB; ++j) row[j] = x[j];
+  }
+  __syncthreads();
+  // (c) trailing lower tiles (I, J), k < J <= I: T_IJ -= P_I P_J'
+  const int tl = (nrows + TB - 1) / TB, m = tl - k - 1;
+  const int jobs = m * (m + 1) / 2 * 64;
+  for (int e = tid; e < jobs; e += nt) {
+    const int q = e / 64, t = e % 64;
+    int a = (int)((sqrtf(8.f * q + 1.f) - 1.f) * 0.5f);
+    while ((a + 1) * (a + 2) / 2 <= q) ++a;
+    while (a * (a + 1) / 2 > q) --a;
+    const int I = k + 1 + a, J = k + 1 + (q - a * (a + 1) / 2);
+    const float* PI = M.tile(I, k);
+    const float* PJ = M.tile(J, k);
+    float* O = M.tile(I, J);
+    const int ty = t / 8, tx = t % 8;
+    float acc[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+#pragma unroll 8
+    for (int kk = 0; kk < TB; ++kk) {
+      float pa[4], pb[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) pa[u] = PI[(ty + 8 * u) * TLD + kk];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) pb[v] = PJ[(tx + 8 * v) * TLD + kk];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(pa[u], pb[v], acc[u][v]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) O[(ty + 8 * u) * TLD + tx + 8 * v] -= acc[u][v];
+  }
+  __syncthreads();
+}
+
+// Copy 4 bytes from global to shared memory without a register in between
+// (cp.async): a thread keeps all its copies in flight at once.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// The batched Cholesky kernels' launch shape, chosen from n: one matrix per
+// CTA; while the factor has one or two panels (n <= 64) a CTA of 128
+// threads, which measured faster on an H100 than 32 or 64 across the n <=
+// 64 shapes (more warps for the loads and the write-out, 12,672 B of tiles
+// at n = 50), and 512 threads above, which measured faster than 128 or 256
+// (more threads for the trailing tiles of the early panels).
+constexpr int CHOL_SMALL_N = 64;
+constexpr int CHOL_SMALL_THREADS = 128;
+constexpr int CHOL_THREADS = 512;
+
 // Lower Cholesky of one n x n matrix Ai (row-major in global memory) plus
-// jitter on its diagonal, by the whole block, into Li with the upper
-// triangle zeroed.  Only the lower triangle of Ai is read; it is factored
-// in `sm` (n (n + 1) + 2 n floats of shared memory, row stride n + 1, so a
-// column read is conflict-free) by chol_lower.  A non-positive pivot at
-// column j0 writes the NaN pattern of the TPU kernel being replaced:
-// nan_whole_rows false (batch_linalg) turns NaN the columns < j0 of every
-// row > j0, the rest of the lower triangle keeping chol_lower's values
-// (NaN from column j0 on); true (pallas_chol) turns every entry of the
-// rows >= j0 NaN, the upper triangle included.
+// jitter on its diagonal, by the whole block, into Li.  Only the lower
+// triangle of Ai is read: its rows go, one warp per row and lanes over the
+// columns (coalesced), straight into the 32x32 lower tiles in `sm` (t (t +
+// 1) / 2 tiles of shared memory, t = ceil(n / 32)) by cp.async, the tiles'
+// other entries (above the diagonal, the rows past n that pad the last
+// tile) are zeroed, and the jitter is added on the diagonal.  factor_panel then factors it
+// panel by panel (about three barriers per 32 columns), with the rows past
+// n outside every panel.  The write-out takes each row of the n x n factor
+// by one warp, upper triangle zero.
+//
+// A non-positive pivot gives a non-finite diagonal from its column j0 on;
+// j0, the first non-finite diagonal, is found by a warp ballot in every
+// warp, and the write-out sets the NaN pattern of the TPU kernel being
+// replaced from j0 alone, whatever the factor holds there: nan_whole_rows
+// false (batch_linalg) turns NaN every lower entry of the rows > j0 and the
+// diagonal entry of row j0 (NaN from column j0 on, and in the columns < j0
+// of every row > j0); true (pallas_chol) turns every entry of the rows >=
+// j0 NaN, the upper triangle included.  Rows < j0 hold the factor.
 __device__ void chol_matrix(const float* __restrict__ Ai, float* __restrict__ Li,
                             int n, float jitter, bool nan_whole_rows, float* sm) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lda = n + 1;
-  float* sA = sm;                 // n x lda, lower triangle
-  float* lbuf = sA + n * lda;     // 2 n (column buffers of chol_lower)
-  for (int e = tid; e < n * n; e += nt) {
-    const int a = e / n, b = e % n;
-    if (b <= a) sA[a * lda + b] = Ai[e] + (a == b ? jitter : 0.f);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int ntile = (n + TB - 1) / TB;
+  const Tiles M{sm};
+  for (int a = warp; a < ntile * TB; a += nw) {
+    const int I = a / TB, r = a % TB;
+    for (int J = 0; J <= I; ++J) {
+      const int c = J * TB + lane;
+      float* dst = M.tile(I, J) + r * TLD + lane;
+      if (a < n && c <= a) cp_async4(dst, Ai + (size_t)a * n + c);
+      else *dst = 0.f;
+    }
   }
-  chol_lower(sA, n, lda, lbuf);   // barriers on entry and exit
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  for (int a = warp; a < n; a += nw)          // the thread that copied (a, a)
+    if (lane == a % TB) M.at(a, a) += jitter;
+  __syncthreads();
+  for (int k = 0; k < ntile; ++k) factor_panel(M, k, n);   // ends in a barrier
+
   int j0 = n;                     // first failed pivot, n if none
-  for (int j = 0; j < n; ++j) {
-    if (!isfinite(sA[j * lda + j])) { j0 = j; break; }
+  for (int b = 0; b < n; b += TB) {
+    const int j = b + lane;
+    const unsigned bad = __ballot_sync(0xffffffffu, j < n && !isfinite(M.at(j, j)));
+    if (bad) {
+      j0 = b + __ffs(bad) - 1;
+      break;
+    }
   }
   const float qnan = __int_as_float(0x7fc00000);
-  for (int e = tid; e < n * n; e += nt) {
-    const int a = e / n, b = e % n;
-    float v = b <= a ? sA[a * lda + b] : 0.f;
-    if (nan_whole_rows ? a >= j0 : (b <= a && a > j0 && b < j0)) v = qnan;
-    Li[e] = v;
+  for (int a = warp; a < n; a += nw) {
+    const float* src = M.tile(a / TB, 0) + (a % TB) * TLD;
+    float* dst = Li + (size_t)a * n;
+    for (int J = 0, c = lane; c < n; ++J, c += TB) {
+      float v = c <= a ? src[J * TILE_FLOATS + lane] : 0.f;
+      if (nan_whole_rows ? a >= j0 : (c <= a && (a > j0 || (a == j0 && c == a))))
+        v = qnan;
+      dst[c] = v;
+    }
   }
+}
+
+// Launch a batched Cholesky kernel, one matrix per CTA of nt threads with
+// smem bytes of dynamic shared memory (the opt-in above 48 KB, and the
+// whole of the SM's unified memory for shared memory, so the small CTAs fit
+// 16 to an SM); returns the launch's cudaError_t.
+template <class Kernel, class... Args>
+int launch_chol(Kernel kernel, int B, int nt, int smem, cudaStream_t stream,
+                Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B, nt, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 // Pathwise draw y = mean + L eps and the override tail of one sample, in

@@ -40,12 +40,12 @@
 //      conflict-free) in opt-in shared memory, ~152 KB at nh=180, S's last
 //      tile padded to a whole tile by identity rows so the covariance
 //      starts on a tile boundary.  Each 32-column panel is three steps with
-//      one block barrier each: one warp factors the diagonal tile with its
-//      rows in registers (warp_chol32); one thread per row below solves
-//      that row against it in registers; the trailing lower tiles take
-//      P_I P_J' as 4x4
-//      register-tiled FFMA, 64 threads per tile.  ~24 barriers at nh=180
-//      where a column sweep takes ~420.
+//      one block barrier each (sgp::factor_panel in common.cuh, shared with
+//      the batched Cholesky kernels): one warp factors the diagonal tile
+//      with its rows in registers (warp_chol32); one thread per row below
+//      solves that row against it in registers; the trailing lower tiles
+//      take P_I P_J' as 4x4 register-tiled FFMA, 64 threads per tile.  ~24
+//      barriers at nh=180 where a column sweep takes ~420.
 // A stage whose tiles do not fit one CTA's shared memory (nh above ~224 at
 // Ht=60, e.g. the full 240-row capacity) is refused by the wrapper
 // (ops/gp_hall.py check_supported).  Full float32 throughout: no TF32.
@@ -56,11 +56,12 @@ namespace {
 constexpr int GT = 64;              // product output tile
 constexpr int GK = 16;              // product depth step
 constexpr int GEMM_THREADS = 256;
-constexpr int TB = 32;              // factor tile and panel width
-constexpr int TLD = TB + 1;         // tile row stride
-constexpr int TILE_FLOATS = TB * TLD;
 constexpr int FACTOR_THREADS = 256;
 constexpr int MAX_JOBS = 5;
+using sgp::factor_panel;
+using sgp::TB;
+using sgp::TILE_FLOATS;
+using sgp::Tiles;
 
 // out[b][m][n] = base[b][m][n] + alpha * sum_k A[b](m, k) B[b](k, n)
 //               + (m == n ? diag : 0)
@@ -155,123 +156,12 @@ hall_gemm_kernel(GemmJobs jobs, int nbatch) {
   }
 }
 
-// The lower triangle of an n x n matrix as 32x32 tiles, tile (I, J), I >= J,
-// at index I (I + 1) / 2 + J.
-struct Tiles {
-  float* T;
-  __device__ float* tile(int I, int J) const {
-    return T + (I * (I + 1) / 2 + J) * TILE_FLOATS;
-  }
-  __device__ float& at(int r, int c) const {
-    return tile(r / TB, c / TB)[(r % TB) * TLD + c % TB];
-  }
-};
-
 // The covariance factor inside the tiles, as the draw reads it.
 struct TiledAt {
   Tiles M;
   int off;
   __device__ float operator()(int t, int s) const { return M.at(off + t, off + s); }
 };
-
-// In-place lower Cholesky of an n x n matrix (n <= 32) whose lower triangle
-// sits in shared memory A (row stride lda), by one warp with the rows in
-// registers (lane i holds row i; column j's entries come from the other
-// lanes by shuffles): no barrier and no shared-memory traffic inside the
-// sweep.  The same right-looking arithmetic as sgp::chol_lower: column j is
-// scaled by 1/sqrt(pivot), the diagonal becomes pivot/sqrt(pivot); a
-// non-positive pivot yields NaN from that column on.  Only the lower
-// triangle is read and written.  Every lane of the warp must call it.
-__device__ __forceinline__ void warp_chol32(float* A, int lda, int n) {
-  const int lane = threadIdx.x & 31;
-  float a[32];
-#pragma unroll
-  for (int c = 0; c < 32; ++c) a[c] = (c <= lane && lane < n) ? A[lane * lda + c] : 0.f;
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    if (j < n) {
-      const float d = __shfl_sync(0xffffffffu, a[j], j);
-      const float r = 1.0f / sqrtf(d);
-      a[j] = lane == j ? d * r : a[j] * r;
-#pragma unroll
-      for (int c = j + 1; c < 32; ++c) {
-        const float lc = __shfl_sync(0xffffffffu, a[j], c);
-        if (c < n) a[c] = fmaf(-a[j], lc, a[c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 32; ++c)
-    if (c <= lane && lane < n) A[lane * lda + c] = a[c];
-  __syncwarp();
-}
-
-// One panel of the right-looking blocked Cholesky: columns 32k .. 32k+nc-1
-// of the rows < nrows (nc < 32 only on a last panel, which has no rows
-// below it).  Three block barriers.
-__device__ void factor_panel(const Tiles& M, int k, int nrows) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int c0 = k * TB, nc = min(TB, nrows - c0);
-  float* D = M.tile(k, k);
-  // (a) the diagonal tile in one warp, its rows in registers
-  if (tid < 32) warp_chol32(D, TLD, nc);
-  __syncthreads();
-  const int nrow_below = nrows - c0 - TB;
-  if (nrow_below <= 0) return;
-  // (b) every row below the tile: x <- x L_kk^-T, in registers
-  for (int rr = tid; rr < nrow_below; rr += nt) {
-    const int r = c0 + TB + rr;
-    float* row = M.tile(r / TB, k) + (r % TB) * TLD;
-    float x[TB];
-#pragma unroll
-    for (int j = 0; j < TB; ++j) x[j] = row[j];
-#pragma unroll
-    for (int j = 0; j < TB; ++j) {
-      x[j] = x[j] / D[j * TLD + j];
-#pragma unroll
-      for (int c = j + 1; c < TB; ++c) x[c] = fmaf(-x[j], D[c * TLD + j], x[c]);
-    }
-#pragma unroll
-    for (int j = 0; j < TB; ++j) row[j] = x[j];
-  }
-  __syncthreads();
-  // (c) trailing lower tiles (I, J), k < J <= I: T_IJ -= P_I P_J'
-  const int tl = (nrows + TB - 1) / TB, m = tl - k - 1;
-  const int jobs = m * (m + 1) / 2 * 64;
-  for (int e = tid; e < jobs; e += nt) {
-    const int q = e / 64, t = e % 64;
-    int a = (int)((sqrtf(8.f * q + 1.f) - 1.f) * 0.5f);
-    while ((a + 1) * (a + 2) / 2 <= q) ++a;
-    while (a * (a + 1) / 2 > q) --a;
-    const int I = k + 1 + a, J = k + 1 + (q - a * (a + 1) / 2);
-    const float* PI = M.tile(I, k);
-    const float* PJ = M.tile(J, k);
-    float* O = M.tile(I, J);
-    const int ty = t / 8, tx = t % 8;
-    float acc[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < TB; ++kk) {
-      float pa[4], pb[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) pa[u] = PI[(ty + 8 * u) * TLD + kk];
-#pragma unroll
-      for (int v = 0; v < 4; ++v) pb[v] = PJ[(tx + 8 * v) * TLD + kk];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(pa[u], pb[v], acc[u][v]);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) O[(ty + 8 * u) * TLD + tx + 8 * v] -= acc[u][v];
-  }
-  __syncthreads();
-}
 
 __global__ void __launch_bounds__(FACTOR_THREADS)
 gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww,

@@ -18,6 +18,11 @@ float32 tensor (another dtype raises) and the kernel's plain version on a
 CPU tensor; outside that window, and for an unbatched (shared) factor,
 the function computes with ``torch.linalg``, as the JAX package routes to
 XLA.  The kernels and their plain versions read the lower triangle only.
+
+The Cholesky (``csrc/batch_linalg.cu``, and ``ops/batched_chol.py``'s) is
+the right-looking blocked factor of ``gp_hall`` in 32-column panels;
+:func:`blocked_chol` carries it in plain torch, its ``panel=1`` the column
+sweep of the earlier design.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from sampling_gpmpc_torch.gp.exact import cholesky_nan, solve_tri_shared
 from sampling_gpmpc_torch.ops import build
+from sampling_gpmpc_torch.ops.gp_hall import PANEL, TILE_FLOATS, factor_panels
 
 # the kernels pay off only for mid-size matrices (the JAX package's window:
 # below 16 the library loop is already cheap)
@@ -36,9 +42,11 @@ LAUNCHES = {"chol": 0, "tri_solve": 0}
 
 
 def chol_smem_bytes(n: int) -> int:
-    """Dynamic shared memory of one Cholesky CTA (the lower triangle at
-    row stride n + 1 and two column buffers)."""
-    return 4 * (n * (n + 1) + 2 * n)
+    """Dynamic shared memory of one Cholesky CTA: the lower triangle as
+    32x32 tiles at row stride 33, n padded to whole tiles (csrc/common.cuh
+    ``Tiles``)."""
+    t = -(-n // PANEL)
+    return 4 * (t * (t + 1) // 2 * TILE_FLOATS)
 
 
 def tri_smem_bytes(n: int, m: int) -> int:
@@ -62,23 +70,40 @@ def _check_cuda(name, t):
                          f"{t.dtype}; run float64 with device='cpu'")
 
 
-def chol_plain(A: torch.Tensor) -> torch.Tensor:
-    """The kernel's algorithm in plain torch: right-looking column
-    elimination, l = A[:, j] rsqrt(A[j, j]), trailing update A -= l l' with
-    the TPU kernel's masks.  A failed pivot at column j0 gives NaN from that
-    column on and, through the masked update's NaN * 0, in the earlier
-    columns of the rows below j0.  Reads the lower triangle of A (..., n,
-    n); the upper triangle of the factor is zero."""
+def blocked_chol(A: torch.Tensor, panel: int = PANEL) -> torch.Tensor:
+    """The Cholesky kernels' factor in plain torch: the lower triangle of A
+    (..., n, n), mirrored, factored right-looking in panels of ``panel``
+    columns (``gp_hall.factor_panels``: per panel the diagonal block's
+    column sweep, the rows below solved against it, the trailing block
+    updated); ``panel=1`` is the column sweep.  Returns the lower factor,
+    upper triangle zero; a non-positive pivot leaves a non-finite diagonal
+    from its column on."""
     n = A.shape[-1]
-    A = torch.tril(A)
-    idx = torch.arange(n, device=A.device)
-    for j in range(n):
-        r = torch.rsqrt(A[..., j, j])[..., None]
-        col = A[..., :, j] * r
-        f = torch.where(idx > j, col, torch.zeros_like(col))
-        A = A - f[..., :, None] * f[..., None, :]
-        A[..., :, j] = torch.where(idx >= j, col, torch.zeros_like(col))
-    return torch.tril(A)
+    A = torch.tril(A) + torch.tril(A, -1).transpose(-1, -2)
+    return torch.tril(factor_panels(A, 0, n, n, panel))
+
+
+def first_failed_pivot(L: torch.Tensor) -> torch.Tensor:
+    """Per matrix of L (..., n, n), the first column whose diagonal entry is
+    not finite, n if none, shaped (..., 1, 1) to broadcast."""
+    n = L.shape[-1]
+    idx = torch.arange(n, device=L.device)
+    bad = ~torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1))
+    return torch.where(bad, idx, n).amin(-1)[..., None, None]
+
+
+def chol_plain(A: torch.Tensor, panel: int = PANEL) -> torch.Tensor:
+    """The kernel's algorithm in plain torch: :func:`blocked_chol` of the
+    lower triangle of A (..., n, n), upper triangle zero.  A failed pivot at
+    column j0 gives the TPU kernel's NaN pattern, written from j0: NaN from
+    that column on and, as its masked update's NaN * 0 does, in the earlier
+    columns of the rows below j0."""
+    L = blocked_chol(A, panel)
+    j0 = first_failed_pivot(L)
+    i = torch.arange(A.shape[-1], device=A.device)
+    a, c = i[:, None], i[None, :]
+    nan = (c <= a) & ((a > j0) | ((a == j0) & (c == a)))
+    return L.masked_fill(nan, float("nan"))
 
 
 def tri_solve_plain(L: torch.Tensor, R: torch.Tensor,

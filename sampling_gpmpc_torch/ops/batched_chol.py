@@ -16,6 +16,8 @@ import torch
 
 from sampling_gpmpc_torch.gp.exact import cholesky_nan
 from sampling_gpmpc_torch.ops import build
+from sampling_gpmpc_torch.ops.batch_linalg import (PANEL, blocked_chol,
+                                                   first_failed_pivot)
 from sampling_gpmpc_torch.ops.batch_linalg import chol_smem_bytes as smem_bytes
 
 LAUNCHES = {"batched_chol": 0}
@@ -31,26 +33,18 @@ def check_supported(n: int, dtype) -> None:
                          f"for n={n}; one CTA takes at most {build.SMEM_MAX}")
 
 
-def batched_cholesky_plain(A: torch.Tensor, jitter: float = 0.0
-                           ) -> torch.Tensor:
-    """The TPU kernel's algorithm in plain torch: per column j, pivot
-    rsqrt(A[j, j]), column l = A[:, j] * pivot masked to rows >= j, the
-    trailing update A -= l' l'' with l' masked to rows > j, and the factor
-    accumulated as L += l e_j'.  A failed pivot at column j0 turns the rows
-    from j0 down NaN in every column (NaN * 0 in the outer products)."""
+def batched_cholesky_plain(A: torch.Tensor, jitter: float = 0.0,
+                           panel: int = PANEL) -> torch.Tensor:
+    """The kernel's algorithm in plain torch: the blocked factor of the
+    lower triangle of A + jitter I (``batch_linalg.blocked_chol``, panels
+    of ``panel`` columns; 1 is the column sweep).  A failed pivot at column
+    j0 gives the TPU kernel's NaN pattern, written from j0: its outer
+    products carry NaN * 0 into every column of the rows from j0 down."""
     n = A.shape[-1]
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
-    A = A + jitter * eye
-    L = torch.zeros_like(A)
-    idx = torch.arange(n, device=A.device)
-    for j in range(n):
-        colv = A[..., :, j] * torch.rsqrt(A[..., j, j])[..., None]
-        zero = torch.zeros_like(colv)
-        lcol = torch.where(idx >= j, colv, zero)
-        lstrict = torch.where(idx > j, colv, zero)
-        A = A - lstrict[..., :, None] * lstrict[..., None, :]
-        L = L + lcol[..., :, None] * eye[j]
-    return L
+    L = blocked_chol(A + jitter * eye, panel)
+    rows = torch.arange(n, device=A.device)[:, None]
+    return L.masked_fill(rows >= first_failed_pivot(L), float("nan"))
 
 
 def batched_cholesky(A: torch.Tensor, jitter: float = 0.0,

@@ -258,3 +258,54 @@ def test_linalg_kernels_nan_pattern(dev):
         assert torch.equal(torch.isnan(got), torch.isnan(ref))
         fin = torch.isfinite(ref)
         _close(got[fin], ref[fin], 2e-4)
+
+
+@pytest.mark.parametrize("n", [16, 33, 50, 64, 65, 108, 180, 239, 320])
+def test_chol_kernels_match_plain_by_n(dev, n):
+    """The blocked Cholesky kernels at both launch shapes (a 64-thread CTA
+    up to n = 64, 256 threads above), one, two and several panels, a
+    ragged last tile, at B = 7 and B = 1: against their plain versions at
+    2e-4, upper triangles exactly 0.  chol takes n in its window (16..180);
+    batched_chol up to the column sweep's limit (239) and the tiles'
+    (320)."""
+    from sampling_gpmpc_torch.microbench_linalg import spd_inputs
+    for B in (7, 1):
+        S, _ = spd_inputs(B, n, 1, dev, seed=n + B)
+        pairs = [(batched_chol.batched_cholesky(S, 0.1, use_kernel=True),
+                  batched_chol.batched_cholesky_plain(S, 0.1))]
+        if batch_linalg.use_kernel(n):
+            pairs.append((batch_linalg.chol(S), batch_linalg.chol_plain(S)))
+        for got, ref in pairs:
+            _close(got, ref, 2e-4)
+            assert bool((torch.triu(got, 1) == 0).all())
+    assert n > batch_linalg.MAX_N or len(pairs) == 2
+
+
+@pytest.mark.parametrize("n", [50, 180])
+def test_chol_kernels_empty_batch(dev, n):
+    """B = 0 launches nothing and returns the empty factor."""
+    S = torch.empty((0, n, n), device=dev)
+    counts = (batch_linalg.LAUNCHES["chol"],
+              batched_chol.LAUNCHES["batched_chol"])
+    assert batch_linalg.chol(S).shape == (0, n, n)
+    assert batched_chol.batched_cholesky(S, use_kernel=True).shape == \
+        (0, n, n)
+    assert counts == (batch_linalg.LAUNCHES["chol"],
+                      batched_chol.LAUNCHES["batched_chol"])
+
+
+@pytest.mark.parametrize("j0", [17, 32, 100])
+def test_chol_kernels_nan_pattern_n180(dev, j0):
+    """A failed pivot inside a panel (17), on a panel's first column (32)
+    and deep in the factor (100) of an n = 180 batch: each kernel's NaN
+    entries are its plain version's, its finite entries agree."""
+    from sampling_gpmpc_torch.microbench_linalg import spd_inputs
+    S, _ = spd_inputs(4, 180, 1, dev, seed=j0)
+    S[:, j0, j0] = -1.0
+    for got, ref in ((batch_linalg.chol(S), batch_linalg.chol_plain(S)),
+                     (batched_chol.batched_cholesky(S, use_kernel=True),
+                      batched_chol.batched_cholesky_plain(S))):
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        assert bool(torch.isnan(got[:, j0, j0]).all())
+        fin = torch.isfinite(ref)
+        _close(got[fin], ref[fin], 2e-4)

@@ -8,7 +8,13 @@ against the JAX package's Pallas kernels in interpret mode.
 * ``ops/batched_chol.py`` vs ``pallas_chol._chol_kernel`` through
   ``pl.pallas_call(interpret=True)`` as tests/test_gp.py runs it (3e-6);
 * the NaN pattern of an indefinite matrix, the zero upper triangle, and
-  the shape routing (n < MIN_N and a shared factor go to torch.linalg).
+  the shape routing (n < MIN_N and a shared factor go to torch.linalg);
+* the blocked Cholesky the kernels run (32-column panels) against the
+  column sweep of the earlier design (written out here as the TPU kernels'
+  masked rank-1 arithmetic) at panel widths 1, 8 and 32 in float64, and
+  against the Pallas kernels at three panels (n = 70); the NaN pattern of
+  a failed pivot inside a panel, at a panel boundary and in the last panel
+  the same at every width.
 On the CPU the wrappers take the plain versions; the CUDA kernels are held
 to them on the GPU (tests/test_torch_kernels_cuda.py, chip_smoke.py).
 """
@@ -207,3 +213,112 @@ def test_plain_versions_float64_exact():
         ref = np.stack([scipy.linalg.solve_triangular(
             L[i], R[i], lower=True, trans=1 if tr else 0) for i in range(4)])
         np.testing.assert_allclose(X, ref, atol=1e-12)
+
+
+def _column_sweep(A):
+    """The earlier design's column sweep in the TPU kernel's arithmetic
+    (batch_linalg._chol_kernel): l = A[:, j] rsqrt(A[j, j]), masked
+    rank-1 trailing update, column j deposited; upper triangle cleared."""
+    n = A.shape[-1]
+    A = torch.tril(A)
+    idx = torch.arange(n)
+    for j in range(n):
+        col = A[..., :, j] * torch.rsqrt(A[..., j, j])[..., None]
+        f = torch.where(idx > j, col, torch.zeros_like(col))
+        A = A - f[..., :, None] * f[..., None, :]
+        A[..., :, j] = torch.where(idx >= j, col, torch.zeros_like(col))
+    return torch.tril(A)
+
+
+def _column_sweep_whole_rows(A, jitter=0.0):
+    """pallas_chol._chol_kernel's column sweep: the factor accumulated as
+    rank-1 outer products, so a failed pivot turns whole rows NaN."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype)
+    A = A + jitter * eye
+    L = torch.zeros_like(A)
+    idx = torch.arange(n)
+    for j in range(n):
+        colv = A[..., :, j] * torch.rsqrt(A[..., j, j])[..., None]
+        zero = torch.zeros_like(colv)
+        lstrict = torch.where(idx > j, colv, zero)
+        A = A - lstrict[..., :, None] * lstrict[..., None, :]
+        L = L + torch.where(idx >= j, colv, zero)[..., :, None] * eye[j]
+    return L
+
+
+@pytest.mark.parametrize("n", [17, 32, 33, 70])
+@pytest.mark.parametrize("panel", [1, 8, 32])
+def test_blocked_plain_matches_column_sweep(panel, n):
+    """float64: both plain versions at every panel width agree with the
+    column sweep to 1e-12; n = 17 is one ragged panel, 33 a full panel and
+    a one-column one, 70 three panels."""
+    A = torch.as_tensor(_spd(np.random.default_rng(n), 3, n, np.float64))
+    L = tbl.chol_plain(A, panel)
+    np.testing.assert_allclose(L.numpy(), _column_sweep(A).numpy(),
+                               rtol=0, atol=1e-12)
+    assert bool((torch.triu(L, 1) == 0).all())
+    Lb = tbc.batched_cholesky_plain(A, 0.25, panel)
+    np.testing.assert_allclose(Lb.numpy(),
+                               _column_sweep_whole_rows(A, 0.25).numpy(),
+                               rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("kernel", ["chol", "batched_chol"])
+def test_blocked_plain_matches_pallas_interpret_three_panels(kernel):
+    """n = 70 (three 32-column panels, the last ragged) against each
+    Pallas kernel in interpret mode, float32, at F_TOL."""
+    A = _spd(np.random.default_rng(9), 3, 70)
+    if kernel == "chol":
+        ref = np.asarray(jax.vmap(jbl.chol)(jnp.asarray(A)))
+        L = tbl.chol(torch.as_tensor(A)).numpy()
+    else:
+        ref = _jax_chol_kernel(A, 0.5)
+        L = tbc.batched_cholesky(torch.as_tensor(A), 0.5,
+                                 use_kernel=True).numpy()
+    np.testing.assert_allclose(L, ref, rtol=F_TOL, atol=F_TOL)
+    assert np.all(np.triu(L, 1) == 0.0)
+
+
+@pytest.mark.parametrize("j0", [5, 31, 32, 50])
+def test_nan_pattern_same_at_every_panel_width(j0):
+    """A failed pivot inside the first panel (5), on its last column (31),
+    on the first column of the second (32) and in the last panel (50) of
+    an n = 70 batch: each plain version's NaN pattern is the column
+    sweep's at panel widths 1, 8 and 32, its finite entries agree."""
+    A = torch.as_tensor(_indefinite(np.random.default_rng(j0), 2, 70, j0)
+                        .astype(np.float64))
+    for plain, sweep in ((tbl.chol_plain, _column_sweep),
+                         (tbc.batched_cholesky_plain,
+                          _column_sweep_whole_rows)):
+        ref = sweep(A)
+        assert bool(torch.isnan(ref[:, j0, j0]).all())
+        for panel in (1, 8, 32):
+            L = plain(A, panel=panel)
+            assert torch.equal(torch.isnan(L), torch.isnan(ref)), panel
+            fin = torch.isfinite(ref)
+            np.testing.assert_allclose(L[fin].numpy(), ref[fin].numpy(),
+                                       rtol=0, atol=1e-12)
+    # batch_linalg: row j0 keeps its earlier columns, rows past it are NaN
+    L = tbl.chol_plain(A)
+    assert bool(torch.isfinite(L[:, :j0]).all())
+    assert bool(torch.isfinite(L[:, j0, :j0]).all())
+    i = torch.arange(70)
+    past = (i[:, None] > j0) & (i[None, :] <= i[:, None])
+    assert bool(torch.isnan(L[:, past]).all())
+
+
+def test_kernel_ranges_unchanged():
+    """The blocked layout narrows no range: batched_chol's kernel takes
+    every n up to 239 (the column-sweep layout's limit), and chol routes
+    exactly the JAX window 16..180 to the kernel."""
+    for n in range(1, 240):
+        tbc.check_supported(n, torch.float32)
+    assert tbc.smem_bytes(239) == 152064 and tbc.smem_bytes(180) == 88704
+    with pytest.raises(ValueError, match="shared memory"):
+        tbc.check_supported(tbl.PANEL * 10 + 1, torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        tbc.check_supported(50, torch.float64)
+    routed = [n for n in range(1, 400) if tbl.use_kernel(n)]
+    assert routed == list(range(tbl.MIN_N, tbl.MAX_N + 1)) == \
+        list(range(16, 181))
