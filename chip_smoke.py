@@ -26,7 +26,8 @@ params_pendulum1D_samples (ns=70, H=17, one SQP iteration):
              kernels' launch counters zeroed before it and read after it;
 params_car (ns=20, H=15, four SQP iterations, 4 soft ellipse obstacles):
 5. gp      — the GP-sample kernel at the car shape (Ht=60, R=180), each
-             output, with the same two checks;
+             output alone and all three outputs in one launch (the main
+             path's call), with the same two checks;
 6. gp_hall — the hall-block kernels at the fills nh = 60, 120, 180 of one
              solve's iterations 1-3, each output alone (the one-output
              call) and all three outputs in one launch set (the main
@@ -48,21 +49,33 @@ params_car (ns=20, H=15, four SQP iterations, 4 soft ellipse obstacles):
              tests/goldens/torch_oracle_car.npz; then 12 free-running steps
              (DEMPC.run) with the counters zeroed before and read after,
              SQP iterations and ms per step;
-9. timing  — each kernel at the main paths' shapes (CUDA events around
+the 2D pendulum's GP stages (params_pendulum: ns=20, Ht=120, R=180, hall
+capacity Rh=360), seeded with the port's kernel_matrix (its env is not
+ported), where the earlier kernels refused the TPU kernels' shapes:
+9. f1      — the GP-sample kernel, both outputs in one launch, and the
+             hall-block kernels at nh = 120 (factor tiles in shared
+             memory), 240 and 360 (tiles in the global workspace), each
+             against the float64 evaluation of its algorithm (tube, 0
+             violations) and pointwise against its plain version, with the
+             mean-only check;
+10. timing — each kernel at the main paths' shapes (CUDA events around
              back-to-back warm calls queued behind a sleep kernel, median)
-             beside its plain version and its bound;
+             beside its plain version and its bound, and gp_sample's and
+             gp_hall's launches per car MPC step;
 kernels 5-7, the batched small-matrix linalg (off the closed loop):
-10. linalg — their own entry point, sampling_gpmpc_torch.microbench_linalg
+11. linalg — their own entry point, sampling_gpmpc_torch.microbench_linalg
              (chol, tri_solve both ways, batched_cholesky(use_kernel=True)
              at the JAX microbench's shapes and the fs shape B=12000, n=50,
              m=1), counters zeroed before and read after; then each kernel
              vs its plain version there and at B=60, n=180 (the JAX tests'
              bars: 2e-4 factors, 3e-4 solves; upper triangles exactly 0),
              the NaN pattern of a failed pivot (column 17 at n = 60; 17, 32
-             and 100 at n = 180), and their timing beside the plain
-             version, torch.linalg and the bound;
+             and 100 at n = 180), the solve's NaN pattern of a zero pivot
+             and of a NaN right-hand-side entry (n = 60 and 180, both
+             directions), and their timing beside the plain version,
+             torch.linalg (both directions for the solve) and the bound;
 params_car_residual_fs (ns=4000 value-only realizations x 50 steps):
-11. fs     — forward_sample_rollout, cuda float32, replaying the
+12. fs     — forward_sample_rollout, cuda float32, replaying the
              car_residual golden's last plan and on zero inputs, each
              against the same draws in cuda float64 (at most 1 non-finite
              realization, 0.25 per realization, 0.15 on the envelope of the
@@ -142,6 +155,20 @@ WIDE_QP = (20, 52000, 512)
 # Seeded QPs whose Schur matrices are wider than the closed loops' (nU, m_h,
 # m_s, G slices resident in shared memory).
 WIDE_SCHUR_QPS = ((64, 4000, 400, True), (128, 20000, 1000, False))
+# The 2D pendulum's GP stages (params/params_pendulum.yaml: 20 samples,
+# H = 30 test points of D = 3 inputs with their gradient tasks, Ty = 4, so
+# Ht = 120; 45 real points, R = 180; a hall capacity of 90 points, Rh =
+# 360), where the earlier kernels refused the shapes the TPU kernels take.
+# Its env is not ported, so the stages are seeded: the blocks come from
+# the port's kernel_matrix on seeded points, with the config's
+# lengthscales and outputscales, the real targets drawn from the GP prior
+# and the hall targets near the real-data posterior mean.  The noise is
+# 1e-4 (the config's is 1e-6) so that the float32 real factor stays well
+# conditioned (condition number ~2e4), as the tube criterion needs.
+F1_NS, F1_H, F1_D, F1_REAL, F1_HALL = 20, 30, 3, 45, 90
+F1_LS = ((5.2649, 4.5967, 7.0177), (3.9696, 2.1265, 6.6749))
+F1_OS, F1_NOISE, F1_BETA = (0.65, 0.55), 1e-4, 2.5
+F1_FILLS = (120, 240, 360)
 FS_CONFIG = "params_car_residual_fs"
 FS_GOLDEN = os.path.join(HERE, "tests", "goldens", "params_car_residual.npz")
 # Float32 forward sampling against float64 on the same draws, with
@@ -178,14 +205,14 @@ def plain_route():
     versions (same arguments, same results), to run a reference solve on
     the same device; restored on exit."""
     from sampling_gpmpc_torch.ops import gp_hall, gp_sample, ipm
-    saved = (gp_sample.sample_empty_one, gp_hall.sample_hall, ipm.run_full)
-    gp_sample.sample_empty_one = gp_sample.sample_empty_plain
+    saved = (gp_sample.sample_empty, gp_hall.sample_hall, ipm.run_full)
+    gp_sample.sample_empty = gp_sample.sample_empty_plain_stacked
     gp_hall.sample_hall = gp_hall.sample_hall_plain_stacked
     ipm.run_full = ipm.run_full_plain
     try:
         yield
     finally:
-        (gp_sample.sample_empty_one, gp_hall.sample_hall,
+        (gp_sample.sample_empty, gp_hall.sample_hall,
          ipm.run_full) = saved
 
 
@@ -244,6 +271,93 @@ def gp_hall_bound(ns, Ht, Rr, nh):
                   + 2 * Rr * Ht + nh ** 3 / 3 + (Ht + 1) * nh * nh
                   + Ht * (Ht + 1) * nh + 2 * Ht * nh + Ht ** 3 / 3 + Ht * Ht)
     return nbytes, flops
+
+
+def f1_stages(dev, seed=0):
+    """The 2D pendulum's seeded empty-hall stage (gp_sample.sample_empty's
+    arguments, both outputs stacked) and hall stages at the fills F1_FILLS
+    (gp_hall.sample_hall's), float32 on ``dev``, each beside the float64
+    evaluation of its algorithm: (stacked float32 inputs, mean64, var64)."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch.gp import exact
+    from sampling_gpmpc_torch.gp.kernel import kernel_matrix
+    from sampling_gpmpc_torch.ops import gp_hall, gp_sample
+    f64 = torch.float64
+    rng = np.random.default_rng(seed)
+    ty = F1_D + 1
+    Ht, R, Rh = F1_H * ty, F1_REAL * ty, F1_HALL * ty
+    scal = dict(jitter=1e-6, beta=F1_BETA, var_zero=-1.0, rel_floor=1e-5,
+                ty=ty)
+    empty, hall = [], {nh: [] for nh in F1_FILLS}
+    for ls_, os_ in zip(F1_LS, F1_OS):
+        ls = torch.tensor(ls_, dtype=f64)
+        box = lambda *shape: torch.tensor(
+            rng.uniform(-3.0, 3.0, size=shape + (F1_D,)), dtype=f64) * ls
+        Zr, Xt, Zh = box(F1_REAL), box(F1_NS, F1_H), box(F1_NS, F1_HALL)
+        Krr = kernel_matrix(Zr, Zr, ls, os_, True) + F1_NOISE * torch.eye(
+            R, dtype=f64)
+        Lr = torch.linalg.cholesky(Krr)
+        Linv = torch.linalg.inv(Lr)
+        w_r = torch.tensor(rng.normal(size=R), dtype=f64)   # y_r = Lr w_r
+        alpha = Linv.T @ w_r
+        Zrb = Zr.expand((F1_NS,) + Zr.shape)
+        Kall = kernel_matrix(Xt, torch.cat([Zrb, Zh, Xt], dim=1), ls, os_,
+                             True)
+        eps = torch.tensor(np.clip(rng.normal(size=(F1_NS, Ht)), -2.5, 2.5),
+                           dtype=f64)
+        pv = exact.prior_task_variances(ls, os_, ty).repeat(F1_H)
+        empty.append(dict(Kxm=Kall[..., :R], Ktt=Kall[..., R + Rh:], eps=eps,
+                          Linv=Linv, alpha=alpha, prior_var=pv))
+        ev1 = kernel_matrix(torch.cat([Zrb, Zh], dim=1), Zh, ls, os_, True)
+        yh_full = (ev1[:, :R].transpose(1, 2) @ alpha
+                   + 0.01 * torch.tensor(rng.normal(size=(F1_NS, Rh)),
+                                         dtype=f64))
+        for nh in F1_FILLS:
+            m = (torch.arange(Rh) < nh).to(f64)
+            Khh = ev1[:, R:] + F1_NOISE * torch.eye(Rh, dtype=f64)
+            hall[nh].append(dict(
+                Kxr=Kall[..., :R], Kxh=Kall[..., R:R + Rh] * m,
+                Ktt=Kall[..., R + Rh:], Arh=ev1[:, :R] * m,
+                Ahh=m[:, None] * Khh * m[None, :] + torch.diag(1.0 - m),
+                yh=yh_full * m, eps=eps, Linv=Linv, w_r=w_r, prior_var=pv))
+
+    def stack(kws):
+        return {k: torch.stack([kw[k] for kw in kws]) for k in kws[0]}
+
+    def to32(st):
+        return {k: v.to(device=dev, dtype=torch.float32).contiguous()
+                for k, v in st.items()}
+
+    def empty_ref(kw):
+        V = kw["Linv"] @ kw["Kxm"].transpose(1, 2)
+        var = (torch.diagonal(kw["Ktt"], dim1=-2, dim2=-1)
+               - (V * V).sum(1))
+        return (kw["Kxm"] @ kw["alpha"][:, None])[..., 0], var
+
+    refs = [empty_ref(kw) for kw in empty]
+    out = {"empty": (dict(to32(stack(empty)), **scal),
+                     torch.stack([r[0] for r in refs]).to(dev),
+                     torch.stack([r[1] for r in refs]).to(dev))}
+    for nh in F1_FILLS:
+        refs = [gp_hall.bordered_factor(
+            nh, **{k: kw[k] for k in ("Kxr", "Kxh", "Ktt", "Arh", "Ahh",
+                                      "yh", "Linv", "w_r")},
+            jitter=scal["jitter"])[1:] for kw in hall[nh]]
+        out[nh] = (dict(to32(stack(hall[nh])), nh=nh, **scal),
+                   torch.stack([r[0] for r in refs]).to(dev),
+                   torch.stack([r[1] for r in refs]).to(dev))
+    assert set(out["empty"][0]) - {"jitter", "beta", "var_zero",
+                                   "rel_floor", "ty"} <= set(gp_sample.STACKED)
+    return out
+
+
+def f1_tube(mean64, var64, prior_var):
+    """beta (sigma + sigma_n) around the float64 evaluation, as
+    :func:`tube_width`."""
+    import torch
+    sig_n = torch.sqrt(NOISE_REL * prior_var.to(torch.float64))
+    return F1_BETA * (torch.sqrt(torch.clamp(var64, min=0.0)) + sig_n)
 
 
 def hall_output(st, j):
@@ -493,18 +607,18 @@ def close_report(label, got, ref, tol):
 
 
 def nan_pattern_report(label, got, ref, tol):
-    """An indefinite input: the kernel's NaN entries equal the plain
-    version's and its finite entries agree to the bar."""
+    """A failed pivot or a NaN input: the kernel's NaN entries equal the
+    plain version's and its finite entries agree to the bar."""
     import torch
     same = torch.equal(torch.isnan(got), torch.isnan(ref))
     fin = torch.isfinite(ref) & torch.isfinite(got)
-    err = float(torch.abs(got - ref)[fin].max())
+    err = float(torch.abs(got - ref)[fin].max()) if bool(fin.any()) else 0.0
     n_nan = int(torch.isnan(got).sum())
-    print(f"[linalg] {label}, indefinite input: NaN pattern "
+    print(f"[linalg] {label}: NaN pattern "
           f"{'identical' if same else 'DIFFERENT'} ({n_nan} NaN of "
           f"{got.numel()}); finite entries max|diff| {err:.3e}", flush=True)
     if not same or err > tol:
-        fail(f"linalg {label}: NaN pattern of an indefinite input")
+        fail(f"linalg {label}: NaN pattern")
 
 
 def linalg_phase(dev):
@@ -565,7 +679,8 @@ def linalg_phase(dev):
         out["tri_solve"].append(dict(
             common, m=m, max_abs_err=e_t, ms=r["tri_ms"],
             ms_transposed=r["tri_t_ms"], plain_ms=t_pt, bound_ms=bt_ms,
-            bound_by=bt_by, library_ms=r["tri_lib_ms"]))
+            bound_by=bt_by, library_ms=r["tri_lib_ms"],
+            library_ms_transposed=r["tri_lib_t_ms"]))
         out["batched_chol"].append(dict(
             common, max_abs_err=e_b, ms=r["bchol_ms"], plain_ms=t_pb,
             bound_ms=bc_ms, bound_by=bc_by, library_ms=r["chol_lib_ms"]))
@@ -573,7 +688,8 @@ def linalg_phase(dev):
               f"ms, plain {t_pc:.4f}, torch.linalg {r['chol_lib_ms']:.4f}, "
               f"bound {bc_ms:.5f} ({bc_by}); tri_solve kernel "
               f"{r['tri_ms']:.4f} ms (transposed {r['tri_t_ms']:.4f}), plain "
-              f"{t_pt:.4f}, torch.linalg {r['tri_lib_ms']:.4f}, bound "
+              f"{t_pt:.4f}, torch.linalg {r['tri_lib_ms']:.4f} (transposed "
+              f"{r['tri_lib_t_ms']:.4f}), bound "
               f"{bt_ms:.5f} ({bt_by}); batched_chol kernel "
               f"{r['bchol_ms']:.4f} ms, plain {t_pb:.4f}", flush=True)
 
@@ -586,7 +702,7 @@ def linalg_phase(dev):
                     (rows[-1], 100)):
         S_bad = row["S"].clone()
         S_bad[:, j0, j0] = -1.0
-        tag = f"B={row['B']} n={row['n']} pivot {j0}"
+        tag = f"B={row['B']} n={row['n']} pivot {j0}, indefinite input"
         nan_pattern_report(f"chol {tag}", bl.chol(S_bad),
                            bl.chol_plain(S_bad), LINALG_F_TOL)
         nan_pattern_report(f"batched_chol {tag}",
@@ -595,6 +711,23 @@ def linalg_phase(dev):
         if not (torch.triu(bl.chol(S_bad), 1) == 0).all():
             fail(f"linalg chol {tag}: non-zero upper triangle on an "
                  "indefinite input")
+    # the solve: a zero pivot (every column NaN, as the TPU kernel's masked
+    # update spreads it) and a NaN in one right-hand-side column (that
+    # column NaN in every row), in both directions
+    for row, j0 in ((rows[0], 17), (rows[-1], 100)):
+        L0 = row["L"].clone()
+        L0[:, j0, j0] = 0.0
+        R1 = row["R"].clone()
+        R1[:, j0, 0] = float("nan")
+        tag = f"B={row['B']} n={row['n']} m={row['m']}"
+        for tr in (False, True):
+            for what, Lx, Rx in ((f"zero pivot {j0}", L0, row["R"]),
+                                 (f"NaN in column 0 at row {j0}", row["L"],
+                                  R1)):
+                nan_pattern_report(
+                    f"tri_solve{' transposed' if tr else ''} {tag} {what}",
+                    bl.tri_solve(Lx, Rx, lower_factor_transposed=tr),
+                    bl.tri_solve_plain(Lx, Rx, tr), LINALG_S_TOL)
     return out, launches
 
 
@@ -892,7 +1025,7 @@ def main():
     st_c = T(cphys[CAR_STEP])
     Xc, Uc = T(cX[CAR_STEP - 1]), T(cU[CAR_STEP - 1])
     gp_it, ws, wv = agent.reset_hall(gp_c), None, None
-    car_gp_in, hall_in, qp_warm_c = None, {}, None
+    car_gp_in, car_empty_in, hall_in, qp_warm_c = None, None, {}, None
     gs_errs, gh_errs, gh_rels = [], [], []
 
     def stacked_report(label, st, dps, d0s, tubes, means):
@@ -931,9 +1064,11 @@ def main():
                                   kw["prior_var"])
                 err, _ = gp_report(
                     "gp", spec_c, f"car ns={spec_c.ns} Ht={Ht_c} "
-                    f"R={kw['Kxm'].shape[-1]} output {j}", dk, dp, tube,
-                    m64[:, j], GP_REL_TOL)
+                    f"R={kw['Kxm'].shape[-1]} output {j} alone", dk, dp,
+                    tube, m64[:, j], GP_REL_TOL)
                 gs_errs.append(err)
+                dps.append(dp)
+                tubes.append(tube)
                 if j == 0:
                     car_gp_in = kw
             else:
@@ -955,6 +1090,18 @@ def main():
                 dps.append(dp)
                 d0s.append(d0)
                 tubes.append(tube)
+        if it == 0:
+            # every output in one launch: the main path's call
+            st = agent.empty_stage_inputs_all(spec_c, hyp_c, gp_it, Xt,
+                                              eps_it)
+            dk = gp_sample.sample_empty(**st)
+            for j in range(spec_c.g_ny):
+                err, _ = gp_report(
+                    "gp", spec_c, f"car, all {spec_c.g_ny} outputs in one "
+                    f"launch: output {j}", dk[j], dps[j], tubes[j],
+                    m64[:, j], GP_REL_TOL)
+                gs_errs.append(err)
+            car_empty_in = st
         if it >= 1:
             st = agent.hall_stage_inputs_all(spec_c, hyp_c, gp_it, Xt, eps_it)
             stacked_report(f"car SQP iteration {it}", st, dps, d0s, tubes,
@@ -1085,28 +1232,78 @@ def main():
     if min(launches_car.values()) <= 0:
         fail(f"a kernel of the car path was not launched: {launches_car}")
 
-    # ---- 9. timing at the main paths' shapes ----------------------------
-    def time_gp_sample(label, kw):
-        ns, Ht, R = kw["Kxm"].shape
-        t_k = cuda_ms(lambda: gp_sample.sample_empty_one(**kw))
-        t_p = cuda_ms(lambda: gp_sample.sample_empty_plain(**kw), n=10,
-                      k=1)
-        cov_batch = (kw["Ktt"] + 1e-3 * torch.eye(Ht, device=dev)
-                     ).contiguous()
+    # ---- 9. the 2D pendulum's GP stages, seeded ------------------------
+    f1 = f1_stages(dev)
+    f1_errs = []
+    st, m64, v64 = f1["empty"]
+    no1, _, Ht1, R1 = st["Kxm"].shape
+    lay = gp_sample.sample_layout(Ht1)
+    dk = gp_sample.sample_empty(**st)
+    dps = gp_sample.sample_empty_plain_stacked(**st)
+    d0s = gp_sample.sample_empty_plain_stacked(
+        **dict(st, eps=torch.zeros_like(st["eps"])))
+    for j in range(no1):
+        err, _ = gp_report(
+            "f1", None, f"2D pendulum gp_sample ns={F1_NS} Ht={Ht1} R={R1} "
+            f"({lay[0]} B of shared memory; rows, V' block, tiles in the "
+            f"workspace: {lay[2]}), all {no1} outputs in one launch: output "
+            f"{j}", dk[j], dps[j], f1_tube(m64[j], v64[j], st["prior_var"][j]),
+            m64[j], GP_REL_TOL, d0=d0s[j])
+        f1_errs.append(err)
+    for nh in F1_FILLS:
+        st, m64, v64 = f1[nh]
+        dk = gp_hall.sample_hall(**st)
+        dps = gp_hall.sample_hall_plain_stacked(**st)
+        d0s = gp_hall.sample_hall_plain_stacked(
+            **dict(st, eps=torch.zeros_like(st["eps"])))
+        branch = ("global" if gp_hall.factor_tiles_global(Ht1, nh)
+                  else "shared")
+        for j in range(no1):
+            err, _ = gp_report(
+                "f1", None, f"2D pendulum gp_hall nh={nh} (Rr={R1}, Rh="
+                f"{st['Kxh'].shape[-1]}; factor tiles in {branch} memory), "
+                f"all {no1} outputs in one launch set: output {j}", dk[j],
+                dps[j], f1_tube(m64[j], v64[j], st["prior_var"][j]), m64[j],
+                GP_HALL_REL_TOL, d0=d0s[j])
+            f1_errs.append(err)
+    results["gp_sample"]["max_abs_err_pendulum_2d"] = max(f1_errs[:no1])
+    results["gp_hall"]["max_abs_err_pendulum_2d"] = max(f1_errs[no1:])
+
+    # ---- 10. timing at the main paths' shapes ---------------------------
+    def time_gp_sample(label, st):
+        """The every-output call (the main path's) on stacked inputs."""
+        no, ns, Ht, R = st["Kxm"].shape
+        t_k = cuda_ms(lambda: gp_sample.sample_empty(**st))
+        t_p = cuda_ms(lambda: gp_sample.sample_empty_plain_stacked(**st),
+                      n=5, warm=1, k=1)
+        cov_batch = (st["Ktt"].reshape(no * ns, Ht, Ht)
+                     + 1e-3 * torch.eye(Ht, device=dev)).contiguous()
         t_chol = cuda_ms(lambda: torch.linalg.cholesky(cov_batch))
         nb, fl = gp_sample_bound(ns, Ht, R)
-        b, by = bound_ms(nb, fl)
-        print(f"[timing] gp_sample {label} (ns={ns}, Ht={Ht}, R={R}): kernel "
-              f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b:.5f} ms ({by}: "
-              f"{nb} B, {fl:.3e} flop); partial yardstick "
-              f"torch.linalg.cholesky of the ({ns},{Ht},{Ht}) batch "
-              f"{t_chol:.4f} ms (only the factorization)", flush=True)
+        b, by = bound_ms(no * nb, no * fl)
+        print(f"[timing] gp_sample {label} (no={no}, ns={ns}, Ht={Ht}, R={R}"
+              f"): all {no} outputs in one launch {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms, bound {b:.5f} ms ({by}: {no * nb} B, "
+              f"{no * fl:.3e} flop); partial yardstick torch.linalg.cholesky "
+              f"of the ({no * ns},{Ht},{Ht}) covariance batch {t_chol:.4f} "
+              f"ms (only the factorization)", flush=True)
         return dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by,
                     partial_library_ms=t_chol)
 
-    results["gp_sample"].update(time_gp_sample("pendulum", gp_in),
+    stack1 = {k: (v[None] if k in gp_sample.STACKED and v is not None
+                  else v) for k, v in gp_in.items()}
+    results["gp_sample"].update(time_gp_sample("pendulum", stack1),
                                 library_ms=None)
-    results["gp_sample"]["car"] = time_gp_sample("car", car_gp_in)
+    results["gp_sample"]["car"] = time_gp_sample("car", car_empty_in)
+    t_1 = cuda_ms(lambda: gp_sample.sample_empty_one(**car_gp_in))
+    results["gp_sample"]["car"]["ms_one_output"] = t_1
+    results["gp_sample"]["pendulum_2d"] = time_gp_sample(
+        "2D pendulum, seeded", f1["empty"][0])
+    per_step_gs = launches_car["gp_sample"] / n_car
+    results["gp_sample"]["launches_per_car_mpc_step"] = per_step_gs
+    print(f"[timing] gp_sample car one output alone {t_1:.4f} ms; launches "
+          f"per car MPC step {per_step_gs} (one call per stage, all "
+          f"{spec_c.g_ny} outputs)", flush=True)
 
     hall_rows = []
     for nh, st in sorted(hall_in.items()):
@@ -1136,6 +1333,23 @@ def main():
                               plain_ms=t_p, bound_ms=b, bound_by=by,
                               bound_ms_one_output=b1,
                               partial_library_ms=t_chol))
+    f1_hall = []
+    for nh in F1_FILLS:
+        st = f1[nh][0]
+        no, ns, Ht, Rr = st["Kxr"].shape
+        t_k = cuda_ms(lambda: gp_hall.sample_hall(**st))
+        t_p = cuda_ms(lambda: gp_hall.sample_hall_plain_stacked(**st), n=3,
+                      warm=1, k=1)
+        nb, fl = gp_hall_bound(ns, Ht, Rr, nh)
+        b, by = bound_ms(no * nb, no * fl)
+        branch = "global" if gp_hall.factor_tiles_global(Ht, nh) else "shared"
+        print(f"[timing] gp_hall 2D pendulum, seeded, nh={nh} (no={no}, "
+              f"ns={ns}, Ht={Ht}, Rr={Rr}, Rh={st['Kxh'].shape[-1]}; factor "
+              f"tiles in {branch} memory): all {no} outputs in one launch set "
+              f"{t_k:.4f} ms (bound {b:.5f} ms, {by}), plain {t_p:.4f} ms",
+              flush=True)
+        f1_hall.append(dict(nh=nh, tiles=branch, ms=t_k, plain_ms=t_p,
+                            bound_ms=b, bound_by=by))
     per_step = launches_car["gp_hall"] / n_car
     hall_its = sum(k - 1 for k in sqp_its) / n_car
     print(f"[timing] gp_hall launches per car MPC step {per_step} (one stage "
@@ -1147,7 +1361,7 @@ def main():
         bound_by=top["bound_by"], library_ms=None,
         ms_one_output=top["ms_one_output"],
         partial_library_ms=top["partial_library_ms"], nh=top["nh"],
-        by_fill=hall_rows,
+        by_fill=hall_rows, pendulum_2d_by_fill=f1_hall,
         launches_per_mpc_step=per_step)
 
     prep_t, mehr_t = checks.timing("pendulum cold", qp0, None, None)
@@ -1166,10 +1380,10 @@ def main():
     results["ipm_mehrotra"].update(car_warm=car_warm_mehr,
                                    wide_streamed=wide_mehr)
 
-    # ---- 10. kernels 5-7 through their own entry point ------------------
+    # ---- 11. kernels 5-7 through their own entry point ------------------
     linalg, launches_linalg = linalg_phase(dev)
 
-    # ---- 11. forward-sampling reachability at full width ----------------
+    # ---- 12. forward-sampling reachability at full width ----------------
     fs_phase(dev)
 
     # ---- report -----------------------------------------------------------

@@ -121,20 +121,36 @@ def empty_stage_inputs(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
         beta=hyp.beta, var_zero=hyp.variance_is_zero, rel_floor=1e-5, ty=Ty)
 
 
+def empty_stage_inputs_all(spec: ProblemSpec, hyp: GPHyperArrays,
+                           gp: GPState, Xt, eps, md=None) -> dict:
+    """Arguments of ``gp_sample.sample_empty``: every output's
+    :func:`empty_stage_inputs` stacked on a leading output axis, with the
+    min-dist override rows ``md`` = (close, ynear), each (ns, g_ny, Ht), or
+    None."""
+    return _stack_outputs([empty_stage_inputs(spec, hyp, gp, Xt, eps, j)
+                           for j in range(spec.g_ny)], gp_sample.STACKED, md)
+
+
+def _stack_outputs(kws, stacked, md) -> dict:
+    """One stage call's arguments from each output's: the per-output ones
+    (``stacked``) stacked on a leading axis, the shared ones from the
+    first, and the min-dist rows ``md`` moved to output-major order."""
+    out = {k: (torch.stack([kw[k] for kw in kws]) if k in stacked else v)
+           for k, v in kws[0].items()}
+    if md is not None:
+        out.update(close=md[0].transpose(0, 1).contiguous(),
+                   ynear=md[1].transpose(0, 1).contiguous())
+    return out
+
+
 def _fused_sample_empty(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
                         Xt, eps, md=None):
     """Empty-hall GP stage through the fused kernel (ops/gp_sample.py):
-    posterior, Cholesky, pathwise draw and override tail in one launch per
-    output."""
-    dgs = []
-    for j in range(spec.g_ny):
-        kw = empty_stage_inputs(spec, hyp, gp, Xt, eps, j)
-        if md is not None:
-            kw.update(close=md[0][:, j].contiguous(),
-                      ynear=md[1][:, j].contiguous())
-        dg_j = gp_sample.sample_empty_one(**kw)
-        dgs.append(dg_j.reshape(spec.ns, spec.H, spec.Ty))
-    return torch.stack(dgs, dim=1)                       # (ns, g_ny, H, Ty)
+    posterior, Cholesky, pathwise draw and override tail, every output in
+    one launch."""
+    dg = gp_sample.sample_empty(**empty_stage_inputs_all(spec, hyp, gp, Xt,
+                                                         eps, md))
+    return dg.transpose(0, 1).reshape(spec.ns, spec.g_ny, spec.H, spec.Ty)
 
 
 def hall_stage_inputs(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
@@ -182,14 +198,8 @@ def hall_stage_inputs_all(spec: ProblemSpec, hyp: GPHyperArrays,
     :func:`hall_stage_inputs` stacked on a leading output axis, with the
     min-dist override rows ``md`` = (close, ynear), each (ns, g_ny, Ht), or
     None."""
-    kws = [hall_stage_inputs(spec, hyp, gp, Xt, eps, j)
-           for j in range(spec.g_ny)]
-    out = {k: (torch.stack([kw[k] for kw in kws]) if k in gp_hall.STACKED
-               else v) for k, v in kws[0].items()}
-    if md is not None:
-        out.update(close=md[0].transpose(0, 1).contiguous(),
-                   ynear=md[1].transpose(0, 1).contiguous())
-    return out
+    return _stack_outputs([hall_stage_inputs(spec, hyp, gp, Xt, eps, j)
+                           for j in range(spec.g_ny)], gp_hall.STACKED, md)
 
 
 def _fused_sample_hall(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,

@@ -45,9 +45,9 @@ extern "C" int batched_chol(const float* A, float* L, int B, int n, float jitter
                             int smem_bytes, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (n <= sgp::CHOL_SMALL_N)
-    return sgp::launch_chol(batched_chol_kernel<sgp::CHOL_SMALL_THREADS>, B,
-                            sgp::CHOL_SMALL_THREADS, smem_bytes, s, A, L, n,
-                            jitter);
-  return sgp::launch_chol(batched_chol_kernel<sgp::CHOL_THREADS>, B,
-                          sgp::CHOL_THREADS, smem_bytes, s, A, L, n, jitter);
+    return sgp::launch_batched(batched_chol_kernel<sgp::CHOL_SMALL_THREADS>, B,
+                               sgp::CHOL_SMALL_THREADS, smem_bytes, s, A, L, n,
+                               jitter);
+  return sgp::launch_batched(batched_chol_kernel<sgp::CHOL_THREADS>, B,
+                             sgp::CHOL_THREADS, smem_bytes, s, A, L, n, jitter);
 }

@@ -3,10 +3,11 @@
 // reductions, NaN-propagating min/max
 // (jnp.maximum / jnp.clip semantics, which the plain torch versions
 // reproduce with torch.maximum / torch.minimum), an in-shared-memory
-// right-looking Cholesky with one __syncthreads() per column (gp_sample,
-// ipm), the right-looking blocked Cholesky in 32-column panels over 32x32
-// lower tiles (gp_hall, and the batched Cholesky kernels' per-matrix body
-// chol_matrix), and the GP kernels' shared draw + override tail.
+// right-looking Cholesky with one __syncthreads() per column (ipm), the
+// right-looking blocked Cholesky in 32-column panels over 32x32 lower
+// tiles (gp_sample, gp_hall, and the batched Cholesky kernels' per-matrix
+// body chol_matrix; the tiles may sit in shared or in global memory), and
+// the GP kernels' shared draw + override tail.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -101,7 +102,8 @@ constexpr int TLD = TB + 1;         // tile row stride: column reads are conflic
 constexpr int TILE_FLOATS = TB * TLD;
 
 // The lower triangle of an n x n matrix as 32x32 tiles, tile (I, J), I >= J,
-// at index I (I + 1) / 2 + J.
+// at index I (I + 1) / 2 + J, in shared memory or, where they do not fit
+// there, in a global workspace (the same code serves both).
 struct Tiles {
   float* T;
   __device__ float* tile(int I, int J) const {
@@ -144,6 +146,15 @@ __device__ __forceinline__ void warp_chol32(float* A, int lda, int n) {
   __syncwarp();
 }
 
+// The q-th lower tile (a, b), a >= b, of a triangle of tiles, q = a (a + 1)
+// / 2 + b.
+__device__ __forceinline__ void lower_tile(int q, int& a, int& b) {
+  a = (int)((sqrtf(8.f * q + 1.f) - 1.f) * 0.5f);
+  while ((a + 1) * (a + 2) / 2 <= q) ++a;
+  while (a * (a + 1) / 2 > q) --a;
+  b = q - a * (a + 1) / 2;
+}
+
 // One panel of the right-looking blocked Cholesky of the tiles M by the
 // whole block: columns 32k .. 32k+nc-1 of the rows < nrows (nc < 32 only on
 // a last panel, which has no rows below it).  Three block barriers:
@@ -182,11 +193,10 @@ __device__ void factor_panel(const Tiles& M, int k, int nrows) {
   const int tl = (nrows + TB - 1) / TB, m = tl - k - 1;
   const int jobs = m * (m + 1) / 2 * 64;
   for (int e = tid; e < jobs; e += nt) {
-    const int q = e / 64, t = e % 64;
-    int a = (int)((sqrtf(8.f * q + 1.f) - 1.f) * 0.5f);
-    while ((a + 1) * (a + 2) / 2 <= q) ++a;
-    while (a * (a + 1) / 2 > q) --a;
-    const int I = k + 1 + a, J = k + 1 + (q - a * (a + 1) / 2);
+    const int t = e % 64;
+    int a, b;
+    lower_tile(e / 64, a, b);
+    const int I = k + 1 + a, J = k + 1 + b;
     const float* PI = M.tile(I, k);
     const float* PJ = M.tile(J, k);
     float* O = M.tile(I, J);
@@ -296,13 +306,13 @@ __device__ void chol_matrix(const float* __restrict__ Ai, float* __restrict__ Li
   }
 }
 
-// Launch a batched Cholesky kernel, one matrix per CTA of nt threads with
-// smem bytes of dynamic shared memory (the opt-in above 48 KB, and the
-// whole of the SM's unified memory for shared memory, so the small CTAs fit
-// 16 to an SM); returns the launch's cudaError_t.
+// Launch a batched Cholesky or triangular-solve kernel, one matrix per CTA
+// of nt threads with smem bytes of dynamic shared memory (the opt-in above
+// 48 KB, and the whole of the SM's unified memory for shared memory, so the
+// small CTAs fit 16 to an SM); returns the launch's cudaError_t.
 template <class Kernel, class... Args>
-int launch_chol(Kernel kernel, int B, int nt, int smem, cudaStream_t stream,
-                Args... args) {
+int launch_batched(Kernel kernel, int B, int nt, int smem, cudaStream_t stream,
+                   Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
@@ -359,21 +369,12 @@ __device__ void draw_override_tail_at(const LAt& L, const float* mean,
   }
 }
 
-// Row-major lower factor with row stride ld.
-struct RowMajor {
-  const float* L;
-  int ld;
-  __device__ float operator()(int t, int s) const { return L[t * ld + s]; }
+// The lower factor held in Tiles from row and column `off` on, as
+// draw_override_tail_at reads it.
+struct TiledAt {
+  Tiles M;
+  int off;
+  __device__ float operator()(int t, int s) const { return M.at(off + t, off + s); }
 };
-
-__device__ inline void draw_override_tail(const float* L, int ldl, const float* mean,
-                                          float* var, const float* eps,
-                                          const float* pv, const float* close,
-                                          const float* ynear, float* dg, int Ht,
-                                          int ty, float beta, float var_zero,
-                                          float rel_floor) {
-  draw_override_tail_at(RowMajor{L, ldl}, mean, var, eps, pv, close, ynear, dg, Ht,
-                        ty, beta, var_zero, rel_floor);
-}
 
 }  // namespace sgp

@@ -46,9 +46,16 @@
 //      solves that row against it in registers; the trailing lower tiles
 //      take P_I P_J' as 4x4 register-tiled FFMA, 64 threads per tile.  ~24
 //      barriers at nh=180 where a column sweep takes ~420.
-// A stage whose tiles do not fit one CTA's shared memory (nh above ~224 at
-// Ht=60, e.g. the full 240-row capacity) is refused by the wrapper
-// (ops/gp_hall.py check_supported).  Full float32 throughout: no TF32.
+// A stage whose tiles do not fit one CTA's shared memory (nh above 224 at
+// Ht=60, e.g. the full 240-row capacity; every fill of the 2D pendulum's
+// Ht=120, Rh=360 stage past nh=0) runs the same factor with the tiles in a
+// per-(output, sample) region of the global workspace (574,464 B at
+// nh=360, Ht=120; 11.5 MB for 20 samples, which stays in the 50 MB L2),
+// only the mean, variance and draw rows in shared memory: __syncthreads()
+// orders the block's global writes as it does its shared ones.  The branch
+// is chosen from the shapes alone (ops/gp_hall.py factor_tiles_global); the
+// car's fills all keep their tiles in shared memory.  Full float32
+// throughout: no TF32.
 #include "common.cuh"
 
 namespace {
@@ -156,29 +163,27 @@ hall_gemm_kernel(GemmJobs jobs, int nbatch) {
   }
 }
 
-// The covariance factor inside the tiles, as the draw reads it.
-struct TiledAt {
-  Tiles M;
-  int off;
-  __device__ float operator()(int t, int s) const { return M.at(off + t, off + s); }
-};
-
+// GLOBAL_TILES: the tiles in gtiles, one region per CTA (generic loads and
+// stores); otherwise in shared memory, known to the compiler.
+template <bool GLOBAL_TILES>
 __global__ void __launch_bounds__(FACTOR_THREADS)
 gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww,
                       const float* __restrict__ Gw, const float* __restrict__ Bw,
                       const float* __restrict__ MRw, const float* __restrict__ eps,
                       const float* __restrict__ pv, const float* __restrict__ close,
                       const float* __restrict__ ynear, float* __restrict__ dg,
-                      int ns, int Ht, int nh, int ty, float jitter,
-                      float beta, float var_zero, float rel_floor) {
+                      float* __restrict__ gtiles, int ns, int Ht, int nh, int ty,
+                      float jitter, float beta, float var_zero, float rel_floor) {
   extern __shared__ float sm[];
   const int b = blockIdx.x, o = b / ns, tid = threadIdx.x, nt = blockDim.x;
   const int nhp = (nh + TB - 1) / TB * TB;     // S padded to whole tiles
   const int n2 = nhp + Ht, ntot = n2 + 1;      // covariance end, bordering row
   const int nt_tiles = (ntot + TB - 1) / TB;
   const int ntile = nt_tiles * (nt_tiles + 1) / 2;
-  const Tiles M{sm};
-  float* sMean = sm + ntile * TILE_FLOATS;     // Ht
+  // the tiles in shared memory, or in this CTA's region of the workspace
+  float* T = GLOBAL_TILES ? gtiles + (size_t)b * ntile * TILE_FLOATS : sm;
+  const Tiles M{T};
+  float* sMean = GLOBAL_TILES ? sm : sm + ntile * TILE_FLOATS;   // Ht
   float* sVar = sMean + Ht;                    // Ht
   float* sEps = sVar + Ht;                     // Ht
 
@@ -187,7 +192,7 @@ gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww
   const float* G_i = Gw + (size_t)b * Ht * Ht;
   const float* B_i = Bw + (size_t)b * nh;
   const float* MR_i = MRw + (size_t)b * Ht;
-  for (int e = tid; e < ntile * TILE_FLOATS; e += nt) sm[e] = 0.f;
+  for (int e = tid; e < ntile * TILE_FLOATS; e += nt) T[e] = 0.f;
   for (int t = tid; t < Ht; t += nt) sEps[t] = eps[(size_t)b * Ht + t];
   __syncthreads();
   for (int e = tid; e < nh * nh; e += nt) {
@@ -216,7 +221,7 @@ gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww
   for (int k = nhp / TB; k * TB < n2; ++k) factor_panel(M, k, n2);
 
   const size_t row = (size_t)b * Ht;
-  sgp::draw_override_tail_at(TiledAt{M, nhp}, sMean, sVar, sEps, pv + (size_t)o * Ht,
+  sgp::draw_override_tail_at(sgp::TiledAt{M, nhp}, sMean, sVar, sEps, pv + (size_t)o * Ht,
                              close ? close + row : nullptr,
                              ynear ? ynear + row : nullptr, dg + row, Ht, ty, beta,
                              var_zero, rel_floor);
@@ -248,8 +253,11 @@ cudaError_t launch_gemms(GemmJobs jobs, int nb, cudaStream_t stream) {
 // Rh, Rh), yh (no, ns, Rh), eps (no, ns, Ht), Linv (no, Rr, Rr), w_r (no,
 // Rr), pv (no, Ht), close/ynear (no, ns, Ht) or null; dg (no, ns, Ht).
 // Workspace (float32, no * ns * (Rr*nh + Ht*Rr + nh*nh + Ht*nh + Ht*Ht + nh
-// + Ht)): C, V_r', S, B's first Ht rows, Ktt - V_r'V_r, B's last row
-// yh - w_r C and the real-data mean V_r'w_r, per (output, sample).
+// + Ht), plus no * ns * tile_floats when global_tiles): C, V_r', S, B's
+// first Ht rows, Ktt - V_r'V_r, B's last row yh - w_r C and the real-data
+// mean V_r'w_r, per (output, sample), then the factor's tiles when they do
+// not fit shared memory (tile_floats each; smem_bytes then holds only the
+// three rows).
 extern "C" int gp_hall_sample(const float* Kxr, const float* Kxh, const float* Ktt,
                               const float* Arh, const float* Ahh, const float* yh,
                               const float* eps, const float* Linv, const float* w_r,
@@ -257,7 +265,7 @@ extern "C" int gp_hall_sample(const float* Kxr, const float* Kxh, const float* K
                               float* dg, float* work, int no, int ns, int Ht, int Rr,
                               int Rh, int nh, int ty, float jitter, float beta,
                               float var_zero, float rel_floor, int smem_bytes,
-                              void* stream_) {
+                              int global_tiles, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   const int nb = no * ns;
   float* C = work;
@@ -301,11 +309,14 @@ extern "C" int gp_hall_sample(const float* Kxr, const float* Kxh, const float* K
   err = launch_gemms(second, nb, stream);
   if (err != cudaSuccess) return (int)err;
 
-  err = cudaFuncSetAttribute(gp_hall_factor_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  auto factor = global_tiles ? gp_hall_factor_kernel<true>
+                              : gp_hall_factor_kernel<false>;
+  err = cudaFuncSetAttribute(factor, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  gp_hall_factor_kernel<<<nb, FACTOR_THREADS, smem_bytes, stream>>>(
-      S, W, G, Bl, MR, eps, pv, close, ynear, dg, ns, Ht, nh, ty, jitter, beta,
+  factor<<<nb, FACTOR_THREADS, smem_bytes, stream>>>(
+      S, W, G, Bl, MR, eps, pv, close, ynear, dg,
+      global_tiles ? MR + (size_t)nb * Ht : nullptr, ns, Ht, nh, ty, jitter, beta,
       var_zero, rel_floor);
   return (int)cudaGetLastError();
 }

@@ -97,6 +97,8 @@ def measure(B: int, n: int, m: int, device, n_iter: int = 30,
             L, R, lower_factor_transposed=True), n_iter),
         tri_lib_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
             L, R, upper=False), n_iter),
+        tri_lib_t_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
+            L.transpose(-1, -2), R, upper=True), n_iter),
         bchol_ms=cuda_ms(lambda: batched_chol.batched_cholesky(
             S, use_kernel=True), n_iter))
     if verbose:
@@ -104,7 +106,8 @@ def measure(B: int, n: int, m: int, device, n_iter: int = 30,
               f"{row['chol_ms']:.4f} ms, torch.linalg "
               f"{row['chol_lib_ms']:.4f} ms | tri_solve: kernel "
               f"{row['tri_ms']:.4f} ms (transposed {row['tri_t_ms']:.4f}), "
-              f"torch.linalg {row['tri_lib_ms']:.4f} ms | batched_cholesky "
+              f"torch.linalg {row['tri_lib_ms']:.4f} ms (transposed "
+              f"{row['tri_lib_t_ms']:.4f}) | batched_cholesky "
               f"kernel {row['bchol_ms']:.4f} ms", flush=True)
     return row
 

@@ -22,7 +22,10 @@ XLA.  The kernels and their plain versions read the lower triangle only.
 The Cholesky (``csrc/batch_linalg.cu``, and ``ops/batched_chol.py``'s) is
 the right-looking blocked factor of ``gp_hall`` in 32-column panels;
 :func:`blocked_chol` carries it in plain torch, its ``panel=1`` the column
-sweep of the earlier design.
+sweep of the earlier design.  The triangular solve is a blocked
+substitution in 32-row panels over the same tiles, which
+:func:`tri_solve_plain` carries with a ``panel`` argument (1: the column
+sweep; every width gives the same result bit for bit).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 
 from sampling_gpmpc_torch.gp.exact import cholesky_nan, solve_tri_shared
 from sampling_gpmpc_torch.ops import build
-from sampling_gpmpc_torch.ops.gp_hall import PANEL, TILE_FLOATS, factor_panels
+from sampling_gpmpc_torch.ops.gp_sample import PANEL, TILE_FLOATS, factor_panels
 
 # the kernels pay off only for mid-size matrices (the JAX package's window:
 # below 16 the library loop is already cheap)
@@ -50,9 +53,21 @@ def chol_smem_bytes(n: int) -> int:
 
 
 def tri_smem_bytes(n: int, m: int) -> int:
-    """Dynamic shared memory of one solve CTA (the factor at row stride
-    n + 1 and the n x m right-hand side)."""
-    return 4 * (n * (n + 1) + n * m)
+    """Dynamic shared memory of one solve CTA: the factor's lower triangle
+    as 32x32 tiles (as :func:`chol_smem_bytes`), the right-hand side padded
+    to whole tiles (rows) x m, and a flag per column."""
+    t = -(-n // PANEL)
+    return 4 * (t * (t + 1) // 2 * TILE_FLOATS + t * PANEL * m + m)
+
+
+def tri_launch_shape(n: int, m: int):
+    """(threads, warp_diag) of one solve CTA, as measured fastest on an
+    H100 among 32-512 threads: up to n = 64, 32 threads for a single
+    right-hand side (16 CTAs share an SM) and 128 for more; 256 above.
+    The diagonal tile is solved one warp per column while the columns are
+    no more than the warps, one thread per column otherwise."""
+    nt = (32 if m == 1 else 128) if n <= 64 else 256
+    return nt, m <= nt // 32
 
 
 def use_kernel(n: int, m: int = None) -> bool:
@@ -73,7 +88,7 @@ def _check_cuda(name, t):
 def blocked_chol(A: torch.Tensor, panel: int = PANEL) -> torch.Tensor:
     """The Cholesky kernels' factor in plain torch: the lower triangle of A
     (..., n, n), mirrored, factored right-looking in panels of ``panel``
-    columns (``gp_hall.factor_panels``: per panel the diagonal block's
+    columns (``gp_sample.factor_panels``: per panel the diagonal block's
     column sweep, the rows below solved against it, the trailing block
     updated); ``panel=1`` is the column sweep.  Returns the lower factor,
     upper triangle zero; a non-positive pivot leaves a non-finite diagonal
@@ -107,24 +122,41 @@ def chol_plain(A: torch.Tensor, panel: int = PANEL) -> torch.Tensor:
 
 
 def tri_solve_plain(L: torch.Tensor, R: torch.Tensor,
-                    lower_factor_transposed: bool = False) -> torch.Tensor:
-    """The kernel's algorithm in plain torch: column-oriented substitution
-    on L (..., n, n) and R (..., n, m), forward for L X = R, backward for
-    L' X = R (L' read as the rows of L).  Every row takes the masked update
-    (coefficient 0 outside the mask), as in the TPU kernel."""
+                    lower_factor_transposed: bool = False,
+                    panel: int = PANEL) -> torch.Tensor:
+    """The kernel's algorithm in plain torch: blocked substitution on L
+    (..., n, n) and R (..., n, m) in panels of ``panel`` rows, forward for
+    L X = R, backward for L' X = R (L' read as the rows of L; only the
+    lower triangle is read).  Per panel, the diagonal block's column sweep,
+    then the rows past the panel updated, one column of the panel at a
+    time in the sweep's order, so every element takes the same updates
+    x - f x_j (x_j = x / L_jj) in the same order at every width; ``panel=1``
+    is the column sweep of the earlier design.  A column with a
+    non-finite solved entry is NaN in every row, as the TPU kernel's masked
+    update (coefficient 0 times NaN) leaves it."""
     n = L.shape[-1]
     lower = not lower_factor_transposed
+    L = torch.tril(L)
+    if not lower:
+        L = L.transpose(-1, -2)
     X = R.clone()
-    idx = torch.arange(n, device=L.device)
-    for s in range(n):
-        j = s if lower else n - 1 - s
-        xj = X[..., j, :] / L[..., j, j][..., None]
-        col = L[..., :, j] if lower else L[..., j, :]
-        f = torch.where(idx > j if lower else idx < j, col,
-                        torch.zeros_like(col))
-        X = X - f[..., :, None] * xj[..., None, :]
-        X[..., j, :] = xj
-    return X
+    starts = range(0, n, panel)
+    for a in (starts if lower else reversed(starts)):
+        # the panel's rows [a, b) in the sweep's order (descending for L'),
+        # the rows past it [c, d)
+        b = min(a + panel, n)
+        c, d = (b, n) if lower else (0, a)
+        cols = range(a, b) if lower else range(b - 1, a - 1, -1)
+        for j in cols:
+            X[..., j, :] = X[..., j, :] / L[..., j, j][..., None]
+            rest = slice(j + 1, b) if lower else slice(a, j)
+            X[..., rest, :] = X[..., rest, :] - (L[..., rest, j, None]
+                                                 * X[..., j, None, :])
+        for j in cols:
+            X[..., c:d, :] = X[..., c:d, :] - (L[..., c:d, j, None]
+                                               * X[..., j, None, :])
+    bad = ~torch.isfinite(X).all(dim=-2, keepdim=True)
+    return X.masked_fill(bad, float("nan"))
 
 
 def _chol_launch(A3: torch.Tensor) -> torch.Tensor:
@@ -148,17 +180,18 @@ def _chol_launch(A3: torch.Tensor) -> torch.Tensor:
 def _tri_launch(L3, R3, lower: bool) -> torch.Tensor:
     B, n, m = R3.shape
     out = torch.empty_like(R3)
-    if B == 0:
+    if B == 0 or m == 0:
         return out
     build.check_tensor("L", L3, (B, n, n), R3.device)
     build.check_tensor("R", R3, (B, n, m), R3.device)
     fn = build.load("batch_linalg").batch_tri_solve
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, I, I, I, I, I, P]
+    fn.argtypes = [P, P, P, I, I, I, I, I, I, I, P]
     fn.restype = I
+    nt, warp_diag = tri_launch_shape(n, m)
     with torch.cuda.device(R3.device):
         rc = fn(L3.data_ptr(), R3.data_ptr(), out.data_ptr(), B, n, m,
-                int(lower), tri_smem_bytes(n, m),
+                int(lower), nt, int(warp_diag), tri_smem_bytes(n, m),
                 torch.cuda.current_stream(R3.device).cuda_stream)
     build.check(rc, "batch_tri_solve launch")
     LAUNCHES["tri_solve"] += 1

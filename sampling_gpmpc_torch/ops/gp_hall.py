@@ -31,7 +31,9 @@ NaN samples fall back to the mean); the float64 reference path is
 :func:`sample_hall` takes every GP output at once (inputs stacked on a
 leading output axis) and runs the plain version for CPU tensors and the
 CUDA kernels (``csrc/gp_hall.cu``: two batched product launches and one
-factor launch, each over every (output, sample)) for CUDA tensors;
+factor launch, each over every (output, sample), the factor's tiles in
+shared memory or, where they do not fit, in the global workspace:
+:func:`factor_tiles_global`) for CUDA tensors;
 :func:`sample_hall_one` is its one-output case.  Neither falls back: a CUDA
 stage the kernels cannot take raises (:func:`check_supported`).
 """
@@ -43,58 +45,56 @@ import ctypes
 import torch
 
 from sampling_gpmpc_torch.ops import build
-from sampling_gpmpc_torch.ops.gp_sample import chol_right_looking, override_tail
+from sampling_gpmpc_torch.ops.gp_sample import (PANEL, TILE_FLOATS,
+                                                factor_panels, override_tail)
 
 LAUNCHES = {"gp_hall": 0}
-PANEL = 32          # the kernel's tile and panel width
-TILE_FLOATS = PANEL * (PANEL + 1)
 # per-output arguments of sample_hall_one, stacked on a leading axis by
 # sample_hall
 STACKED = ("Kxr", "Kxh", "Ktt", "Arh", "Ahh", "yh", "eps", "Linv", "w_r",
            "prior_var", "close", "ynear")
 
 
-def factor_smem_bytes(Ht: int, nh: int) -> int:
-    """Dynamic shared memory of one factor CTA (csrc/gp_hall.cu layout: the
-    lower tiles of the bordered matrix, S padded to whole tiles, then the
-    mean, variance and draw rows)."""
+def factor_tile_floats(Ht: int, nh: int) -> int:
+    """Floats of one factor CTA's lower tiles of the bordered matrix, S
+    padded to whole tiles (csrc/gp_hall.cu layout)."""
     nhp = -(-nh // PANEL) * PANEL
     tiles = -(-(nhp + Ht + 1) // PANEL)
-    return 4 * (tiles * (tiles + 1) // 2 * TILE_FLOATS + 3 * Ht)
+    return tiles * (tiles + 1) // 2 * TILE_FLOATS
+
+
+def factor_smem_bytes(Ht: int, nh: int) -> int:
+    """Shared memory of one factor CTA holding its tiles: the tiles, then
+    the mean, variance and draw rows."""
+    return 4 * (factor_tile_floats(Ht, nh) + 3 * Ht)
+
+
+def factor_tiles_global(Ht: int, nh: int) -> bool:
+    """The factor's branch, from the shapes alone: tiles in a global
+    workspace region per (output, sample) where they do not fit one CTA's
+    shared memory, in shared memory otherwise (every fill of the car)."""
+    return factor_smem_bytes(Ht, nh) > build.SMEM_MAX
 
 
 def workspace_floats(nb: int, Ht: int, Rr: int, nh: int) -> int:
     """Global workspace of nb (output, sample) pairs: C, V_r', S, B[:Ht],
-    Ktt - V_r'V_r, B's last row and the real-data mean."""
-    return nb * (Rr * nh + Ht * Rr + nh * nh + Ht * nh + Ht * Ht + nh + Ht)
+    Ktt - V_r'V_r, B's last row and the real-data mean, then the factor's
+    tiles on the global-tile branch."""
+    tiles = factor_tile_floats(Ht, nh) if factor_tiles_global(Ht, nh) else 0
+    return nb * (Rr * nh + Ht * Rr + nh * nh + Ht * nh + Ht * Ht + nh + Ht
+                 + tiles)
 
 
 def check_supported(Ht: int, Rr: int, Rh: int, nh: int, dtype) -> None:
     """Raise ValueError naming the limit when the kernels cannot take a
-    stage: float32 only, a fill within the capacity, and a factor stage
-    that fits one CTA's shared memory."""
+    stage: float32 only and a fill within the capacity.  Every fill runs:
+    tiles that do not fit shared memory go to the global workspace."""
     if dtype != torch.float32:
         raise ValueError(f"gp_hall kernel takes float32 only, got {dtype}; "
                          "run float64 with device='cpu'")
     if Ht < 1 or Rr < 1 or not 0 <= nh <= Rh:
         raise ValueError(f"gp_hall: need 1 <= Ht, 1 <= Rr and 0 <= nh <= Rh, "
                          f"got Ht={Ht}, Rr={Rr}, nh={nh}, Rh={Rh}")
-    smem = factor_smem_bytes(Ht, nh)
-    if smem > build.SMEM_MAX:
-        raise ValueError(f"gp_hall: {smem} B of shared memory for Ht={Ht}, "
-                         f"nh={nh} filled hall rows; one CTA takes at most "
-                         f"{build.SMEM_MAX} B")
-
-
-def subst_right_looking(W: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
-    """W L^-T for a batch of lower factors L, column by column as the kernel
-    sweeps: column j is divided by L[j, j], then subtracted, scaled by
-    L[k, j], from every later column k."""
-    W = W.clone()
-    for j in range(L.shape[-1]):
-        W[..., j] = W[..., j] / L[..., j, j][..., None]
-        W[..., j + 1:] -= W[..., j:j + 1] * L[..., None, j + 1:, j]
-    return W
 
 
 def bordered_matrix(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r,
@@ -121,22 +121,6 @@ def bordered_matrix(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r,
     K[:, Ht, :Ht] = -mean_r
     return torch.cat([torch.cat([S, B.transpose(1, 2)], dim=2),
                       torch.cat([B, K], dim=2)], dim=1)
-
-
-def factor_panels(A, c0: int, c1: int, n: int, panel: int):
-    """Right-looking blocked Cholesky, in place, of columns [c0, c1) of
-    A[..., :n, :n] (symmetric, its earlier columns already eliminated):
-    per panel of ``panel`` columns, the diagonal block's column sweep, the
-    rows below solved against it, the trailing block updated.  A
-    non-positive pivot gives NaN from that column on."""
-    for k0 in range(c0, c1, panel):
-        k1 = min(k0 + panel, c1)
-        L = chol_right_looking(A[..., k0:k1, k0:k1])
-        P = subst_right_looking(A[..., k1:n, k0:k1], L)
-        A[..., k0:k1, k0:k1] = L
-        A[..., k1:n, k0:k1] = P
-        A[..., k1:n, k1:n] -= P @ P.transpose(-1, -2)
-    return A
 
 
 def bordered_factor(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r,
@@ -250,11 +234,14 @@ def sample_hall(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
         build.check_tensor(name, t, shape, dev)
     fn = build.load("gp_hall").gp_hall_sample
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P] * 14 + [I] * 7 + [F] * 4 + [I, P]
+    fn.argtypes = [P] * 14 + [I] * 7 + [F] * 4 + [I, I, P]
     fn.restype = I
     dg = torch.empty((no, ns, Ht), dtype=torch.float32, device=dev)
     work = torch.empty((max(workspace_floats(no * ns, Ht, Rr, nh), 1),),
                        dtype=torch.float32, device=dev)
+    glob = factor_tiles_global(Ht, nh)
+    # on the global-tile branch shared memory holds the three rows only
+    smem = 4 * 3 * Ht if glob else factor_smem_bytes(Ht, nh)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         rc = fn(Kxr.data_ptr(), Kxh.data_ptr(), Ktt.data_ptr(),
@@ -262,7 +249,7 @@ def sample_hall(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
                 Linv.data_ptr(), w_r.data_ptr(), prior_var.data_ptr(),
                 ptr(close), ptr(ynear), dg.data_ptr(), work.data_ptr(), no,
                 ns, Ht, Rr, Rh, nh, int(ty), float(jitter), float(beta),
-                float(var_zero), float(rel_floor), factor_smem_bytes(Ht, nh),
+                float(var_zero), float(rel_floor), smem, int(glob),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "gp_hall_sample launch")
     LAUNCHES["gp_hall"] += 1

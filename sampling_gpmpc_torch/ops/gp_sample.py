@@ -12,11 +12,17 @@ Two deliberate differences from the float64 reference path
 and its plain version: the triangular solve against the fixed real-data
 factor is a matmul with the precomputed ``Linv``, and there is no
 escalating-jitter retry (a failed factorization gives NaN, and NaN samples
-fall back to the mean).
+fall back to the mean).  The Cholesky is the right-looking blocked factor
+in panels of ``panel`` columns (:func:`factor_panels`, which ``gp_hall``
+and ``batch_linalg`` share); panel width 1 is the column sweep of the
+earlier design, the kernel runs width 32.
 
-``sample_empty_one`` runs the plain version for CPU tensors and the CUDA
-kernel (``csrc/gp_sample.cu``) for CUDA tensors; it never falls back: a
-CUDA stage the kernel cannot take raises (:func:`check_supported`).
+:func:`sample_empty` takes every GP output at once (inputs stacked on a
+leading output axis) and runs the plain version for CPU tensors and the
+CUDA kernel (``csrc/gp_sample.cu``: one launch, one CTA per (output,
+sample)) for CUDA tensors; :func:`sample_empty_one` is its one-output case.
+Neither falls back: a CUDA stage the kernel cannot take raises
+(:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -28,26 +34,51 @@ import torch
 from sampling_gpmpc_torch.ops import build
 
 LAUNCHES = {"gp_sample": 0}
+PANEL = 32          # the kernels' tile and panel width (csrc/common.cuh TB)
+TILE_FLOATS = PANEL * (PANEL + 1)
+# per-output arguments of sample_empty_one, stacked on a leading axis by
+# sample_empty
+STACKED = ("Kxm", "Ktt", "eps", "Linv", "alpha", "prior_var", "close",
+           "ynear")
+# csrc/gp_sample.cu: the product's tile and depth; the two stages (each a
+# chunk of Kx_i, of Linv and of alpha) and the mean's partial sums
+_PT, _PK = 64, 32
+_STAGE_FLOATS = 2 * (2 * _PT * (_PK + 1) + _PK) + 4 * _PT
 
 
-def smem_bytes(Ht: int, R: int) -> int:
-    """Dynamic shared memory of one CTA (see csrc/gp_sample.cu layout: Kx_i,
-    V, the covariance tile and four row buffers; Linv stays in global
-    memory)."""
-    return 4 * (Ht * (R + 1) + R * (Ht + 1) + Ht * (Ht + 1) + 4 * Ht)
+def sample_layout(Ht: int):
+    """Where one CTA keeps its regions (csrc/gp_sample.cu): the staged
+    chunks always in shared memory; the mean, variance and draw rows, the
+    64-column block of V', the covariance's lower tiles and Ktt_i's, in
+    that order, each in shared memory while it fits and in the CTA's
+    region of the global workspace otherwise.  Returns (smem_bytes,
+    work_floats per CTA, (rows, V' block, tiles, Ktt tiles) global
+    flags)."""
+    t = -(-Ht // PANEL)
+    tiles = t * (t + 1) // 2 * TILE_FLOATS
+    sizes = (3 * Ht, t * PANEL * (_PT + 1), tiles, tiles)
+    smem, work, glob = _STAGE_FLOATS, 0, []
+    for n in sizes:
+        g = 4 * (smem + n) > build.SMEM_MAX
+        glob.append(g)
+        if g:
+            work += n
+        else:
+            smem += n
+    return 4 * smem, work, tuple(glob)
 
 
 def check_supported(Ht: int, R: int, dtype) -> None:
     """Raise ValueError naming the limit when the kernel cannot take a
-    stage: float32 only, and a tile that fits one CTA's shared memory."""
+    stage: float32 only, 1 <= Ht and 1 <= R.  Every such shape runs:
+    shared memory grows with Ht^2 only, and what does not fit goes to the
+    global workspace (:func:`sample_layout`)."""
     if dtype != torch.float32:
         raise ValueError(f"gp_sample kernel takes float32 only, got {dtype}; "
                          "run float64 with device='cpu'")
-    smem = smem_bytes(Ht, R)
-    if Ht < 1 or R < 1 or smem > build.SMEM_MAX:
-        raise ValueError(f"gp_sample: {smem} B of shared memory for Ht={Ht}, "
-                         f"R={R}; one CTA takes 1 <= Ht, 1 <= R and at most "
-                         f"{build.SMEM_MAX} B")
+    if Ht < 1 or R < 1:
+        raise ValueError(f"gp_sample: need 1 <= Ht and 1 <= R, got Ht={Ht}, "
+                         f"R={R}")
 
 
 def chol_right_looking(A: torch.Tensor) -> torch.Tensor:
@@ -65,11 +96,40 @@ def chol_right_looking(A: torch.Tensor) -> torch.Tensor:
     return L
 
 
+def subst_right_looking(W: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """W L^-T for a batch of lower factors L, column by column as the kernel
+    sweeps: column j is divided by L[j, j], then subtracted, scaled by
+    L[k, j], from every later column k."""
+    W = W.clone()
+    for j in range(L.shape[-1]):
+        W[..., j] = W[..., j] / L[..., j, j][..., None]
+        W[..., j + 1:] -= W[..., j:j + 1] * L[..., None, j + 1:, j]
+    return W
+
+
+def factor_panels(A, c0: int, c1: int, n: int, panel: int):
+    """Right-looking blocked Cholesky, in place, of columns [c0, c1) of
+    A[..., :n, :n] (symmetric, its earlier columns already eliminated):
+    per panel of ``panel`` columns, the diagonal block's column sweep, the
+    rows below solved against it, the trailing block updated.  A
+    non-positive pivot gives NaN from that column on."""
+    for k0 in range(c0, c1, panel):
+        k1 = min(k0 + panel, c1)
+        L = chol_right_looking(A[..., k0:k1, k0:k1])
+        P = subst_right_looking(A[..., k1:n, k0:k1], L)
+        A[..., k0:k1, k0:k1] = L
+        A[..., k1:n, k0:k1] = P
+        A[..., k1:n, k1:n] -= P @ P.transpose(-1, -2)
+    return A
+
+
 def sample_empty_plain(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
                        beta: float, var_zero: float, rel_floor: float,
-                       ty: int = 1, close=None, ynear=None):
-    """Plain torch version of the kernel; same arguments and result as
-    :func:`sample_empty_one`."""
+                       ty: int = 1, close=None, ynear=None,
+                       panel: int = PANEL):
+    """Plain torch version of the kernel for ONE output; same arguments
+    and result as :func:`sample_empty_one`, ``panel`` the blocked
+    factorization's panel width (1: the column sweep)."""
     Ht = Kxm.shape[1]
     V = Linv @ Kxm.transpose(1, 2)                        # (ns, R, Ht)
     G = V.transpose(1, 2) @ V
@@ -78,10 +138,21 @@ def sample_empty_plain(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
     eye = torch.eye(Ht, dtype=Kxm.dtype, device=Kxm.device)
     S = Ktt - G + jitter * eye
     var = torch.diagonal(S, dim1=-2, dim2=-1) - jitter
-    L = chol_right_looking(S)
+    L = torch.tril(factor_panels(S, 0, Ht, Ht, panel))
     y = mean + (L @ eps[..., None])[..., 0]
     return override_tail(mean, y, var, prior_var, beta, var_zero, rel_floor,
                          ty, close, ynear)
+
+
+def sample_empty_plain_stacked(jitter: float, beta: float, var_zero: float,
+                               rel_floor: float, ty: int = 1, **stacked):
+    """Plain version of :func:`sample_empty`: one :func:`sample_empty_plain`
+    per output."""
+    no = stacked["Kxm"].shape[0]
+    return torch.stack([sample_empty_plain(
+        jitter=jitter, beta=beta, var_zero=var_zero, rel_floor=rel_floor,
+        ty=ty, **{k: None if v is None else v[o] for k, v in stacked.items()})
+        for o in range(no)])
 
 
 def override_tail(mean, y, var, prior_var, beta: float, var_zero: float,
@@ -129,30 +200,56 @@ def sample_empty_one(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
         return sample_empty_plain(Kxm, Ktt, eps, Linv, alpha, prior_var,
                                   jitter, beta, var_zero, rel_floor, ty=ty,
                                   close=close, ynear=ynear)
+    one = lambda t: None if t is None else t[None]
+    return sample_empty(one(Kxm), one(Ktt), one(eps), one(Linv), one(alpha),
+                        one(prior_var), jitter, beta, var_zero, rel_floor,
+                        ty=ty, close=one(close), ynear=one(ynear))[0]
+
+
+def sample_empty(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
+                 beta: float, var_zero: float, rel_floor: float, ty: int = 1,
+                 close=None, ynear=None):
+    """Run the fused stage for every GP output in one launch.
+
+    The arguments are :func:`sample_empty_one`'s, each per-output tensor
+    stacked on a leading axis of ``no`` outputs: Kxm (no, ns, Ht, R), Ktt
+    (no, ns, Ht, Ht), eps (no, ns, Ht), Linv (no, R, R), alpha (no, R),
+    prior_var (no, Ht), close/ynear (no, ns, Ht) or None; the scalars are
+    shared.  Returns (no, ns, Ht) sampled rows.
+    """
+    if Kxm.device.type == "cpu":
+        return sample_empty_plain_stacked(
+            jitter, beta, var_zero, rel_floor, ty, Kxm=Kxm, Ktt=Ktt, eps=eps,
+            Linv=Linv, alpha=alpha, prior_var=prior_var, close=close,
+            ynear=ynear)
     if Kxm.device.type != "cuda":
         raise ValueError(f"gp_sample: unsupported device {Kxm.device}")
-    ns, Ht, R = Kxm.shape
+    no, ns, Ht, R = Kxm.shape
     dev = Kxm.device
     check_supported(Ht, R, Kxm.dtype)
-    smem = smem_bytes(Ht, R)
-    args = [("Kxm", Kxm, (ns, Ht, R)), ("Ktt", Ktt, (ns, Ht, Ht)),
-            ("eps", eps, (ns, Ht)), ("Linv", Linv, (R, R)),
-            ("alpha", alpha, (R,)), ("prior_var", prior_var, (Ht,))]
+    args = [("Kxm", Kxm, (no, ns, Ht, R)), ("Ktt", Ktt, (no, ns, Ht, Ht)),
+            ("eps", eps, (no, ns, Ht)), ("Linv", Linv, (no, R, R)),
+            ("alpha", alpha, (no, R)), ("prior_var", prior_var, (no, Ht))]
     if close is not None:
-        args += [("close", close, (ns, Ht)), ("ynear", ynear, (ns, Ht))]
+        args += [("close", close, (no, ns, Ht)), ("ynear", ynear, (no, ns, Ht))]
     for name, t, shape in args:
         build.check_tensor(name, t, shape, dev)
+    smem, stride, glob = sample_layout(Ht)
     fn = build.load("gp_sample").gp_sample_empty
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P] * 9 + [I] * 4 + [F] * 4 + [I, P]
+    fn.argtypes = ([P] * 10 + [I] * 5 + [F] * 4 + [I] * 4
+                   + [ctypes.c_longlong, I, P])
     fn.restype = I
-    dg = torch.empty((ns, Ht), dtype=torch.float32, device=dev)
+    dg = torch.empty((no, ns, Ht), dtype=torch.float32, device=dev)
+    work = torch.empty((max(no * ns * stride, 1),), dtype=torch.float32,
+                       device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         rc = fn(Kxm.data_ptr(), Ktt.data_ptr(), eps.data_ptr(),
                 Linv.data_ptr(), alpha.data_ptr(), prior_var.data_ptr(),
-                ptr(close), ptr(ynear), dg.data_ptr(), ns, Ht, R, int(ty),
-                float(jitter), float(beta), float(var_zero), float(rel_floor),
+                ptr(close), ptr(ynear), dg.data_ptr(), work.data_ptr(), no,
+                ns, Ht, R, int(ty), float(jitter), float(beta),
+                float(var_zero), float(rel_floor), *map(int, glob), stride,
                 smem, torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "gp_sample_empty launch")
     LAUNCHES["gp_sample"] += 1

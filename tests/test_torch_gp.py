@@ -12,7 +12,12 @@
 * the plain version of the hall-block kernels (ops/gp_hall.py) agrees
   with the Pallas hall kernel run in interpret mode on the same inputs,
   which the port's ``hall_stage_inputs`` builds as the JAX package does;
-* the GP-sample kernel takes the car shape (Ht=60, R=180) on CUDA.
+* the GP-sample kernel takes the car shape (Ht=60, R=180) on CUDA; its
+  plain version's blocked factor (32-column panels) agrees with the column
+  sweep, and ``sample_empty`` over stacked outputs with one call per
+  output;
+* neither GP kernel's ``check_supported`` refuses a float32 shape that the
+  JAX package's gates (``pallas_gp.fused_ok`` / ``fused_hall_ok``) accept.
 """
 
 import dataclasses
@@ -265,11 +270,17 @@ def test_sample_dynamics_iteration0_matches_jax(pend):
 
 def test_gp_sample_takes_the_car_shape():
     """The car's iteration-0 stage (Ht=60 test rows, R=180 train rows) fits
-    one CTA: Linv stays in global memory, so shared memory grows with
-    Ht*R (about 103 KB here) and not with R*R."""
-    assert gp_sample.smem_bytes(60, 180) <= build.SMEM_MAX
+    one CTA with every region in shared memory: Kx_i and Linv pass through
+    two staged 64 x 32 chunks, so shared memory grows with Ht^2 (the
+    covariance tiles, Ktt_i's tiles and a 64-column block of V') and not
+    with R (77,776 B here, at any R)."""
+    smem, work, glob = gp_sample.sample_layout(60)
+    assert smem == 77776 <= build.SMEM_MAX
+    assert work == 0 and glob == (False, False, False, False)
     gp_sample.check_supported(60, 180, torch.float32)
     gp_sample.check_supported(51, 108, torch.float32)      # flagship
+    assert gp_sample.sample_layout(51)[2] == (False, False, False, False)
+    assert gp_sample.sample_layout(120)[2] == (False, False, False, False)
 
 
 @pytest.fixture(scope="module")
@@ -378,3 +389,136 @@ def test_plain_gp_hall_matches_pallas_interpret(pend_hall, monkeypatch,
     np.testing.assert_allclose(ref, exact64, atol=3e-3 * scale)
     np.testing.assert_allclose(got, exact64, atol=3e-3 * scale)
     np.testing.assert_allclose(got, ref, atol=4e-3 * scale)
+
+
+def _feature_stage(ns, Ht, R, seed, dtype=torch.float64):
+    """An empty-hall stage from random feature-space covariances (K = Phi
+    Phi' / F, F > R + Ht), so every posterior block is a true covariance."""
+    rng = np.random.default_rng(seed)
+    F = R + Ht + 16
+    P_tr = rng.normal(size=(R, F)) / np.sqrt(F)
+    P_te = rng.normal(size=(ns, Ht, F)) / np.sqrt(F)
+    L = np.linalg.cholesky(P_tr @ P_tr.T + 1e-6 * np.eye(R))
+    kw = dict(Kxm=P_te @ P_tr.T, Ktt=P_te @ np.swapaxes(P_te, 1, 2),
+              eps=np.clip(rng.normal(size=(ns, Ht)), -2.5, 2.5),
+              Linv=np.linalg.inv(L), alpha=rng.normal(size=R) * 0.1,
+              prior_var=np.full(Ht, 1.0))
+    return {k: torch.tensor(v, dtype=dtype) for k, v in kw.items()}
+
+
+SCAL = dict(jitter=1e-6, beta=2.5, var_zero=-1.0, rel_floor=1e-5)
+
+
+@pytest.mark.parametrize("Ht", [17, 51, 60, 120])
+def test_gp_sample_blocked_factor_matches_column_sweep(Ht):
+    """float64: the plain version at panel widths 32 and 8 agrees with
+    the column sweep (panel 1) and with the earlier design's
+    chol_right_looking written out, to 1e-12; one ragged panel (17), two
+    (51, 60) and four (120)."""
+    ty = 3 if Ht % 3 == 0 else 1
+    kw = _feature_stage(4, Ht, 40, seed=Ht)
+    ref = gp_sample.sample_empty_plain(**kw, **SCAL, ty=ty, panel=1)
+    Ktt, Linv, Kx = kw["Ktt"], kw["Linv"], kw["Kxm"]
+    V = Linv @ Kx.transpose(1, 2)
+    G = V.transpose(1, 2) @ V
+    G = torch.tril(G) + torch.tril(G, -1).transpose(1, 2)
+    S = Ktt - G + SCAL["jitter"] * torch.eye(Ht, dtype=Kx.dtype)
+    L0 = gp_sample.chol_right_looking(S)
+    mean = (Kx @ kw["alpha"][:, None])[..., 0]
+    var = torch.diagonal(S, dim1=-2, dim2=-1) - SCAL["jitter"]
+    sweep = gp_sample.override_tail(
+        mean, mean + (L0 @ kw["eps"][..., None])[..., 0], var,
+        kw["prior_var"], SCAL["beta"], SCAL["var_zero"], SCAL["rel_floor"],
+        ty)
+    np.testing.assert_allclose(ref.numpy(), sweep.numpy(), rtol=0,
+                               atol=1e-12)
+    for panel in (8, 32):
+        got = gp_sample.sample_empty_plain(**kw, **SCAL, ty=ty, panel=panel)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                                   atol=1e-12)
+    assert float((ref - mean).abs().max()) > 1e-3     # the draw follows eps
+
+
+@pytest.mark.parametrize("panel", [1, 32])
+def test_plain_gp_sample_panels_match_pallas_interpret(pend, monkeypatch,
+                                                       panel):
+    """sample_empty_plain at the kernel's panel width (32) and at the
+    column sweep's (1) against pallas_gp._kernel in interpret mode, as
+    test_plain_gp_sample_matches_pallas_interpret runs it: float32, each
+    within 3e-3 of the float64 evaluation's scale (the posterior variance
+    cancels 3-4 of float32's 7 digits), 4e-3 of each other."""
+    arrs, spec, hyp, _ = _kernel_inputs(pend)
+    kw = dict(jitter=max(hyp.jitter, 1e-6), beta=hyp.beta,
+              var_zero=hyp.variance_is_zero, rel_floor=1e-5, ty=spec.Ty)
+    monkeypatch.setattr(pallas_gp, "_INTERPRET", True)
+    ref = np.asarray(pallas_gp.sample_empty_one(
+        **{k: jnp.asarray(v) for k, v in arrs.items()}, **kw))
+
+    def plain(dtype):
+        return gp_sample.sample_empty_plain(
+            **{k: torch.tensor(v, dtype=dtype) for k, v in arrs.items()},
+            **kw, panel=panel).numpy()
+
+    got, exact64 = plain(torch.float32), plain(torch.float64)
+    assert np.all(np.isfinite(got))
+    scale = float(np.max(np.abs(exact64)))
+    np.testing.assert_allclose(got, exact64, atol=3e-3 * scale)
+    np.testing.assert_allclose(got, ref, atol=4e-3 * scale)
+
+
+@pytest.mark.parametrize("overrides", [False, True])
+def test_sample_empty_stacked_equals_one_call_per_output(overrides):
+    """sample_empty over three outputs stacked on a leading axis (each its
+    own Linv, alpha and prior variances) equals sample_empty_one per
+    output, with and without the min-dist override rows."""
+    ns, Ht, R = 3, 12, 20
+    kws = [_feature_stage(ns, Ht, R, seed=20 + o) for o in range(3)]
+    kws[1]["prior_var"] = kws[1]["prior_var"] * 0.5
+    if overrides:
+        rng = np.random.default_rng(6)
+        for kw in kws:
+            kw["close"] = torch.tensor(
+                (rng.uniform(size=(ns, Ht)) < 0.2).astype(np.float64))
+            kw["ynear"] = torch.tensor(rng.normal(size=(ns, Ht)) * 1e-3)
+    stacked = {k: torch.stack([kw[k] for kw in kws]) for k in kws[0]}
+    got = gp_sample.sample_empty(**stacked, **SCAL, ty=3)
+    assert got.shape == (3, ns, Ht)
+    for o, kw in enumerate(kws):
+        assert torch.equal(got[o],
+                           gp_sample.sample_empty_one(**kw, **SCAL, ty=3))
+
+
+class _Spec:
+    mean_as_dyn_sample = False
+
+
+@pytest.mark.parametrize("kernel", ["gp_sample", "gp_hall"])
+def test_check_supported_no_tighter_than_tpu_gates(monkeypatch, kernel):
+    """Wherever the JAX package's gate takes a float32 stage (under
+    _INTERPRET), the port's kernel takes it too: gp_sample over a grid of
+    (ns, Ht, R) that holds the 2D pendulum's (20, 120, 180), gp_hall over
+    (ns, Ht, Rr, Rh) that holds its (20, 120, 180, 360) at every fill
+    0 <= nh <= Rh."""
+    monkeypatch.setattr(pallas_gp, "_INTERPRET", True)
+    monkeypatch.delenv("SGPMPC_NO_PALLAS", raising=False)
+    monkeypatch.delenv("SGPMPC_NO_FUSED_GP", raising=False)
+    f32 = jnp.float32
+    taken = 0
+    if kernel == "gp_sample":
+        for ns in (8, 20, 70, 512):
+            for Ht in (2, 17, 51, 60, 120, 240, 400, 600):
+                for R in (1, 36, 108, 180, 400, 1000):
+                    if pallas_gp.fused_ok(_Spec, None, f32, ns, Ht, R):
+                        gp_sample.check_supported(Ht, R, torch.float32)
+                        taken += 1
+        assert pallas_gp.fused_ok(_Spec, None, f32, 20, 120, 180)
+    else:
+        for ns, Ht, Rr, Rh in ((20, 120, 180, 360), (20, 60, 180, 240),
+                               (70, 51, 108, 153), (8, 36, 108, 72),
+                               (4, 180, 180, 540), (4, 240, 180, 720)):
+            if pallas_gp.fused_hall_ok(_Spec, None, f32, ns, Ht, Rr, Rh):
+                for nh in range(Rh + 1):
+                    gp_hall.check_supported(Ht, Rr, Rh, nh, torch.float32)
+                    taken += 1
+        assert pallas_gp.fused_hall_ok(_Spec, None, f32, 20, 120, 180, 360)
+    assert taken > 0

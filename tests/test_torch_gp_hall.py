@@ -12,9 +12,11 @@ written out here as the reference.  In float64:
   same draws after the non-finite -> mean backstop;
 * ``sample_hall`` over outputs stacked on a leading axis equals one
   ``sample_hall_one`` per output;
-* the kernels' shared-memory limit is no tighter than the earlier factor
-  CTA's, and the Mehrotra kernel's cluster layout keeps the closed loops'
-  QPs resident in shared memory.
+* the kernels take every fill: the earlier factor CTA's fills keep their
+  tiles in shared memory, the others run on the global-tile branch (the
+  2D pendulum's Ht = 120 stage at every fill up to its capacity of 360);
+  and the Mehrotra kernel's cluster layout keeps the closed loops' QPs
+  resident in shared memory.
 """
 
 import numpy as np
@@ -22,7 +24,9 @@ import pytest
 import torch
 
 from sampling_gpmpc_torch.ops import build, gp_hall, ipm
-from sampling_gpmpc_torch.ops.gp_sample import chol_right_looking, override_tail
+from sampling_gpmpc_torch.ops.gp_sample import (chol_right_looking,
+                                                override_tail,
+                                                subst_right_looking)
 
 SCAL = dict(jitter=1e-6, beta=2.5, var_zero=-1.0, rel_floor=1e-5)
 NS, HT, RR, RH, TY = 3, 12, 20, 45, 3
@@ -68,7 +72,7 @@ def _column_sweep(nh, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r, jitter):
     S = Ahh[:, :nh, :nh] - Ct @ C + jitter * eye(nh)
     W = torch.cat([Kxh[..., :nh] - Vrt @ C,
                    (yh[:, :nh] - (w_r @ C))[:, None]], dim=1)
-    W = gp_hall.subst_right_looking(W, chol_right_looking(S))
+    W = subst_right_looking(W, chol_right_looking(S))
     Vh, wh = W[:, :Ht], W[:, Ht]
     cov = Ktt - Vrt @ Vr - Vh @ Vh.transpose(1, 2) + jitter * eye(Ht)
     mean = (Vrt @ w_r[:, None])[..., 0] + (Vh @ wh[..., None])[..., 0]
@@ -169,19 +173,27 @@ def _earlier_factor_smem(Ht, nh):
 
 @pytest.mark.parametrize("Ht", [1, 12, 51, 60, 120, 200, 235])
 def test_hall_check_supported_no_tighter(Ht):
-    """Every fill the earlier factor CTA took still fits: the lower tiles
-    of the bordered matrix take less than three padded squares."""
+    """Every fill the earlier factor CTA took is still taken, with its
+    tiles in shared memory (the lower tiles of the bordered matrix take
+    less than three padded squares); every other fill up to the capacity
+    is taken too, on the global-tile branch."""
     taken = 0
     for nh in range(0, 400):
+        gp_hall.check_supported(Ht, 180, 400, nh, torch.float32)
         if _earlier_factor_smem(Ht, nh) <= build.SMEM_MAX:
-            gp_hall.check_supported(Ht, 180, 400, nh, torch.float32)
+            assert not gp_hall.factor_tiles_global(Ht, nh)
             taken += 1
     assert taken > 0
-    # at the car's Ht = 60 the new limit is nh = 224 (earlier: 201)
+    # at the car's Ht = 60 the shared branch ends at nh = 224 (earlier
+    # design's limit: 201); nh = 225 runs with its tiles in the workspace
     if Ht == 60:
         gp_hall.check_supported(60, 180, 240, 224, torch.float32)
-        with pytest.raises(ValueError, match="shared memory"):
-            gp_hall.check_supported(60, 180, 240, 225, torch.float32)
+        assert not gp_hall.factor_tiles_global(60, 224)
+        gp_hall.check_supported(60, 180, 240, 225, torch.float32)
+        assert gp_hall.factor_tiles_global(60, 225)
+        tiles = gp_hall.factor_tile_floats(60, 225)
+        assert (gp_hall.workspace_floats(20, 60, 180, 225)
+                - gp_hall.workspace_floats(20, 60, 180, 224)) > 20 * tiles
 
 
 @pytest.mark.parametrize("nU,m_h,m_s,resident", [
@@ -205,3 +217,17 @@ def test_ipm_loop_layout(nU, m_h, m_s, resident):
     assert lay.smem <= build.SMEM_MAX
     if not resident:
         assert lay.chunk >= 16
+
+
+@pytest.mark.parametrize("nh", [0, 120, 240, 360])
+def test_hall_branch_at_the_pendulum_shape(nh):
+    """The 2D pendulum's stage (Ht = 120, Rr = 180, Rh = 360): nh = 0 and
+    120 keep the tiles in shared memory (153,504 B at 120), the fills the
+    earlier design refused (240: 330,912 B; 360) run with their tiles in
+    the workspace (574,464 B a sample at nh = 360)."""
+    gp_hall.check_supported(120, 180, 360, nh, torch.float32)
+    glob = gp_hall.factor_tiles_global(120, nh)
+    assert glob == (nh >= 240)
+    assert glob == (gp_hall.factor_smem_bytes(120, nh) > build.SMEM_MAX)
+    if nh == 360:
+        assert 4 * gp_hall.factor_tile_floats(120, nh) == 574464

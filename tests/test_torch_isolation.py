@@ -175,6 +175,25 @@ def test_gp_wrapper_never_falls_back(monkeypatch):
     assert 'Kxm.device.type == "cpu"' in src
 
 
+def test_gp_sample_stacked_wrapper_never_falls_back(monkeypatch):
+    """The every-output empty-hall stage the agent calls: the plain version
+    only for CPU tensors, a raise for any other device; the agent makes
+    one call of it per stage."""
+    monkeypatch.setattr(gp_sample, "sample_empty_plain_stacked", _refuse)
+    no, ns, Ht, R = 3, 2, 6, 4
+    meta = lambda *s: torch.empty(*s, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        gp_sample.sample_empty(meta(no, ns, Ht, R), meta(no, ns, Ht, Ht),
+                               meta(no, ns, Ht), meta(no, R, R), meta(no, R),
+                               meta(no, Ht), 1e-6, 2.5, -1.0, 1e-5, ty=3)
+    src = inspect.getsource(gp_sample.sample_empty)
+    assert "try:" not in src and src.count("sample_empty_plain_stacked(") == 1
+    assert 'Kxm.device.type == "cpu"' in src
+    from sampling_gpmpc_torch import agent
+    src = inspect.getsource(agent._fused_sample_empty)
+    assert src.count("gp_sample.sample_empty(") == 1 and "for j" not in src
+
+
 def test_gp_hall_wrapper_never_falls_back(monkeypatch):
     monkeypatch.setattr(gp_hall, "sample_hall_plain", _refuse)
     ns, Ht, Rr, Rh = 2, 6, 4, 8
@@ -237,17 +256,22 @@ def test_fused_gates_need_cuda_float32(monkeypatch):
     gp_sample.check_supported(51, 108, torch.float32)
     with pytest.raises(ValueError, match="float32"):
         gp_sample.check_supported(51, 108, torch.float64)
-    # a tile beyond one CTA's shared memory
-    with pytest.raises(ValueError, match="shared memory"):
-        gp_sample.check_supported(60, 600, torch.float32)
+    # R does not bound the stage's shared memory any more: R = 600 keeps
+    # every region of the car's Ht = 60 in shared memory; an empty stage is
+    # refused, naming the limit
+    gp_sample.check_supported(60, 600, torch.float32)
+    assert gp_sample.sample_layout(60)[2] == (False, False, False, False)
+    with pytest.raises(ValueError, match="1 <= Ht"):
+        gp_sample.check_supported(0, 108, torch.float32)
     # the hall stage: the car's fills up to 3 iterations of H*Ty = 60 rows
     for nh in (0, 60, 120, 180):
         gp_hall.check_supported(60, 180, 240, nh, torch.float32)
     with pytest.raises(ValueError, match="float32"):
         gp_hall.check_supported(60, 180, 240, 60, torch.float64)
-    # the full 240-row capacity does not fit one factor CTA
-    with pytest.raises(ValueError, match="shared memory"):
-        gp_hall.check_supported(60, 180, 240, 240, torch.float32)
+    # the full 240-row capacity runs with the factor's tiles in the
+    # global workspace; a fill past the capacity is refused
+    gp_hall.check_supported(60, 180, 240, 240, torch.float32)
+    assert gp_hall.factor_tiles_global(60, 240)
     with pytest.raises(ValueError, match="nh <= Rh"):
         gp_hall.check_supported(60, 180, 240, 244, torch.float32)
     ipm.check_supported(17, 7174, 70, torch.float32)

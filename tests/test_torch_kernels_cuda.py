@@ -30,22 +30,27 @@ def dev():
     return setup.resolve_device("cuda")
 
 
-@pytest.mark.parametrize("ns,H,ty,R", [(8, 5, 3, 36), (70, 17, 3, 108),
-                                       (20, 15, 4, 180)])
-def test_gp_sample_kernel_matches_plain(dev, ns, H, ty, R):
-    """Random feature-space covariances (K = Phi Phi' / F, F > R + Ht), so
-    every posterior block is a true covariance; float32 rounding only
-    (2e-4 relative)."""
-    rng = np.random.default_rng(ns)
-    Ht = H * ty
+def _empty_problem(ns, Ht, R, seed):
+    """An empty-hall stage from random feature-space covariances (K = Phi
+    Phi' / F, F > R + Ht), so every posterior block is a true covariance."""
+    rng = np.random.default_rng(seed)
     F = R + Ht + 16
     P_tr = rng.normal(size=(R, F)) / np.sqrt(F)
     P_te = rng.normal(size=(ns, Ht, F)) / np.sqrt(F)
     L = np.linalg.cholesky(P_tr @ P_tr.T + 1e-6 * np.eye(R))
-    kw = dict(Kxm=P_te @ P_tr.T, Ktt=P_te @ np.swapaxes(P_te, 1, 2),
-              eps=np.clip(rng.normal(size=(ns, Ht)), -2.5, 2.5),
-              Linv=np.linalg.inv(L), alpha=rng.normal(size=R) * 0.1,
-              prior_var=np.full(Ht, 1.0))
+    return dict(Kxm=P_te @ P_tr.T, Ktt=P_te @ np.swapaxes(P_te, 1, 2),
+                eps=np.clip(rng.normal(size=(ns, Ht)), -2.5, 2.5),
+                Linv=np.linalg.inv(L), alpha=rng.normal(size=R) * 0.1,
+                prior_var=np.full(Ht, 1.0))
+
+
+@pytest.mark.parametrize("ns,H,ty,R", [(8, 5, 3, 36), (70, 17, 3, 108),
+                                       (20, 15, 4, 180)])
+def test_gp_sample_kernel_matches_plain(dev, ns, H, ty, R):
+    """Random feature-space covariances, float32 rounding only (2e-4
+    relative)."""
+    Ht = H * ty
+    kw = _empty_problem(ns, Ht, R, seed=ns)
     t = {k: torch.as_tensor(v, dtype=torch.float32, device=dev).contiguous()
          for k, v in kw.items()}
     args = dict(jitter=1e-6, beta=2.5, var_zero=-1.0, rel_floor=1e-5, ty=ty)
@@ -56,6 +61,41 @@ def test_gp_sample_kernel_matches_plain(dev, ns, H, ty, R):
     scale = float(ref.abs().max())
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                atol=2e-4 * scale)
+
+
+@pytest.mark.parametrize("no,ns,Ht,R,glob", [
+    (3, 20, 60, 180, 0),    # the car, all outputs in one launch
+    (1, 70, 51, 108, 0),    # the 1D pendulum
+    (2, 20, 120, 180, 0),   # the 2D pendulum (the earlier layout refused it)
+    (1, 3, 200, 150, 1),    # Ktt_i's tiles in the global workspace
+    (1, 3, 300, 200, 2),    # the covariance tiles too
+    (1, 2, 800, 100, 3),    # and the V' block
+])
+def test_gp_sample_stacked_matches_plain(dev, no, ns, Ht, R, glob):
+    """Every output in one launch against the plain version of each
+    output (2e-4 relative) and against its own one-output call; the larger
+    Ht run the branches whose last ``glob`` regions sit in the global
+    workspace."""
+    probs = [_empty_problem(ns, Ht, R, seed=200 + o) for o in range(no)]
+    t = [{k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+          .contiguous() for k, v in kw.items()} for kw in probs]
+    stacked = {k: torch.stack([kw[k] for kw in t]) for k in t[0]}
+    args = dict(jitter=1e-6, beta=2.5, var_zero=-1.0, rel_floor=1e-5, ty=4)
+    if Ht % 4:
+        args["ty"] = 1
+    got = gp_sample.sample_empty(**stacked, **args)
+    assert got.shape == (no, ns, Ht)
+    assert gp_sample.sample_layout(Ht)[2] == (False,) * (4 - glob) + (
+        True,) * glob
+    for o in range(no):
+        ref = gp_sample.sample_empty_plain(**t[o], **args)
+        one = gp_sample.sample_empty_one(**t[o], **args)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got[o]).all())
+        scale = float(ref.abs().max())
+        np.testing.assert_allclose(got[o].cpu().numpy(), ref.cpu().numpy(),
+                                   atol=2e-4 * scale)
+        assert torch.equal(one, got[o])
 
 
 def _hall_problem(ns, Ht, Rr, Rh, nh, seed):
@@ -110,6 +150,29 @@ def test_gp_hall_kernel_matches_plain(dev, ns, H, ty, Rr, Rh, nh):
     err_p = float((ref.double() - ex).abs().max())
     assert err_k <= 4 * err_p + 1e-6 * scale, (err_k, err_p)
     assert float((got - mean).abs().max()) > 100 * (err_k + 1e-7 * scale)
+
+
+@pytest.mark.parametrize("nh", [120, 240, 360])
+def test_gp_hall_pendulum_shape_matches_plain(dev, nh):
+    """The 2D pendulum's stage (ns = 20, Ht = 120, Rr = 180, Rh = 360) at
+    fills the earlier design refused: 240 and 360 on the global-tile
+    branch, 120 on the shared one; by the one-output test's criterion."""
+    ns, Ht, ty, Rr, Rh = 20, 120, 4, 180, 360
+    assert gp_hall.factor_tiles_global(Ht, nh) == (nh >= 240)
+    kw = _hall_problem(ns, Ht, Rr, Rh, nh, seed=nh)
+    args = dict(jitter=1e-6, beta=2.5, var_zero=-1.0, rel_floor=1e-5, ty=ty)
+    t = lambda dtype: {k: torch.as_tensor(v, dtype=dtype, device=dev)
+                       .contiguous() for k, v in kw.items()}
+    t32 = t(torch.float32)
+    got = gp_hall.sample_hall_one(nh, **t32, **args)
+    ref = gp_hall.sample_hall_plain(nh, **t32, **args)
+    ex = gp_hall.sample_hall_plain(nh, **t(torch.float64), **args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    scale = float(ex.abs().max())
+    err_k = float((got.double() - ex).abs().max())
+    err_p = float((ref.double() - ex).abs().max())
+    assert err_k <= 4 * err_p + 1e-6 * scale, (err_k, err_p)
 
 
 @pytest.mark.parametrize("nh", [0, 45, 180])
@@ -258,6 +321,38 @@ def test_linalg_kernels_nan_pattern(dev):
         assert torch.equal(torch.isnan(got), torch.isnan(ref))
         fin = torch.isfinite(ref)
         _close(got[fin], ref[fin], 2e-4)
+
+
+@pytest.mark.parametrize("B,n,m", [(64, 60, 8), (64, 108, 8), (128, 60, 8),
+                                   (512, 60, 8), (12000, 50, 1),
+                                   (60, 180, 8), (5, 17, 3), (3, 180, 186)])
+def test_tri_solve_kernel_matches_plain(dev, B, n, m):
+    """The blocked solve at the six linalg shapes, one ragged panel, and
+    the widest right-hand side n = 180 takes, both directions: within 3e-4
+    of the plain version (the same updates in the same order: measured
+    bit-identical); a zero pivot and a NaN in one right-hand-side column
+    give the plain version's NaN entries."""
+    from sampling_gpmpc_torch.microbench_linalg import spd_inputs
+    S, R = spd_inputs(B, n, m, dev, seed=n + m)
+    L = batch_linalg.chol(S)
+    assert batch_linalg.use_kernel(n, m)
+    L0 = L.clone()
+    L0[:, n // 2, n // 2] = 0.0
+    R1 = R.clone()
+    R1[:, n // 3, m - 1] = float("nan")
+    for tr in (False, True):
+        _close(batch_linalg.tri_solve(L, R, lower_factor_transposed=tr),
+               batch_linalg.tri_solve_plain(L, R, tr), 3e-4)
+        for Lx, Rx in ((L0, R), (L, R1)):
+            got = batch_linalg.tri_solve(Lx, Rx, lower_factor_transposed=tr)
+            ref = batch_linalg.tri_solve_plain(Lx, Rx, tr)
+            assert torch.equal(torch.isnan(got), torch.isnan(ref))
+            assert bool(torch.isnan(got[..., m - 1]).all())
+            if Lx is L:
+                assert bool(torch.isfinite(got[..., :m - 1]).all())
+            fin = torch.isfinite(ref)
+            if bool(fin.any()):
+                _close(got[fin], ref[fin], 3e-4)
 
 
 @pytest.mark.parametrize("n", [16, 33, 50, 64, 65, 108, 180, 239, 320])

@@ -14,7 +14,12 @@ against the JAX package's Pallas kernels in interpret mode.
   masked rank-1 arithmetic) at panel widths 1, 8 and 32 in float64, and
   against the Pallas kernels at three panels (n = 70); the NaN pattern of
   a failed pivot inside a panel, at a panel boundary and in the last panel
-  the same at every width.
+  the same at every width;
+* the blocked triangular solve (32-row panels) against the column sweep
+  in float64 at n = 50, 60, 108 and 180, both directions (the same
+  updates in the same order: equal at rounding level), the per-column NaN
+  pattern of a zero pivot and of a non-finite right-hand side at every
+  panel width, and the Pallas kernel at three panels (n = 70).
 On the CPU the wrappers take the plain versions; the CUDA kernels are held
 to them on the GPU (tests/test_torch_kernels_cuda.py, chip_smoke.py).
 """
@@ -192,7 +197,8 @@ def test_shape_routing(monkeypatch):
     assert np.isnan(tbl.chol(torch.as_tensor(bad)).numpy()).all()
     assert tbl.use_kernel(16) and tbl.use_kernel(180)
     assert not tbl.use_kernel(15) and not tbl.use_kernel(181)
-    assert tbl.use_kernel(180, 141) and not tbl.use_kernel(180, 142)
+    # the solve's tiles leave room for up to 186 right-hand sides at n = 180
+    assert tbl.use_kernel(180, 186) and not tbl.use_kernel(180, 187)
     with pytest.raises(AssertionError, match="plain version"):
         tbl.chol(torch.as_tensor(_spd(rng, 2, 16)))
 
@@ -322,3 +328,75 @@ def test_kernel_ranges_unchanged():
     routed = [n for n in range(1, 400) if tbl.use_kernel(n)]
     assert routed == list(range(tbl.MIN_N, tbl.MAX_N + 1)) == \
         list(range(16, 181))
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("n", [50, 60, 108, 180])
+def test_blocked_tri_solve_matches_column_sweep(n, transposed):
+    """float64: tri_solve_plain at the kernel's panel width (32) and at 8
+    agrees with the column sweep (panel 1) to 1e-12, and with scipy."""
+    rng = np.random.default_rng(n)
+    L = torch.as_tensor(np.linalg.cholesky(_spd(rng, 3, n, np.float64)))
+    R = torch.as_tensor(rng.standard_normal((3, n, 5)))
+    ref = tbl.tri_solve_plain(L, R, transposed, panel=1)
+    for panel in (8, 32):
+        X = tbl.tri_solve_plain(L, R, transposed, panel=panel)
+        np.testing.assert_allclose(X.numpy(), ref.numpy(), rtol=0,
+                                   atol=1e-12)
+    X_ref = np.stack([scipy.linalg.solve_triangular(
+        L[i].numpy(), R[i].numpy(), lower=True, trans=1 if transposed else 0)
+        for i in range(3)])
+    np.testing.assert_allclose(ref.numpy(), X_ref, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("j0", [5, 31, 32, 50])
+def test_tri_solve_nan_pattern_same_at_every_panel_width(j0):
+    """n = 70, both directions: a zero pivot at row j0 turns every column
+    NaN in every row, as the TPU kernel's masked update does; a NaN in one
+    column of the right-hand side at row j0 turns that column NaN in every
+    row and leaves the others finite and equal to the clean solve's; the
+    same entries at panel widths 1, 8 and 32."""
+    rng = np.random.default_rng(j0)
+    n, m = 70, 4
+    L = torch.as_tensor(np.linalg.cholesky(_spd(rng, 2, n, np.float64)))
+    R = torch.as_tensor(rng.standard_normal((2, n, m)))
+    L0 = L.clone()
+    L0[:, j0, j0] = 0.0
+    R1 = R.clone()
+    R1[:, j0, 2] = float("nan")
+    for tr in (False, True):
+        clean = tbl.tri_solve_plain(L, R, tr)
+        for panel in (1, 8, 32):
+            X0 = tbl.tri_solve_plain(L0, R, tr, panel=panel)
+            assert bool(torch.isnan(X0).all()), (tr, panel)
+            X1 = tbl.tri_solve_plain(L, R1, tr, panel=panel)
+            assert bool(torch.isnan(X1[..., 2]).all())
+            keep = [0, 1, 3]
+            assert torch.equal(X1[..., keep], clean[..., keep])
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_blocked_tri_solve_matches_pallas_interpret_three_panels(transposed):
+    """n = 70 (three 32-row panels, the last ragged), m = 3, against the
+    Pallas kernel in interpret mode, float32, at S_TOL; and a zero pivot
+    gives the same all-NaN result there."""
+    rng = np.random.default_rng(11)
+    b, n, m = 3, 70, 3
+    L = np.linalg.cholesky(_spd(rng, b, n))
+    R = rng.standard_normal((b, n, m)).astype(np.float32)
+
+    def jax_solve(Lx):
+        return np.asarray(jax.vmap(lambda Li, Ri: jbl.tri_solve(
+            Li, Ri, lower_factor_transposed=transposed))(
+            jnp.asarray(Lx), jnp.asarray(R)))
+
+    X = tbl.tri_solve(torch.as_tensor(L), torch.as_tensor(R),
+                      lower_factor_transposed=transposed).numpy()
+    np.testing.assert_allclose(X, jax_solve(L), rtol=S_TOL, atol=S_TOL)
+    L0 = L.copy()
+    L0[:, 40, 40] = 0.0
+    ref0 = jax_solve(L0)
+    X0 = tbl.tri_solve(torch.as_tensor(L0), torch.as_tensor(R),
+                       lower_factor_transposed=transposed).numpy()
+    np.testing.assert_array_equal(np.isnan(X0), np.isnan(ref0))
+    assert np.isnan(X0).all()
