@@ -7,8 +7,9 @@ Run from the repository root with no arguments:
 
 Phases, one result line each; any failure exits non-zero:
 
-1. build   — compile every CUDA kernel (one nvcc per source, in parallel)
-             and print the card's name and power limit;
+1. build   — compile every CUDA kernel (one nvcc per source, in parallel),
+             print each kernel's registers and spills and the card's name
+             and power limit;
 params_pendulum1D_samples (ns=70, H=17, one SQP iteration):
 2. gp      — the GP-sample kernel vs its plain torch version on the inputs
              of SQP iteration 0, held by the tube criterion
@@ -16,8 +17,10 @@ params_pendulum1D_samples (ns=70, H=17, one SQP iteration):
              version within 1e-3 of the tube;
 3. ipm     — on the first QP of that solve and on a warm-started later QP:
              the whole kernel solve vs the plain solver, the prepare
-             kernel's every output vs prepare_plain, and the Mehrotra kernel
-             vs the plain loop on the same prepared problem;
+             kernel's every output and its warm/cold flag vs prepare_plain,
+             and the Mehrotra kernel vs the plain loop on the same prepared
+             problem; both kernels on a 16-CTA cluster, the [ipm] lines
+             naming each one's branch (resident or streamed);
 4. loop    — the closed loop on cuda float32 with the stored oracle's
              epistemic draws: 20 teacher-forced steps, each through the
              kernels and through their plain versions, against each other
@@ -38,9 +41,9 @@ params_car (ns=20, H=15, four SQP iterations, 4 soft ellipse obstacles):
              ignored eps;
 7. ipm     — the three IPM checks on the car's cold step-0 QP and on the
              warm QP of SQP iteration 2, and on seeded QPs: one too wide for
-             the Mehrotra kernel's slices to stay in shared memory (nU=20,
-             m_h=52,000, m_s=512: the streamed branch; the closed loops'
-             QPs take the resident one), and two Schur matrices wider than
+             the kernels' slices to stay in shared memory (nU=20,
+             m_h=52,000, m_s=512: the streamed branches; the closed loops'
+             QPs take the resident ones), and two Schur matrices wider than
              the closed loops' (nU=64 resident, nU=128 streamed: the
              block-wide factor and the kernel build for up to 33 Schur
              pairs a thread);
@@ -60,8 +63,10 @@ ported), where the earlier kernels refused the TPU kernels' shapes:
              mean-only check;
 10. timing — each kernel at the main paths' shapes (CUDA events around
              back-to-back warm calls queued behind a sleep kernel, median)
-             beside its plain version and its bound, and gp_sample's and
-             gp_hall's launches per car MPC step;
+             beside its plain version and its bound (the IPM kernels on
+             both loops' cold and warm QPs, prepare also on the three
+             seeded wide QPs), and gp_sample's and gp_hall's launches per
+             car MPC step;
 kernels 5-7, the batched small-matrix linalg (off the closed loop):
 11. linalg — their own entry point, sampling_gpmpc_torch.microbench_linalg
              (chol, tri_solve both ways, batched_cholesky(use_kernel=True)
@@ -245,6 +250,40 @@ def zero_launch_counts():
             k[name] = 0
 
 
+def kernel_name(mangled):
+    """A mangled kernel name as in its source, with its template argument
+    (ipm_prepare_kernel<1>): the first length-prefixed name in it that ends
+    in _kernel."""
+    import re
+    for i, ch in enumerate(mangled):
+        if not ch.isdigit() or (i and mangled[i - 1].isdigit()):
+            continue
+        run = re.match(r"\d+", mangled[i:]).group()
+        for j in range(len(run)):           # the length may be a suffix
+            n, at = int(run[j:]), i + len(run)
+            name = mangled[at:at + n]
+            if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*",
+                                                         name):
+                t = re.match(r"IL[a-z](\d+)E", mangled[at + n:])
+                return name + (f"<{t.group(1)}>" if t else "")
+    return mangled
+
+
+def ptxas_usage(log):
+    """(kernel, line) for each register and spill line of nvcc's -Xptxas
+    -v log (kernel_name of the function the lines belong to)."""
+    import re
+    fn, out = "?", []
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )(\S+?)'?"
+                      r"(?: for |$)", line.strip())
+        if m:
+            fn = kernel_name(m.group(1))
+        elif "registers" in line or "spill" in line:
+            out.append((fn, line.strip()))
+    return out
+
+
 def bound_ms(nbytes, flops):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / F32_FLOP_PER_S * 1e3
@@ -411,32 +450,16 @@ class IPMChecks:
     def prepare_report(self, label, qp_args, ws, wv):
         """The prepare kernel's every output against prepare_plain's on the
         same inputs, each relative to the field's own largest magnitude;
-        and which start each took (the kernel keeps its cold candidate in
-        the head of its scratch buffer)."""
+        and which start each took (the kernel's one-word ``warm`` flag, the
+        plain version's ``warm``)."""
         import torch
         ipm, band = self.ipm, self.qp.WS_BAND
         qp_args = tuple(a.contiguous() for a in qp_args)
-        m_h = qp_args[3].shape[0]
         d = ipm.prepare(*qp_args, ws, wv, band)
         p = ipm.prepare_plain(*qp_args, ws, wv, band)
-        cold = ipm.prepare_plain(*qp_args, None, None, band).st0
-        warm_k = not torch.equal(d.h0.reshape(-1), d.work[:2 * m_h])
-        warm_p = not all(torch.equal(a, b) for a, b in zip(p.st0, cold))
-        s, inv = p.st0, (lambda x: 1.0 / (1.0 + torch.abs(x)))
-        fields = [
-            ("G_h", d.Gth.T, p.G_h), ("d_h", d.dh[0], p.d_h),
-            ("1/(1+|d_h|)", d.dh[1], inv(p.d_h)), ("G_s", d.Gts.T, p.G_s),
-            *[(n, d.sd[k], v) for k, (n, v) in enumerate(
-                (("lo_s", p.lo_s), ("hi_s", p.hi_s), ("zl", p.zl),
-                 ("zu", p.zu), ("Zl", p.Zl), ("Zu", p.Zu),
-                 ("1/(1+|hi|)", inv(p.hi_s)), ("1/(1+|lo|)", inv(p.lo_s))))],
-            ("qscale", d.qs[0], p.qscale), ("scale_h", d.sch, p.scale_h),
-            ("scale_s", d.scs, p.scale_s), ("th", d.h0[0], s[3]),
-            ("lh", d.h0[1], s[4]), ("tU", d.s0[0], s[5]),
-            ("tL", d.s0[1], s[7]), ("sl", d.s0[2], s[1]),
-            ("su", d.s0[3], s[2]), ("lU", d.s0[4], s[6]),
-            ("lL", d.s0[5], s[8]), ("nl", d.s0[6], s[9]),
-            ("nu", d.s0[7], s[10])]
+        warm_k = bool(d.warm[0])
+        warm_p = p.warm is not None and bool(p.warm)
+        fields = ipm.prepared_fields(d, p)
         errs = {n: (float(torch.max(torch.abs(k - v))),
                     float(torch.max(torch.abs(k - v))
                           / torch.clamp(torch.max(torch.abs(v)), min=1e-30)))
@@ -467,11 +490,19 @@ class IPMChecks:
         nU, m_h, m_s = (qp_args[1].shape[0], qp_args[3].shape[0],
                         qp_args[5].shape[0])
         lay = self.ipm.loop_layout(nU, m_h, m_s)
-        print(f"[ipm] {label}: Mehrotra kernel on a cluster of "
-              f"{self.ipm.cluster_size()} CTAs, G slices and state rows "
+        play = self.ipm.prepare_layout(nU, m_h, m_s)
+        n_cl = self.ipm.cluster_size()
+        print(f"[ipm] {label}: prepare kernel on a cluster of {n_cl} CTAs, "
+              f"{'resident' if play.resident else 'streamed'} branch (G "
+              f"slices, row values and warm candidate "
+              f"{'in shared memory' if play.resident else f'from global memory, staged {play.chunk} rows a chunk'}"
+              f"; {play.smem} B of shared memory per CTA)", flush=True)
+        print(f"[ipm] {label}: Mehrotra kernel on a cluster of {n_cl} CTAs, "
+              f"G slices and state rows "
               f"{'in shared memory' if lay.resident else 'streamed from global memory'}"
               f" ({lay.smem} B of shared memory per CTA)", flush=True)
-        if lay.resident != resident:
+        # at the QPs checked here both kernels take the same branch
+        if lay.resident != resident or play.resident != resident:
             fail(f"IPM {label}: expected the "
                  f"{'resident' if resident else 'streamed'} branch")
         k, p, ex = self.solve_pair(qp_args, ws, wv)
@@ -506,6 +537,35 @@ class IPMChecks:
             fail(f"IPM Mehrotra kernel {label}")
         return rel_prep, du_m
 
+    def timing_prepare(self, label, qpa, ws, wv):
+        """Kernel and plain times of the prepare stage on one QP, with its
+        bound (each input read once, each output written once; the warm
+        start's three matvecs)."""
+        from sampling_gpmpc_torch.microbench_linalg import cuda_ms
+        ipm, band = self.ipm, self.qp.WS_BAND
+        qpa = tuple(a.contiguous() for a in qpa)
+        nU, m_h, m_s = qpa[1].shape[0], qpa[3].shape[0], qpa[5].shape[0]
+        prep = ipm.prepare(*qpa, ws, wv, band)
+        t_pk = cuda_ms(lambda: ipm.prepare(*qpa, ws, wv, band))
+        t_pp = cuda_ms(lambda: ipm.prepare_plain(*qpa, ws, wv, band), n=10,
+                       k=1)
+        m = m_h + m_s
+        pb = 4 * (nU * nU + nU + 2 * nU * m + m_h + 6 * m_s
+                  + (0 if ws is None else nU + m_h + 6 * m_s)
+                  + 4 * m_h + 16 * m_s + 1 + m + 1)
+        pf = 4 * nU * m + (0 if ws is None else 6 * nU * m)
+        bp, byp = bound_ms(pb, pf)
+        lay = ipm.prepare_layout(nU, m_h, m_s)
+        branch = "resident" if lay.resident else "streamed"
+        warm = bool(prep.warm[0])
+        print(f"[timing] ipm prepare {label} (nU={nU}, m_h={m_h}, m_s={m_s}"
+              f"; {branch} branch, cluster of {ipm.cluster_size()} CTAs, "
+              f"{'warm' if warm else 'cold'} start): kernel {t_pk:.4f} ms, "
+              f"plain {t_pp:.4f} ms, bound {bp:.5f} ms ({byp}: {pb} B, "
+              f"{pf:.3e} flop)", flush=True)
+        return dict(ms=t_pk, plain_ms=t_pp, bound_ms=bp, bound_by=byp,
+                    branch=branch, warm=warm), prep
+
     def timing(self, label, qpa, ws, wv):
         """Kernel and plain times of both IPM stages on one QP, with their
         bounds, for this QP's iteration count."""
@@ -514,10 +574,7 @@ class IPMChecks:
         tol, reg, consts = self.tol, self.reg, self.consts
         qpa = tuple(a.contiguous() for a in qpa)
         nU, m_h, m_s = qpa[1].shape[0], qpa[3].shape[0], qpa[5].shape[0]
-        prep = ipm.prepare(*qpa, ws, wv, band)
-        t_pk = cuda_ms(lambda: ipm.prepare(*qpa, ws, wv, band))
-        t_pp = cuda_ms(lambda: ipm.prepare_plain(*qpa, ws, wv, band), n=10,
-                       k=1)
+        prep_t, prep = self.timing_prepare(label, qpa, ws, wv)
         t_mk = cuda_ms(lambda: ipm.mehrotra(prep, tol, reg, 150, *consts),
                        k=2)
         pp = ipm.prepare_plain(*qpa, ws, wv, band)
@@ -525,25 +582,19 @@ class IPMChecks:
                        n=5, warm=1, k=1)
         iters = int(ipm.mehrotra(prep, tol, reg, 150, *consts)[2])
         m = m_h + m_s
-        pb = 4 * (nU * nU + nU + 2 * nU * m + m_h + 6 * m_s
-                  + (0 if ws is None else nU + m_h + 6 * m_s)
-                  + 4 * m_h + 16 * m_s + 1 + m)
-        pf = 4 * nU * m + (0 if ws is None else 6 * nU * m)
-        bp, byp = bound_ms(pb, pf)
         mb = 4 * (nU * nU + nU + nU * m + 4 * m_h + 16 * m_s + 1
                   + nU + 2 * m_h + 8 * m_s + 2)
         mf = iters * (nU * (nU + 1) * m + 9 * 2 * nU * m + nU ** 3 / 3
                       + 4 * nU * nU + 60 * m)
         bm, bym = bound_ms(mb, mf)
         print(f"[timing] ipm {label} (nU={nU}, m_h={m_h}, m_s={m_s}, "
-              f"{iters} iterations): prepare kernel {t_pk:.4f} ms, plain "
-              f"{t_pp:.4f} ms, bound {bp:.5f} ms ({byp}); mehrotra kernel "
-              f"{t_mk:.4f} ms, plain "
-              f"{t_mp:.4f} ms, bound {bm:.5f} ms ({bym}: {mb} B, {mf:.3e} "
-              f"flop)", flush=True)
-        return (dict(ms=t_pk, plain_ms=t_pp, bound_ms=bp, bound_by=byp),
-                dict(ms=t_mk, plain_ms=t_mp, bound_ms=bm, bound_by=bym,
-                     iters=iters))
+              f"{iters} iterations): prepare kernel {prep_t['ms']:.4f} ms, "
+              f"plain {prep_t['plain_ms']:.4f} ms, bound "
+              f"{prep_t['bound_ms']:.5f} ms ({prep_t['bound_by']}); mehrotra "
+              f"kernel {t_mk:.4f} ms, plain {t_mp:.4f} ms, bound {bm:.5f} ms "
+              f"({bym}: {mb} B, {mf:.3e} flop)", flush=True)
+        return prep_t, dict(ms=t_mk, plain_ms=t_mp, bound_ms=bm, bound_by=bym,
+                            iters=iters)
 
 
 def gp_report(tag, spec, label, dk, dp, tube, mean64, rel_tol, d0=None):
@@ -863,9 +914,8 @@ def main():
     print(f"[build] {len(logs)} sources ({', '.join(logs)}) in {build_s:.1f}"
           f" s (nvcc {' '.join(build.FLAGS)})", flush=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+        for fn, line in ptxas_usage(log):
+            print(f"[build] {name} {fn}: {line}", flush=True)
     print(f"[card] {card}", flush=True)
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
@@ -1367,18 +1417,26 @@ def main():
     prep_t, mehr_t = checks.timing("pendulum cold", qp0, None, None)
     results["ipm_prepare"].update(prep_t, library_ms=None)
     results["ipm_mehrotra"].update(mehr_t, library_ms=None)
-    _, pend_warm_mehr = checks.timing("pendulum warm", qpm, sa.qp_ws,
-                                      sa.qp_valid)
+    pend_warm_prep, pend_warm_mehr = checks.timing(
+        "pendulum warm", qpm, sa.qp_ws, sa.qp_valid)
     results["ipm_mehrotra"]["pendulum_warm"] = pend_warm_mehr
     car_prep, car_mehr = checks.timing("car cold", qp0_c, None, None)
     results["ipm_prepare"]["car"] = car_prep
     results["ipm_mehrotra"]["car"] = car_mehr
-    _, car_warm_mehr = checks.timing("car warm", qp_warm_c, ws_warm_c,
-                                     wv_warm_c)
-    _, wide_mehr = checks.timing("wide seeded QP, streamed", qp_wide, None,
-                                 None)
+    car_warm_prep, car_warm_mehr = checks.timing(
+        "car warm", qp_warm_c, ws_warm_c, wv_warm_c)
+    wide_prep, wide_mehr = checks.timing("wide seeded QP, streamed", qp_wide,
+                                         None, None)
     results["ipm_mehrotra"].update(car_warm=car_warm_mehr,
                                    wide_streamed=wide_mehr)
+    results["ipm_prepare"].update(pendulum_warm=pend_warm_prep,
+                                  car_warm=car_warm_prep,
+                                  wide_streamed=wide_prep)
+    for nU, m_h, m_s, _ in WIDE_SCHUR_QPS:
+        prep_t, _ = checks.timing_prepare(
+            f"wide Schur seeded QP (nU, m_h, m_s) = {(nU, m_h, m_s)}",
+            ipm.seeded_qp(nU, m_h, m_s, 3, dev), None, None)
+        results["ipm_prepare"][f"wide_schur_nU{nU}"] = prep_t
 
     # ---- 11. kernels 5-7 through their own entry point ------------------
     linalg, launches_linalg = linalg_phase(dev)

@@ -1,5 +1,5 @@
 // Block-level helpers shared by the port's CUDA kernels (gp_sample.cu,
-// gp_hall.cu, ipm.cu, batch_linalg.cu, batched_chol.cu): warp/block
+// gp_hall.cu, ipm.cu, batch_linalg.cu, batched_chol.cu): warp
 // reductions, NaN-propagating min/max
 // (jnp.maximum / jnp.clip semantics, which the plain torch versions
 // reproduce with torch.maximum / torch.minimum), an in-shared-memory
@@ -35,26 +35,6 @@ __device__ __forceinline__ float warp_reduce(float v, Op op) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Reduce one value per thread over the whole block; every thread gets the
-// result.  `red` is >= 33 floats of shared memory.  Starts and ends with a
-// barrier, so back-to-back calls may share `red`.
-template <class Op>
-__device__ float block_reduce(float v, float* red, Op op, float init) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  v = warp_reduce(v, op);
-  __syncthreads();
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    float x = lane < nw ? red[lane] : init;
-    x = warp_reduce(x, op);
-    if (lane == 0) red[32] = x;
-  }
-  __syncthreads();
-  return red[32];
 }
 
 // In-place lower Cholesky of the n x n matrix whose lower triangle sits in

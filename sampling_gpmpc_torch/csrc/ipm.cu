@@ -51,6 +51,40 @@
 // thread may hold 255 registers.  Per iteration: 8
 // cluster barriers (Schur + stationarity, two directions, two step lengths,
 // mu_aff, the finiteness vote, KKT + mu).
+//
+// The prepare kernel moves each input once: it reads G (row-major, ~490 KB
+// at the pendulum's QP, ~300 KB at the car's) and writes it transposed and
+// scaled, plus a few floats per row; its bound is those bytes (~0.3 us).
+// Its first design ran on one CTA of one SM: each thread walked one row of
+// G (a warp's loads 32 rows apart), and the warm start's three matvecs
+// re-read the transposed G from global memory one warp per column.  This
+// design runs it on the loop kernel's cluster with the same row slices
+// (row_slice), 512 threads a CTA:
+//   pass 1: each CTA's rows of G_h and of G_s are one contiguous block of
+//       the input; it comes in chunks by 16-byte cp.async, one chunk ahead
+//       of the one being worked on, is transposed in shared memory (odd row
+//       stride, the staged rows read in order), and its row maxima are
+//       taken there; the scaled transpose goes to Gth/Gts with consecutive
+//       threads on consecutive rows;
+//   reduction 1: qscale (max|g|, max zl') over the cluster;
+//   pass 2 + reduction 2 (warm start only): one pass over the slice forms
+//       the staleness vector G'(lam_w) and the cold start's stationarity
+//       vector, primal residual and complementarity sum;
+//   pass 3 + reduction 3: the warm candidate from tau, its stationarity
+//       vector, primal residual and complementarity sum;
+//   then every CTA, holding the same reduced values, takes the same
+//   warm/cold decision and writes its rows of the chosen start straight to
+//   h0/s0, and rank 0 writes qscale and the one-word `warm` flag.
+// A cold call (no carried duals) runs pass 1 and reduction 1 only.
+// Reductions go through distributed shared memory in rank order
+// (reduce_over_cluster, shared with the loop kernel).  Where the slice's
+// transposed columns, row values and warm candidate fit shared memory
+// (prepare_layout in ops/ipm.py: both closed loops' QPs), they stay there
+// and passes 2-3 read them in place; else (RES = false: nU=20, m_h=52,000)
+// pass 1 stages fixed-size chunks, passes 2-3 read Gth/Gts back from global
+// memory chunk by chunk, and the warm candidate is written to h0/s0 in pass
+// 3 (overwritten by the cold start if rejected).  The branch is a template
+// argument, so every shared-memory access compiles as one.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -59,7 +93,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 1024;        // prepare kernel
 constexpr int NT_LOOP = 256;    // loop kernel: up to 255 registers a thread
 // Schur pairs per thread: ceil(nU (nU + 1) / 2 / NT_LOOP); the loop kernel
 // is instantiated for up to 3 (nU <= 38: the closed loops' QPs, few
@@ -198,6 +231,51 @@ __device__ float block_reduce1(float v, float* red, int& par, Op op, float init)
   return sgp::warp_reduce(lane < nw ? slot[lane] : init, op);
 }
 
+// This CTA's rows of one QP spread over a cluster of CL CTAs: hard rows
+// [hb, hb + nh), soft rows [sb, sb + ns); contiguous, in rank order, at
+// most ceil(m / CL) each, possibly empty (m < CL).  Both kernels slice the
+// rows this way.
+struct RowSlice {
+  int hb, nh, sb, ns;
+};
+__device__ __forceinline__ RowSlice row_slice(int m_h, int m_s, int rank) {
+  RowSlice r;
+  r.hb = (int)((long long)m_h * rank / CL);
+  r.sb = (int)((long long)m_s * rank / CL);
+  r.nh = (int)((long long)m_h * (rank + 1) / CL) - r.hb;
+  r.ns = (int)((long long)m_s * (rank + 1) / CL) - r.sb;
+  return r;
+}
+
+// Cluster-wide reduction of n values this CTA holds in shared `vals`:
+// entries [0, nsum) summed, [nsum, nsum + nmax) NaN-max'ed, the rest
+// min'ed, over the ranks in order; every CTA gets the same result in
+// `vals`.  `pub` holds two publish buffers of `stride` floats that
+// alternate (`par` flips), so a buffer is rewritten only after a later
+// cluster barrier, when every rank has read it.
+__device__ __forceinline__ void reduce_over_cluster(cg::cluster_group& cluster, float* pub,
+                                               int stride, int& par, float* vals, int n,
+                                               int nsum, int nmax) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  __syncthreads();
+  float* mine = pub + par * stride;
+  for (int e = tid; e < n; e += nt) mine[e] = vals[e];
+  cluster.sync();
+  for (int e = tid; e < n; e += nt) {
+    float x[CL];                // every rank's load in flight at once
+#pragma unroll
+    for (int r = 0; r < CL; ++r) x[r] = cluster.map_shared_rank(mine, r)[e];
+    float acc = x[0];
+#pragma unroll
+    for (int r = 1; r < CL; ++r)
+      acc = e < nsum ? acc + x[r]
+                     : (e < nsum + nmax ? sgp::nmax(acc, x[r]) : fminf(acc, x[r]));
+    vals[e] = acc;
+  }
+  __syncthreads();
+  par ^= 1;
+}
+
 // Solve L L' x = b in place (x holds b), L lower in shared memory; one warp.
 __device__ void chol_solve_warp(const float* L, int ld, int n, float* x) {
   const int lane = threadIdx.x & 31;
@@ -325,11 +403,8 @@ ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, nt = blockDim.x, ldm = nU + 1, nv = nU + 8;
-  // this CTA's rows: hard [hb, hb + nh), soft [sb, sb + ns)
-  const int hb = (int)((long long)m_h * rank / CL);
-  const int sb = (int)((long long)m_s * rank / CL);
-  const int nh = (int)((long long)m_h * (rank + 1) / CL) - hb;
-  const int ns = (int)((long long)m_s * (rank + 1) / CL) - sb;
+  const RowSlice rs = row_slice(m_h, m_s, rank);
+  const int hb = rs.hb, nh = rs.nh, sb = rs.sb, ns = rs.ns;
   const int hmax = (m_h + CL - 1) / CL, smax = (m_s + CL - 1) / CL;
 
   extern __shared__ float sm[];
@@ -410,30 +485,9 @@ ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
   }
   __syncthreads();
 
-  // Cluster-wide reduction of n values this CTA holds in shared `vals`:
-  // entries [0, nsum) summed, [nsum, nsum + nmax) NaN-max'ed, the rest
-  // min'ed, over the ranks in order; every CTA gets the same result in
-  // `vals`.  The two publish buffers alternate, so a buffer is rewritten
-  // only after a later cluster barrier, when every rank has read it.
   int par = 0, rpar = 0;
   auto cluster_reduce = [&](float* vals, int n, int nsum, int nmax) {
-    __syncthreads();
-    float* mine = pub + par * PUB;
-    for (int e = tid; e < n; e += nt) mine[e] = vals[e];
-    cluster.sync();
-    for (int e = tid; e < n; e += nt) {
-      float x[CL];                // every rank's load in flight at once
-#pragma unroll
-      for (int r = 0; r < CL; ++r) x[r] = cluster.map_shared_rank(mine, r)[e];
-      float acc = x[0];
-#pragma unroll
-      for (int r = 1; r < CL; ++r)
-        acc = e < nsum ? acc + x[r]
-                       : (e < nsum + nmax ? sgp::nmax(acc, x[r]) : fminf(acc, x[r]));
-      vals[e] = acc;
-    }
-    __syncthreads();
-    par ^= 1;
+    reduce_over_cluster(cluster, pub, PUB, par, vals, n, nsum, nmax);
   };
   // one block-reduced scalar (same in every thread) across the cluster
   auto cluster_scalar = [&](float v, int op) {   // op: 0 sum, 1 max, 2 min
@@ -704,8 +758,42 @@ ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
 }
 
 // ---------------------------------------------------------------------------
+// The prepare kernel (see the header): one QP on a cluster of CL CTAs with
+// the loop kernel's row slices.
 
-__global__ void __launch_bounds__(NT, 1)
+constexpr int NT_PREP = 512;
+constexpr int PUB_PREP = 264;   // floats of one publish buffer: 2 nU + 2 <= 258
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// Start copying the n contiguous floats at src into shared memory at `raw`
+// (16-byte aligned, 3 floats of slack) by cp.async: 16-byte copies for the
+// aligned body, 4-byte ones for the head and the tail.  Returns where
+// src[0] lands: raw plus the source's float offset modulo 4, so the copy
+// and the source share their alignment.
+__device__ float* stage_async(float* raw, const float* src, int n) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int ph = (int)((reinterpret_cast<size_t>(src) >> 2) & 3);
+  float* dst = raw + ph;
+  const int head = min(n, (4 - ph) & 3);
+  const int nb = (n - head) >> 2;
+  for (int k = tid; k < head; k += nt) sgp::cp_async4(dst + k, src + k);
+  for (int q = tid; q < nb; q += nt) cp_async16(dst + head + 4 * q, src + head + 4 * q);
+  for (int k = head + 4 * nb + tid; k < n; k += nt) sgp::cp_async4(dst + k, src + k);
+  return dst;
+}
+
+// RES: the CTA keeps its scaled columns of Gth/Gts, its rows' scales and
+// the warm candidate in shared memory (prepare_layout's resident branch);
+// else the matvecs read Gth/Gts back from global memory, the per-row
+// values come back from the outputs, and the warm candidate goes straight
+// to h0/s0 (overwritten by the cold start when it is rejected).
+template <bool RES>
+__global__ void __launch_bounds__(NT_PREP, 1)
 ipm_prepare_kernel(const float* __restrict__ H, const float* __restrict__ g,
                    const float* __restrict__ Gh, const float* __restrict__ d_h,
                    const float* __restrict__ Gs, const float* __restrict__ lo,
@@ -716,185 +804,364 @@ ipm_prepare_kernel(const float* __restrict__ H, const float* __restrict__ g,
                    const float* lL_w, const float* nl_w, const float* nu_w,
                    const unsigned char* flag, float* Gth, float* Gts, float* dho,
                    float* sdo, float* h0, float* s0, float* qs, float* sch, float* scs,
-                   float* work, int nU, int m_h, int m_s, float ws_floor, float ws_cap) {
-  __shared__ float red[40];
-  __shared__ float vA[128], vB[128];
+                   int* warm, int nU, int m_h, int m_s, float ws_floor, float ws_cap,
+                   int chunk) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, wid = tid >> 5, nw = nt >> 5;
+  const RowSlice rows = row_slice(m_h, m_s, rank);
+  const int hb = rows.hb, nh = rows.nh, sb = rows.sb, ns = rows.ns;
+  const int hmax = (m_h + CL - 1) / CL, smax = (m_s + CL - 1) / CL;
+  const int CH = RES ? max(hmax, smax) : chunk;   // rows per staged chunk
+  // one staging buffer: the chunk's rows of G, then its rows of the row
+  // inputs (d_h, or lo hi zl zu Zl Zu), 6 x CH; each a multiple of 16 bytes
+  const int side_n = (6 * CH + 3) & ~3;
+  const int raw_n = ((CH * nU + 4 + 3) & ~3) + side_n;
   const float m_total = (float)(m_h + 4 * m_s);
 
-  // per-row inf-norm equilibration; G is written transposed and scaled
-  for (int i = tid; i < m_h; i += nt) {
-    const float* row = Gh + (size_t)i * nU;
-    float a = 0.f;
-    for (int p = 0; p < nU; ++p) a = sgp::nmax(a, fabsf(row[p]));
-    const float sc = sgp::nmax(a, 1e-10f);
-    sch[i] = sc;
-    for (int p = 0; p < nU; ++p) Gth[(size_t)p * m_h + i] = row[p] / sc;
-    const float ds = d_h[i] / sc;
-    dho[i] = ds;
-    dho[m_h + i] = 1.f / (1.f + fabsf(ds));
-  }
-  float zmax = 0.f;
-  for (int j = tid; j < m_s; j += nt) {
-    const float* row = Gs + (size_t)j * nU;
-    float a = 0.f;
-    for (int p = 0; p < nU; ++p) a = sgp::nmax(a, fabsf(row[p]));
-    const float sc = sgp::nmax(a, 1e-10f);
-    scs[j] = sc;
-    for (int p = 0; p < nU; ++p) Gts[(size_t)p * m_s + j] = row[p] / sc;
-    const float l = lo[j] / sc, h = hi[j] / sc, z = zl[j] * sc;
-    sdo[j] = l;
-    sdo[m_s + j] = h;
-    sdo[2 * m_s + j] = z;
-    sdo[3 * m_s + j] = zu[j] * sc;
-    sdo[4 * m_s + j] = Zl[j] * sc * sc;
-    sdo[5 * m_s + j] = Zu[j] * sc * sc;
-    sdo[6 * m_s + j] = 1.f / (1.f + fabsf(h));
-    sdo[7 * m_s + j] = 1.f / (1.f + fabsf(l));
-    zmax = sgp::nmax(zmax, z);
-  }
-  float gmax = 0.f;
-  for (int p = tid; p < nU; p += nt) gmax = sgp::nmax(gmax, fabsf(g[p]));
-  gmax = sgp::block_reduce(gmax, red, sgp::MaxOp(), 0.f);
-  zmax = sgp::block_reduce(zmax, red, sgp::MaxOp(), 0.f);
-  const float qscale = 1.f + gmax + zmax, mu0 = qscale;
-  if (tid == 0) qs[0] = qscale;
+  extern __shared__ __align__(16) float psm[];
+  float* raw0 = psm;                       // two staging buffers
+  float* raw1 = raw0 + raw_n;
+  float* pub = raw1 + raw_n;               // 2 x PUB_PREP: published partials
+  float* vals = pub + 2 * PUB_PREP;        // 2 nU + 8: reduced vectors, scalars
+  float* red = vals + 2 * nU + 8;          // 64: two block-reduction slots
+  float* rsc = red + 64;                   // CH: the chunk's row scales
+  float* t1 = rsc + CH;                    // CH: per-row vectors of a matvec
+  float* t2 = t1 + CH;
+  float* tail = t2 + CH;
 
-  // central-path cold start at the dual scale (s * lam = mu0 per pair)
-  float* hc = work;                 // cold candidate (2, m_h)
-  float* sc8 = hc + 2 * m_h;        // cold candidate (8, m_s)
-  float* tmph = sc8 + 8 * m_s;
-  float* tmps = tmph + m_h;
-  for (int i = tid; i < m_h; i += nt) {
-    const float th = fmaxf(dho[i], 1.f);
-    hc[i] = th;
-    hc[m_h + i] = mu0 / th;
+  float *sGh = nullptr, *sGs = nullptr, *sT = nullptr;
+  float *hsc = nullptr, *hds = nullptr, *hwr = nullptr;
+  float *ssc = nullptr, *slo = nullptr, *shi = nullptr, *swU = nullptr, *swL = nullptr;
+  const float *Hsc, *Hds, *Hwr, *Ssc, *Slo, *Shi, *SwU, *SwL;   // per-row values
+  float *Ch, *Cs;                          // the warm candidate's rows
+  int ldch, ldcs;
+  const int ldh = nh | 1, lds = ns | 1;    // resident columns' odd row strides
+  if (RES) {
+    float* p = tail;
+    sGh = p; p += nU * (hmax | 1);
+    sGs = p; p += nU * (smax | 1);
+    hsc = p; p += hmax; hds = p; p += hmax; hwr = p; p += hmax;
+    ssc = p; p += smax; slo = p; p += smax; shi = p; p += smax;
+    swU = p; p += smax; swL = p; p += smax;
+    Ch = p; p += 2 * hmax;
+    Cs = p;
+    ldch = hmax; ldcs = smax;
+    Hsc = hsc; Hds = hds; Hwr = hwr;
+    Ssc = ssc; Slo = slo; Shi = shi; SwU = swU; SwL = swL;
+  } else {
+    sT = tail;                             // nU x (CH | 1): one chunk transposed
+    Hsc = sch + hb; Hds = dho + hb; Hwr = dho + m_h + hb;
+    Ssc = scs + sb; Slo = sdo + sb; Shi = sdo + m_s + sb;
+    SwU = sdo + 6 * m_s + sb; SwL = sdo + 7 * m_s + sb;
+    Ch = h0 + hb; Cs = s0 + sb;
+    ldch = m_h; ldcs = m_s;
   }
-  for (int j = tid; j < m_s; j += nt) {
-    const float tU = sgp::nmax(sdo[m_s + j] + 1.f, 1.f);
-    const float tL = sgp::nmax(-sdo[j] + 1.f, 1.f);
-    sc8[j] = tU;
-    sc8[m_s + j] = tL;
-    sc8[2 * m_s + j] = 1.f;
-    sc8[3 * m_s + j] = 1.f;
-    sc8[4 * m_s + j] = mu0 / tU;
-    sc8[5 * m_s + j] = mu0 / tL;
-    sc8[6 * m_s + j] = mu0;
-    sc8[7 * m_s + j] = mu0;
+
+  // ---- pass 1: equilibration.  Chunks of CH rows, hard then soft, staged
+  // by cp.async one chunk ahead; each chunk is transposed in shared memory
+  // (reading the staged rows in order), its row maxima taken there, and its
+  // scaled transpose written to Gth / Gts with consecutive threads on
+  // consecutive rows.
+  const int nch_h = (nh + CH - 1) / CH, nch = nch_h + (ns + CH - 1) / CH;
+  auto chunk_rows = [&](int c, int& r0, int& n) {
+    const bool hard = c < nch_h;
+    r0 = (hard ? c : c - nch_h) * CH;
+    n = min(CH, (hard ? nh : ns) - r0);
+    return hard;
+  };
+  auto start_chunk = [&](int c, float* raw) {
+    int r0, n;
+    const bool hard = chunk_rows(c, r0, n);
+    float* side = raw + raw_n - side_n;
+    if (hard) {
+      for (int k = tid; k < n; k += nt) sgp::cp_async4(side + k, d_h + hb + r0 + k);
+    } else {
+      const float* in[6] = {lo, hi, zl, zu, Zl, Zu};
+#pragma unroll
+      for (int q = 0; q < 6; ++q)
+        for (int k = tid; k < n; k += nt) sgp::cp_async4(side + q * CH + k, in[q] + sb + r0 + k);
+    }
+    float* rows_at = stage_async(
+        raw, hard ? Gh + (size_t)(hb + r0) * nU : Gs + (size_t)(sb + r0) * nU, n * nU);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    return rows_at;
+  };
+  float zmax = 0.f;
+  float* cur = nch > 0 ? start_chunk(0, raw0) : nullptr;
+  for (int c = 0; c < nch; ++c) {
+    float* nxt = nullptr;
+    if (c + 1 < nch) {
+      nxt = start_chunk(c + 1, (c & 1) ? raw0 : raw1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    }
+    __syncthreads();
+    int r0, n;
+    const bool hard = chunk_rows(c, r0, n);
+    float* T = RES ? (hard ? sGh : sGs) : sT;   // resident: r0 = 0
+    const int ldt = RES ? (hard ? ldh : lds) : (n | 1);
+    const float* side = ((c & 1) ? raw1 : raw0) + raw_n - side_n;
+    {  // element e = k nU + p of the staged rows, (k, p) walked without division
+      int k = tid / nU, p = tid - k * nU;
+      const int dk = nt / nU, dp = nt - dk * nU;
+      for (int e = tid; e < n * nU; e += nt) {
+        T[p * ldt + k] = cur[e];
+        k += dk;
+        p += dp;
+        if (p >= nU) { p -= nU; ++k; }
+      }
+    }
+    __syncthreads();
+    for (int k = tid; k < n; k += nt) {
+      float a = 0.f;
+      for (int p = 0; p < nU; ++p) a = sgp::nmax(a, fabsf(T[p * ldt + k]));
+      const float sc = sgp::nmax(a, 1e-10f);
+      rsc[k] = sc;
+      const int i = r0 + k;
+      if (hard) {
+        const float ds = side[k] / sc, wr = 1.f / (1.f + fabsf(ds));
+        sch[hb + i] = sc;
+        dho[hb + i] = ds;
+        dho[m_h + hb + i] = wr;
+        if (RES) { hsc[i] = sc; hds[i] = ds; hwr[i] = wr; }
+      } else {
+        const int j = sb + i;
+        const float l = side[k] / sc, h = side[CH + k] / sc, z = side[2 * CH + k] * sc;
+        const float wU = 1.f / (1.f + fabsf(h)), wL = 1.f / (1.f + fabsf(l));
+        scs[j] = sc;
+        sdo[j] = l;
+        sdo[m_s + j] = h;
+        sdo[2 * m_s + j] = z;
+        sdo[3 * m_s + j] = side[3 * CH + k] * sc;
+        sdo[4 * m_s + j] = side[4 * CH + k] * sc * sc;
+        sdo[5 * m_s + j] = side[5 * CH + k] * sc * sc;
+        sdo[6 * m_s + j] = wU;
+        sdo[7 * m_s + j] = wL;
+        zmax = sgp::nmax(zmax, z);
+        if (RES) { ssc[i] = sc; slo[i] = l; shi[i] = h; swU[i] = wU; swL[i] = wL; }
+      }
+    }
+    __syncthreads();
+    float* Gt = hard ? Gth + hb + r0 : Gts + sb + r0;
+    const int ldg = hard ? m_h : m_s;
+    {  // element e = p n + k of the transposed chunk, walked without division
+      int p = tid / n, k = tid - p * n;
+      const int dp = nt / n, dk = nt - dp * n;
+      for (int e = tid; e < n * nU; e += nt) {
+        const float v = T[p * ldt + k] / rsc[k];
+        Gt[(size_t)p * ldg + k] = v;
+        if (RES) T[p * ldt + k] = v;
+        p += dp;
+        k += dk;
+        if (k >= n) { k -= n; ++p; }
+      }
+    }
+    __syncthreads();                       // T, rsc and this buffer are reused
+    cur = nxt;
   }
+
+  // ---- reduction 1: qscale = 1 + max|g| + max(0, max zl'), every CTA
+  int par = 0, rpar = 0;
+  float gm = 0.f;
+  for (int p = tid; p < nU; p += nt) gm = sgp::nmax(gm, fabsf(g[p]));
+  gm = block_reduce1(gm, red, rpar, sgp::MaxOp(), 0.f);
+  zmax = block_reduce1(zmax, red, rpar, sgp::MaxOp(), 0.f);
+  if (tid == 0) { vals[0] = gm; vals[1] = zmax; }
+  reduce_over_cluster(cluster, pub, PUB_PREP, par, vals, 2, 0, 2);
+  const float qscale = 1.f + vals[0] + vals[1], mu0 = qscale;
+
+  // One pass over this CTA's rows, hard then soft, in chunks of CH rows:
+  // row(k, i, hard) fills t1[k] (and t2[k]) for row i of the slice, then
+  // vals[p] (and vals[nU + p]) += (G' t)[p], one warp per p, lanes along
+  // the rows.
+  auto gt_pass = [&](int nvec, auto&& row) {
+    __syncthreads();                       // every thread has read vals
+    for (int e = tid; e < nvec * nU; e += nt) vals[e] = 0.f;
+    for (int hard = 1; hard >= 0; --hard) {
+      const int m = hard ? nh : ns;
+      for (int r0 = 0; r0 < m; r0 += CH) {
+        const int n = min(CH, m - r0);
+        for (int k = tid; k < n; k += nt) row(k, r0 + k, hard != 0);
+        __syncthreads();
+        const float* G;
+        int ld;
+        if (RES) {
+          G = hard ? sGh : sGs;
+          ld = hard ? ldh : lds;
+        } else {
+          G = hard ? Gth + hb + r0 : Gts + sb + r0;
+          ld = hard ? m_h : m_s;
+        }
+        for (int p = wid; p < nU; p += nw) {
+          const float* col = G + (size_t)p * ld;
+          float a1 = 0.f, a2 = 0.f;
+          for (int k = lane; k < n; k += 32) {
+            const float gv = col[k];
+            a1 = fmaf(gv, t1[k], a1);
+            if (nvec == 2) a2 = fmaf(gv, t2[k], a2);
+          }
+          a1 = sgp::warp_reduce(a1, sgp::SumOp());
+          if (nvec == 2) a2 = sgp::warp_reduce(a2, sgp::SumOp());
+          if (lane == 0) {
+            vals[p] += a1;
+            if (nvec == 2) vals[nU + p] += a2;
+          }
+        }
+        __syncthreads();
+      }
+    }
+  };
+
   bool valid = false;
   if (u_w != nullptr) {
-    // carried (unscaled) duals into this call's row scaling; staleness =
-    // stationarity of the carried pair (u_w, lam_w) under the current data
-    for (int i = tid; i < m_h; i += nt) tmph[i] = lh_w[i] * sch[i];
-    for (int j = tid; j < m_s; j += nt) tmps[j] = lU_w[j] * scs[j] - lL_w[j] * scs[j];
-    __syncthreads();
-    gtv(Gth, m_h, tmph, nU, m_h, vA);
-    gtv(Gts, m_s, tmps, nU, m_s, vB);
-    __syncthreads();
-    float r = 0.f;
-    for (int p = tid; p < nU; p += nt)
-      r = sgp::nmax(r, fabsf(h_row(H, u_w, nU, p) + g[p] + vA[p] + vB[p]));
-    const float rq = sgp::block_reduce(r, red, sgp::MaxOp(), 0.f) / qscale;
+    // ---- pass 2 + reduction 2: the staleness vector G' lam_w of the
+    // carried duals in this call's scaling, and the cold start's
+    // stationarity vector, primal residual and complementarity sum
+    float rp = 0.f, cp = 0.f;
+    gt_pass(2, [&](int k, int i, bool hard) {
+      if (hard) {
+        const float ds = Hds[i], th = sgp::nmax(ds, 1.f), lc = mu0 / th;
+        t1[k] = lh_w[hb + i] * Hsc[i];
+        t2[k] = lc;
+        rp = sgp::nmax(rp, fabsf(th - ds) * Hwr[i]);
+        cp += th * lc;
+      } else {
+        const int j = sb + i;
+        const float c = Ssc[i], l = Slo[i], h = Shi[i];
+        const float tU = sgp::nmax(h + 1.f, 1.f), tL = sgp::nmax(-l + 1.f, 1.f);
+        const float lU = mu0 / tU, lL = mu0 / tL;
+        t1[k] = lU_w[j] * c - lL_w[j] * c;
+        t2[k] = lU - lL;
+        rp = sgp::nmax(rp, sgp::nmax(fabsf(tU - 1.f - h) * SwU[i],
+                                     fabsf(tL - 1.f + l) * SwL[i]));
+        cp += tU * lU + tL * lL + mu0 + mu0;
+      }
+    });
+    rp = block_reduce1(rp, red, rpar, sgp::MaxOp(), 0.f);
+    cp = block_reduce1(cp, red, rpar, sgp::SumOp(), 0.f);
+    if (tid == 0) { vals[2 * nU] = cp; vals[2 * nU + 1] = rp; }
+    reduce_over_cluster(cluster, pub, PUB_PREP, par, vals, 2 * nU + 2, 2 * nU + 1, 1);
+    const float cp_cold = vals[2 * nU], rp_cold = vals[2 * nU + 1];
+    float r = 0.f, rc = 0.f;
+    for (int p = tid; p < nU; p += nt) {
+      r = sgp::nmax(r, fabsf(h_row(H, u_w, nU, p) + g[p] + vals[p]));
+      rc = sgp::nmax(rc, fabsf(g[p] + vals[nU + p]));
+    }
+    const float rq = block_reduce1(r, red, rpar, sgp::MaxOp(), 0.f) / qscale;
+    const float rs_cold = block_reduce1(rc, red, rpar, sgp::MaxOp(), 0.f) / qscale;
+    const float k_cold = sgp::nmax(sgp::nmax(rs_cold, rp_cold), cp_cold / (m_total * qscale));
+
+    // ---- pass 3 + reduction 3: the warm candidate (staleness tau, the
+    // complementarity band) and its stationarity, primal residual and
+    // complementarity sum
     const float tau = sgp::nclip(rq, 1e-4f, 1.f);
     const float mu_ws = mu0 * tau;
     const float flo = ws_floor * mu_ws, fhi = ws_cap * mu_ws;
-    for (int i = tid; i < m_h; i += nt) {
-      const float ds = dho[i];
-      const float th = sgp::nmax(ds, tau * (1.f + fabsf(ds)));
-      h0[i] = th;
-      h0[m_h + i] = sgp::nclip(lh_w[i] * sch[i], flo / th, fhi / th);
-    }
-    for (int j = tid; j < m_s; j += nt) {
-      const float c = scs[j], l = sdo[j], h = sdo[m_s + j];
-      const float sl = sgp::nmax(sl_w[j] / c, tau), su = sgp::nmax(su_w[j] / c, tau);
-      const float tU = sgp::nmax(h + su, tau * (1.f + fabsf(h)));
-      const float tL = sgp::nmax(-l + sl, tau * (1.f + fabsf(l)));
-      s0[j] = tU;
-      s0[m_s + j] = tL;
-      s0[2 * m_s + j] = sl;
-      s0[3 * m_s + j] = su;
-      s0[4 * m_s + j] = sgp::nclip(lU_w[j] * c, flo / tU, fhi / tU);
-      s0[5 * m_s + j] = sgp::nclip(lL_w[j] * c, flo / tL, fhi / tL);
-      s0[6 * m_s + j] = sgp::nclip(nl_w[j] * c, flo / sl, fhi / sl);
-      s0[7 * m_s + j] = sgp::nclip(nu_w[j] * c, flo / su, fhi / su);
-    }
-    __syncthreads();
-
-    // KKT residual at u = 0 of a start candidate (h, s)
-    auto kkt0 = [&](const float* h, const float* s) {
-      for (int j = tid; j < m_s; j += nt) tmps[j] = s[4 * m_s + j] - s[5 * m_s + j];
-      __syncthreads();
-      gtv(Gth, m_h, h + m_h, nU, m_h, vA);
-      gtv(Gts, m_s, tmps, nU, m_s, vB);
-      __syncthreads();
-      float rs = 0.f;
-      for (int p = tid; p < nU; p += nt) rs = sgp::nmax(rs, fabsf(g[p] + vA[p] + vB[p]));
-      const float r_stat = sgp::block_reduce(rs, red, sgp::MaxOp(), 0.f) / qscale;
-      float rp = 0.f, cp = 0.f;
-      for (int i = tid; i < m_h; i += nt) {
-        rp = sgp::nmax(rp, fabsf(h[i] - dho[i]) * dho[m_h + i]);
-        cp += h[i] * h[m_h + i];
+    float rpw = 0.f, cpw = 0.f;
+    gt_pass(1, [&](int k, int i, bool hard) {
+      if (hard) {
+        const float ds = Hds[i];
+        const float th = sgp::nmax(ds, tau * (1.f + fabsf(ds)));
+        const float lh = sgp::nclip(lh_w[hb + i] * Hsc[i], flo / th, fhi / th);
+        Ch[i] = th;
+        Ch[ldch + i] = lh;
+        t1[k] = lh;
+        rpw = sgp::nmax(rpw, fabsf(th - ds) * Hwr[i]);
+        cpw += th * lh;
+      } else {
+        const int j = sb + i;
+        const float c = Ssc[i], l = Slo[i], h = Shi[i];
+        const float sl = sgp::nmax(sl_w[j] / c, tau), su = sgp::nmax(su_w[j] / c, tau);
+        const float tU = sgp::nmax(h + su, tau * (1.f + fabsf(h)));
+        const float tL = sgp::nmax(-l + sl, tau * (1.f + fabsf(l)));
+        const float lU = sgp::nclip(lU_w[j] * c, flo / tU, fhi / tU);
+        const float lL = sgp::nclip(lL_w[j] * c, flo / tL, fhi / tL);
+        const float nl = sgp::nclip(nl_w[j] * c, flo / sl, fhi / sl);
+        const float nu = sgp::nclip(nu_w[j] * c, flo / su, fhi / su);
+        float* s = Cs + i;
+        s[0] = tU;
+        s[ldcs] = tL;
+        s[2 * ldcs] = sl;
+        s[3 * ldcs] = su;
+        s[4 * ldcs] = lU;
+        s[5 * ldcs] = lL;
+        s[6 * ldcs] = nl;
+        s[7 * ldcs] = nu;
+        t1[k] = lU - lL;
+        rpw = sgp::nmax(rpw, sgp::nmax(fabsf(tU - su - h) * SwU[i],
+                                       fabsf(tL - sl + l) * SwL[i]));
+        cpw += tU * lU + tL * lL + sl * nl + su * nu;
       }
-      for (int j = tid; j < m_s; j += nt) {
-        const float tU = s[j], tL = s[m_s + j], sl = s[2 * m_s + j], su = s[3 * m_s + j];
-        rp = sgp::nmax(rp, sgp::nmax(fabsf(tU - su - sdo[m_s + j]) * sdo[6 * m_s + j],
-                                     fabsf(tL - sl + sdo[j]) * sdo[7 * m_s + j]));
-        cp += tU * s[4 * m_s + j] + tL * s[5 * m_s + j] + sl * s[6 * m_s + j] +
-              su * s[7 * m_s + j];
-      }
-      const float r_prim = sgp::block_reduce(rp, red, sgp::MaxOp(), 0.f);
-      const float c = sgp::block_reduce(cp, red, sgp::SumOp(), 0.f);
-      return sgp::nmax(sgp::nmax(r_stat, r_prim), c / (m_total * qscale));
-    };
-    const float k_warm = kkt0(h0, s0);
-    const float k_cold = kkt0(hc, sc8);
+    });
+    rpw = block_reduce1(rpw, red, rpar, sgp::MaxOp(), 0.f);
+    cpw = block_reduce1(cpw, red, rpar, sgp::SumOp(), 0.f);
+    if (tid == 0) { vals[nU] = cpw; vals[nU + 1] = rpw; }
+    reduce_over_cluster(cluster, pub, PUB_PREP, par, vals, nU + 2, nU + 1, 1);
+    const float cp_warm = vals[nU], rp_warm = vals[nU + 1];
+    float rw = 0.f;
+    for (int p = tid; p < nU; p += nt) rw = sgp::nmax(rw, fabsf(g[p] + vals[p]));
+    const float rs_warm = block_reduce1(rw, red, rpar, sgp::MaxOp(), 0.f) / qscale;
+    const float k_warm = sgp::nmax(sgp::nmax(rs_warm, rp_warm), cp_warm / (m_total * qscale));
     valid = (flag == nullptr || flag[0] != 0) && rq < 1e-2f && k_warm <= k_cold;
   }
-  if (!valid) {
-    __syncthreads();
-    for (int e = tid; e < 2 * m_h; e += nt) h0[e] = hc[e];
-    for (int e = tid; e < 8 * m_s; e += nt) s0[e] = sc8[e];
+
+  // ---- the chosen start, this CTA's rows straight to h0 / s0
+  if (valid) {
+    if (RES) {
+      for (int i = tid; i < nh; i += nt) {
+        h0[hb + i] = Ch[i];
+        h0[m_h + hb + i] = Ch[ldch + i];
+      }
+      for (int e = tid; e < 8 * ns; e += nt) {
+        const int r = e / ns, j = e - r * ns;
+        s0[(size_t)r * m_s + sb + j] = Cs[r * ldcs + j];
+      }
+    }
+  } else {
+    // the central-path cold start at the dual scale (s * lam = mu0 per pair)
+    for (int i = tid; i < nh; i += nt) {
+      const float th = sgp::nmax(Hds[i], 1.f);
+      h0[hb + i] = th;
+      h0[m_h + hb + i] = mu0 / th;
+    }
+    for (int j = tid; j < ns; j += nt) {
+      const float tU = sgp::nmax(Shi[j] + 1.f, 1.f), tL = sgp::nmax(-Slo[j] + 1.f, 1.f);
+      float* s = s0 + sb + j;
+      s[0] = tU;
+      s[m_s] = tL;
+      s[2 * m_s] = 1.f;
+      s[3 * m_s] = 1.f;
+      s[4 * m_s] = mu0 / tU;
+      s[5 * m_s] = mu0 / tL;
+      s[6 * m_s] = mu0;
+      s[7 * m_s] = mu0;
+    }
   }
+  if (rank == 0 && tid == 0) {
+    qs[0] = qscale;
+    warm[0] = valid ? 1 : 0;
+  }
+  // no CTA leaves while another may still read its shared memory
+  cluster.sync();
 }
 
-}  // namespace
-
-extern "C" int ipm_prepare(const float* H, const float* g, const float* Gh,
-                           const float* d_h, const float* Gs, const float* lo,
-                           const float* hi, const float* zl, const float* zu,
-                           const float* Zl, const float* Zu, const float* u_w,
-                           const float* sl_w, const float* su_w, const float* lh_w,
-                           const float* lU_w, const float* lL_w, const float* nl_w,
-                           const float* nu_w, const unsigned char* flag, float* Gth,
-                           float* Gts, float* dho, float* sdo, float* h0, float* s0,
-                           float* qs, float* sch, float* scs, float* work, int nU,
-                           int m_h, int m_s, float ws_floor, float ws_cap, void* stream) {
-  if (nU > 128) return (int)cudaErrorInvalidValue;
-  ipm_prepare_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(
-      H, g, Gh, d_h, Gs, lo, hi, zl, zu, Zl, Zu, u_w, sl_w, su_w, lh_w, lU_w, lL_w,
-      nl_w, nu_w, flag, Gth, Gts, dho, sdo, h0, s0, qs, sch, scs, work, nU, m_h, m_s,
-      ws_floor, ws_cap);
-  return (int)cudaGetLastError();
-}
-
-namespace {
-
-template <int MP>
-cudaError_t loop_attributes(int smem_bytes) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ipm_mehrotra_kernel<MP>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+template <class K>
+cudaError_t cluster_attributes(K* kernel, int smem_bytes) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ipm_mehrotra_kernel<MP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   return err;
 }
 
-cudaLaunchConfig_t loop_config(int smem_bytes, cudaStream_t stream,
-                               cudaLaunchAttribute* attr) {
+cudaLaunchConfig_t cluster_config(int smem_bytes, int threads, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CL, 1, 1);
-  cfg.blockDim = dim3(NT_LOOP, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -906,23 +1173,60 @@ cudaLaunchConfig_t loop_config(int smem_bytes, cudaStream_t stream,
   return cfg;
 }
 
-}  // namespace
-
-// The cluster size the loop kernel launches with, 16, if the card can
-// co-schedule a cluster of 16 of its CTAs at the largest shared memory;
-// else 0, or a negative cudaError_t.
-extern "C" int ipm_mehrotra_cluster_size() {
-  cudaError_t err = loop_attributes<MAXP_SMALL>(SMEM_OPT_IN);
-  if (err == cudaSuccess) err = loop_attributes<MAXP>(SMEM_OPT_IN);
+// Whether the card co-schedules a cluster of CL CTAs of `kernel` at the
+// largest shared memory (1), not (0), or a negative cudaError_t.
+template <class K>
+int co_schedules(K* kernel, int threads) {
+  cudaError_t err = cluster_attributes(kernel, SMEM_OPT_IN);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = loop_config(SMEM_OPT_IN, 0, attr);
-  int n_small = 0, n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n_small, ipm_mehrotra_kernel<MAXP_SMALL>, &cfg);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&n, ipm_mehrotra_kernel<MAXP>, &cfg);
+  const cudaLaunchConfig_t cfg = cluster_config(SMEM_OPT_IN, threads, 0, attr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   if (err != cudaSuccess) return -(int)err;
-  return n_small >= 1 && n >= 1 ? CL : 0;
+  return n >= 1 ? 1 : 0;
+}
+
+}  // namespace
+
+// The cluster size both kernels launch with, CL = 16, if the card can
+// co-schedule a cluster of 16 CTAs of every build of both at the largest
+// shared memory; else 0, or a negative cudaError_t.
+extern "C" int ipm_cluster_size() {
+  const int ok[4] = {co_schedules(ipm_mehrotra_kernel<MAXP_SMALL>, NT_LOOP),
+                     co_schedules(ipm_mehrotra_kernel<MAXP>, NT_LOOP),
+                     co_schedules(ipm_prepare_kernel<true>, NT_PREP),
+                     co_schedules(ipm_prepare_kernel<false>, NT_PREP)};
+  for (int v : ok)
+    if (v != 1) return v;
+  return CL;
+}
+
+extern "C" int ipm_prepare(const float* H, const float* g, const float* Gh,
+                           const float* d_h, const float* Gs, const float* lo,
+                           const float* hi, const float* zl, const float* zu,
+                           const float* Zl, const float* Zu, const float* u_w,
+                           const float* sl_w, const float* su_w, const float* lh_w,
+                           const float* lU_w, const float* lL_w, const float* nl_w,
+                           const float* nu_w, const unsigned char* flag, float* Gth,
+                           float* Gts, float* dho, float* sdo, float* h0, float* s0,
+                           float* qs, float* sch, float* scs, int* warm, int nU, int m_h,
+                           int m_s, float ws_floor, float ws_cap, int chunk, int resident,
+                           int smem_bytes, void* stream) {
+  if (nU < 1 || nU > 128 || 2 * nU + 2 > PUB_PREP || (!resident && chunk < 1))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = resident ? ipm_prepare_kernel<true> : ipm_prepare_kernel<false>;
+  cudaError_t err = cluster_attributes(kernel, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(smem_bytes, NT_PREP, (cudaStream_t)stream, attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, H, g, Gh, d_h, Gs, lo, hi, zl, zu, Zl, Zu, u_w,
+                           sl_w, su_w, lh_w, lU_w, lL_w, nl_w, nu_w, flag, Gth, Gts, dho,
+                           sdo, h0, s0, qs, sch, scs, warm, nU, m_h, m_s, ws_floor,
+                           ws_cap, chunk);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 extern "C" int ipm_mehrotra(const float* H, const float* g, const float* Gth,
@@ -935,20 +1239,15 @@ extern "C" int ipm_mehrotra(const float* H, const float* g, const float* Gth,
                             void* stream) {
   if (nU > 128 || nU + 2 > PUB) return (int)cudaErrorInvalidValue;
   const bool small = nU * (nU + 1) / 2 <= MAXP_SMALL * NT_LOOP;
-  cudaError_t err = small ? loop_attributes<MAXP_SMALL>(smem_bytes)
-                          : loop_attributes<MAXP>(smem_bytes);
+  auto kernel = small ? ipm_mehrotra_kernel<MAXP_SMALL> : ipm_mehrotra_kernel<MAXP>;
+  cudaError_t err = cluster_attributes(kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = loop_config(smem_bytes, (cudaStream_t)stream, attr);
-  if (small)
-    err = cudaLaunchKernelEx(&cfg, ipm_mehrotra_kernel<MAXP_SMALL>, H, g, Gth, dh, Gts, sd,
-                             h0, s0, qs, bu, bh, bs, bres, bit, work, nU, m_h, m_s, tol,
-                             reg, max_iter, stall_iters, stall_rtol, mu_grind, chunk,
-                             resident);
-  else
-    err = cudaLaunchKernelEx(&cfg, ipm_mehrotra_kernel<MAXP>, H, g, Gth, dh, Gts, sd, h0,
-                             s0, qs, bu, bh, bs, bres, bit, work, nU, m_h, m_s, tol, reg,
-                             max_iter, stall_iters, stall_rtol, mu_grind, chunk, resident);
+  const cudaLaunchConfig_t cfg =
+      cluster_config(smem_bytes, NT_LOOP, (cudaStream_t)stream, attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, H, g, Gth, dh, Gts, sd, h0, s0, qs, bu, bh, bs,
+                           bres, bit, work, nU, m_h, m_s, tol, reg, max_iter, stall_iters,
+                           stall_rtol, mu_grind, chunk, resident);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

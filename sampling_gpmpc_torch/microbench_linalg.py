@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import statistics
+import time
 
 import numpy as np
 import torch
@@ -30,27 +31,36 @@ import torch
 SHAPES = ((64, 60), (64, 108), (128, 60), (512, 60))
 M = 8
 FS_SHAPE = (12000, 50, 1)
-# ~100 us at the H100's 1.98 GHz boost clock: the host's time to launch one
-# call through a Python wrapper, with room to spare
+# ~100 us at the H100's 1.98 GHz boost clock: the least sleep a call gets
 SLEEP_CYCLES_PER_CALL = 200_000
+CLOCK_HZ = 1.98e9
+SLEEP_MAX_CYCLES = 40_000_000      # ~20 ms a reading
 
 
 def cuda_ms(fn, n=30, warm=3, k=10) -> float:
     """Median milliseconds of one fn() call on the device (warm): n
     readings, each k back-to-back calls between one pair of CUDA events,
     divided by k.  Each reading is queued behind a sleep kernel long enough
-    for the host to enqueue the k calls, so the events time the device's
-    work and not the Python wrappers' launch time, wherever the host keeps
-    ahead of the device (a plain version's long chain of small ops may
-    not: its reading stays host-bound).  Pass k=1 for calls of many ms."""
+    for the host to enqueue the k calls: twice the median host time of a
+    warm-up call, at least SLEEP_CYCLES_PER_CALL a call, so the events time
+    the device's work and not the Python wrappers' launch time, wherever
+    the host keeps ahead of the device (a plain version's long chain of
+    small ops, or one that synchronizes, may not: its reading stays
+    host-bound).  Pass k=1 for calls of many ms."""
+    host = []
     for _ in range(warm):
+        t0 = time.perf_counter()
         fn()
+        host.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
+    per_call = max(SLEEP_CYCLES_PER_CALL,
+                   int(2 * statistics.median(host) * CLOCK_HZ) if host else 0)
+    sleep = min(per_call * k, SLEEP_MAX_CYCLES)
     times = []
     for _ in range(n):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * k)
+        torch.cuda._sleep(sleep)
         e0.record()
         for _ in range(k):
             fn()

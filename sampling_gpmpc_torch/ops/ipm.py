@@ -10,11 +10,13 @@ Port of ``sampling_gpmpc_tpu/ops/pallas_ipm.py`` (``run_full``,
 with the soft slacks eliminated analytically, so every Newton system is the
 (nU, nU) Schur matrix H + Gh' diag(w_h) Gh + Gs' diag(w_eff) Gs.
 
-* ``ipm_prepare`` (kernel 1): per-row inf-norm equilibration of hard and
-  soft rows, penalty rescaling and ``qscale``, the central-path cold start
-  at mu0 = qscale, the duals-only warm start mapped into the new scaling
-  (staleness tau, complementarity band ``ws_band``·mu_ws), and the warm/cold
-  choice by their KKT residuals at u = 0.
+* ``ipm_prepare`` (kernel 1), one QP on the loop kernel's cluster and row
+  slices (:func:`prepare_layout`): per-row inf-norm equilibration of hard
+  and soft rows, penalty rescaling and ``qscale``, the central-path cold
+  start at mu0 = qscale, the duals-only warm start mapped into the new
+  scaling (staleness tau, complementarity band ``ws_band``·mu_ws), and the
+  warm/cold choice by their KKT residuals at u = 0, reported in a one-word
+  ``warm`` flag.
 * ``ipm_mehrotra`` (kernel 2), one QP on a thread-block cluster
   (:func:`loop_layout`): the predictor-corrector loop with Jacobi
   scaling + ``reg`` before the Cholesky, a 0.99 step to the boundary,
@@ -100,6 +102,7 @@ class Prepared(NamedTuple):
     st0: tuple               # start iterate (u, sl, su, th, lh, tU, lU, tL, lL, nl, nu)
     scale_h: torch.Tensor
     scale_s: torch.Tensor
+    warm: torch.Tensor = None  # bool: st0 is the warm start (None: no carried duals)
 
 
 def _compl_sum(st):
@@ -199,7 +202,7 @@ def prepare_plain(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
     valid = valid & (rq < 1e-2) & (_kkt_residual(p, st_w)
                                    <= _kkt_residual(p, st0))
     return p._replace(st0=tuple(torch.where(valid, w, c)
-                                for w, c in zip(st_w, st0)))
+                                for w, c in zip(st_w, st0)), warm=valid)
 
 
 def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
@@ -361,7 +364,8 @@ def _schur_chunk(nU: int) -> int:
     return c
 
 
-PUB = 136            # floats of one publish buffer (csrc/ipm.cu)
+PUB = 136            # floats of one publish buffer of the loop kernel
+PUB_PREP = 264       # ... and of the prepare kernel (csrc/ipm.cu)
 CLUSTER = 16         # CTAs of the cluster that runs one QP (csrc/ipm.cu)
 
 
@@ -388,22 +392,63 @@ def loop_layout(nU: int, m_h: int, m_s: int) -> LoopLayout:
     return LoopLayout(False, chunk, 4 * (base + nU * (chunk + 1) + chunk))
 
 
+class PrepLayout(NamedTuple):
+    """How the prepare kernel lays one QP over the cluster (csrc/ipm.cu)."""
+    resident: bool       # scaled G slices, row values, warm candidate in shared memory
+    chunk: int           # rows staged per chunk (the whole slice when resident)
+    smem: int            # dynamic shared memory of each CTA, bytes
+
+
+def _prep_chunk(nU: int) -> int:
+    """Rows per staged chunk of a streamed slice: the largest power of two
+    up to 512 (one row a thread of the 512), at least 32, with the two
+    staging buffers, their row inputs and the transposed chunk within
+    160 KB."""
+    c = 512
+    while c > 32 and 4 * (3 * nU + 12) * c > 163840:
+        c //= 2
+    return c
+
+
+def prepare_layout(nU: int, m_h: int, m_s: int) -> PrepLayout:
+    """The prepare kernel's shared memory per CTA (the carve-up of
+    ``ipm_prepare_kernel``): two staging buffers of ``chunk`` rows of G and
+    of the 6 row inputs, the publish buffers, the reduced vectors and
+    per-chunk rows; resident,
+    with chunk = the larger slice, also the slices' transposed columns at
+    odd row strides, 3 values per hard row and 5 per soft row, and the warm
+    candidate (2 per hard row, 8 per soft row); else the chunk transposed."""
+    hmax, smax = -(-m_h // CLUSTER), -(-m_s // CLUSTER)
+
+    def floats(chunk, tail):
+        raw = -(-(chunk * nU + 4) // 4) * 4 + -(-6 * chunk // 4) * 4
+        return 2 * raw + 2 * PUB_PREP + 2 * nU + 8 + 64 + 3 * chunk + tail
+
+    chunk = max(hmax, smax)
+    resident = floats(chunk, nU * ((hmax | 1) + (smax | 1)) + 5 * hmax
+                      + 13 * smax)
+    if 4 * resident <= build.SMEM_MAX:
+        return PrepLayout(True, chunk, 4 * resident)
+    chunk = _prep_chunk(nU)
+    return PrepLayout(False, chunk, 4 * floats(chunk, nU * (chunk | 1)))
+
+
 _CLUSTER: dict = {}
 
 
 def cluster_size() -> int:
     """CTAs per QP, CLUSTER; raises if the card cannot co-schedule a
-    cluster of that many of the loop kernel's CTAs (asked of the CUDA
-    runtime once)."""
+    cluster of that many CTAs of either kernel (asked of the CUDA runtime
+    once)."""
     if "n" not in _CLUSTER:
-        fn = build.load("ipm").ipm_mehrotra_cluster_size
+        fn = build.load("ipm").ipm_cluster_size
         fn.argtypes, fn.restype = [], ctypes.c_int
         n = fn()
         if n != CLUSTER:
             raise RuntimeError(
-                f"ipm_mehrotra: this card cannot co-schedule a cluster of "
-                f"{CLUSTER} CTAs of the loop kernel (returned {n}; a negative "
-                f"value is a CUDA error)")
+                f"ipm: this card cannot co-schedule a cluster of {CLUSTER} "
+                f"CTAs of the IPM kernels (returned {n}; a negative value is "
+                f"a CUDA error)")
         _CLUSTER["n"] = n
     return _CLUSTER["n"]
 
@@ -421,14 +466,15 @@ class Device(NamedTuple):
     qs: torch.Tensor         # (1,) qscale
     sch: torch.Tensor        # (m_h,) row scales
     scs: torch.Tensor        # (m_s,)
-    work: torch.Tensor       # scratch of the two kernels
+    warm: torch.Tensor       # (1,) int32: 1 if h0/s0 is the warm start
+    work: torch.Tensor       # the loop kernel's state rows when streamed
 
 
 def _lib_fns():
     lib = build.load("ipm")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     prep, loop = lib.ipm_prepare, lib.ipm_mehrotra
-    prep.argtypes = [P] * 30 + [I, I, I, F, F, P]
+    prep.argtypes = [P] * 30 + [I, I, I, F, F, I, I, I, P]
     prep.restype = I
     loop.argtypes = [P] * 15 + [I, I, I, F, F, I, I, F, F, I, I, I, P]
     loop.restype = I
@@ -437,7 +483,8 @@ def _lib_fns():
 
 def prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws, ws_valid,
             ws_band=(1e-8, 1e12)) -> Device:
-    """Launch the prepare kernel (CUDA float32 tensors only)."""
+    """Launch the prepare kernel (CUDA float32 tensors only) on a cluster
+    laid out by :func:`prepare_layout`."""
     dev = g.device
     nU, m_h, m_s = g.shape[0], d_h.shape[0], lo_s.shape[0]
     if dev.type != "cuda":
@@ -458,14 +505,22 @@ def prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws, ws_valid,
             ws_valid = torch.ones((), dtype=torch.bool, device=dev)
         if ws_valid.dtype != torch.bool or ws_valid.device != dev:
             raise ValueError("ws_valid: need a bool tensor on the device")
+    cluster_size()
+    lay = prepare_layout(nU, m_h, m_s)
+    if lay.smem > build.SMEM_MAX:
+        raise ValueError(f"ipm_prepare: {lay.smem} B of shared memory exceeds "
+                         f"{build.SMEM_MAX} B")
+    streamed_loop = not loop_layout(nU, m_h, m_s).resident
     sizes = {"Gth": nU * m_h, "Gts": nU * m_s, "dh": 2 * m_h, "sd": 8 * m_s,
              "h0": 2 * m_h, "s0": 8 * m_s, "qs": 1, "sch": m_h, "scs": m_s,
-             "work": 3 * (nU + 2 * m_h + 8 * m_s) + 3 * m_h + 12 * m_s}
+             "warm": 1,
+             "work": 9 * m_h + 36 * m_s if streamed_loop else 0}
     flat = torch.empty(sum(sizes.values()), dtype=torch.float32, device=dev)
     buf, o = {}, 0
     for k, n in sizes.items():
         buf[k] = flat[o:o + n]
         o += n
+    buf["warm"] = buf["warm"].view(torch.int32)
     ptr = lambda t: None if t is None else t.data_ptr()
     wsp = [None] * 8 if ws is None else [
         ptr(ws[i]) for i in (0, 1, 2, 4, 6, 8, 9, 10)]  # u sl su lh lU lL nl nu
@@ -476,8 +531,9 @@ def prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws, ws_valid,
                   *wsp, None if ws is None else ws_valid.data_ptr(),
                   *(buf[k].data_ptr() for k in ("Gth", "Gts", "dh", "sd", "h0",
                                                 "s0", "qs", "sch", "scs",
-                                                "work")),
+                                                "warm")),
                   nU, m_h, m_s, float(ws_band[0]), float(ws_band[1]),
+                  lay.chunk, int(lay.resident), lay.smem,
                   torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "ipm_prepare launch")
     LAUNCHES["ipm_prepare"] += 1
@@ -485,7 +541,27 @@ def prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws, ws_valid,
                   Gts=buf["Gts"].view(nU, m_s), dh=buf["dh"].view(2, m_h),
                   sd=buf["sd"].view(8, m_s), h0=buf["h0"].view(2, m_h),
                   s0=buf["s0"].view(8, m_s), qs=buf["qs"], sch=buf["sch"],
-                  scs=buf["scs"], work=buf["work"])
+                  scs=buf["scs"], warm=buf["warm"], work=buf["work"])
+
+
+def prepared_fields(d: Device, p: Prepared) -> list:
+    """``(name, kernel output, plain value)`` for every output field of the
+    prepare kernel, against :func:`prepare_plain`'s result ``p`` on the same
+    inputs."""
+    s, inv = p.st0, (lambda x: 1.0 / (1.0 + torch.abs(x)))
+    soft = (("lo_s", p.lo_s), ("hi_s", p.hi_s), ("zl", p.zl), ("zu", p.zu),
+            ("Zl", p.Zl), ("Zu", p.Zu), ("1/(1+|hi|)", inv(p.hi_s)),
+            ("1/(1+|lo|)", inv(p.lo_s)))
+    return [("G_h", d.Gth.T, p.G_h), ("d_h", d.dh[0], p.d_h),
+            ("1/(1+|d_h|)", d.dh[1], inv(p.d_h)), ("G_s", d.Gts.T, p.G_s),
+            *[(n, d.sd[k], v) for k, (n, v) in enumerate(soft)],
+            ("qscale", d.qs[0], p.qscale), ("scale_h", d.sch, p.scale_h),
+            ("scale_s", d.scs, p.scale_s), ("th", d.h0[0], s[3]),
+            ("lh", d.h0[1], s[4]), ("tU", d.s0[0], s[5]),
+            ("tL", d.s0[1], s[7]), ("sl", d.s0[2], s[1]),
+            ("su", d.s0[3], s[2]), ("lU", d.s0[4], s[6]),
+            ("lL", d.s0[5], s[8]), ("nl", d.s0[6], s[9]),
+            ("nu", d.s0[7], s[10])]
 
 
 def mehrotra(d: Device, tol: float, reg: float, max_iter: int,

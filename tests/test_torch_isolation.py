@@ -111,10 +111,11 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 
 def test_fs_and_microbench_entry_points_raise_without_cuda(no_cuda):
-    from sampling_gpmpc_torch import microbench_linalg
+    from sampling_gpmpc_torch import microbench_ipm, microbench_linalg
     from sampling_gpmpc_torch import simulate_forward_sampling
     for call in (lambda: simulate_forward_sampling.main([]),
-                 lambda: microbench_linalg.main([])):
+                 lambda: microbench_linalg.main([]),
+                 lambda: microbench_ipm.main([])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 

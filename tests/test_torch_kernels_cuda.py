@@ -284,6 +284,90 @@ def test_ipm_kernels_match_plain(dev, seed):
     assert abs(int(warm.iters) - int(warm_p.iters)) <= 2
 
 
+PREP_RTOL = 1e-5   # chip_smoke.PREP_RTOL: per field, of its largest |plain|
+
+
+def _prepare_vs_plain(dev, args, ws, wv):
+    """The prepare kernel against prepare_plain on the same inputs: the same
+    warm/cold choice, and every output field within PREP_RTOL of the
+    field's largest magnitude (the same float32 formulas in the same
+    order).  An accepted warm start also carries tau = rq, the staleness of
+    the carried pair: a max over a stationarity vector that cancels to a
+    few 1e-3 of its terms, so its float32 rounding (another summation order
+    in the kernel's matvecs than in the plain version's) reaches ~1e-4 of
+    tau where tau is not clamped.  There each field is held to the float64
+    evaluation of prepare_plain on the same inputs instead, no farther from
+    it than four times the plain float32 version plus PREP_RTOL of its
+    scale.  Returns the plain version's choice."""
+    d = ipm.prepare(*args, ws, wv, qp_mod.WS_BAND)
+    torch.cuda.synchronize()
+    p = ipm.prepare_plain(*args, ws, wv, qp_mod.WS_BAND)
+    warm_p = p.warm is not None and bool(p.warm)
+    assert bool(d.warm[0]) == warm_p
+    fields = ipm.prepared_fields(d, p)
+    if warm_p:
+        f64 = lambda a: a.double()
+        ex = ipm.prepare_plain(*map(f64, args), tuple(map(f64, ws)), wv,
+                               qp_mod.WS_BAND)
+        assert bool(ex.warm)
+        for (name, k, v), (_, _, e) in zip(fields,
+                                           ipm.prepared_fields(d, ex)):
+            err_k = float((k.double() - e).abs().max())
+            err_p = float((v.double() - e).abs().max())
+            scale = max(float(e.abs().max()), 1e-30)
+            assert err_k <= 4 * err_p + PREP_RTOL * scale, (name, err_k,
+                                                            err_p, scale)
+        return True
+    for name, k, v in fields:
+        err = float((k - v).abs().max())
+        scale = max(float(v.abs().max()), 1e-30)
+        assert err <= PREP_RTOL * scale, (name, err, scale)
+    return False
+
+
+def _carried(args, dg):
+    """A plain solve's state, carried to the same QP with g moved by dg."""
+    kw = (3e-5, 1e-7, 150, qp_mod.STALL_ITERS, qp_mod.STALL_RTOL,
+          qp_mod.MU_GRIND, qp_mod.WS_BAND)
+    sol = qp_mod._finish(*ipm.run_full_plain(*args, None, None, *kw), 3e-5)
+    moved = list(args)
+    moved[1] = args[1] + dg
+    return moved, sol.state
+
+
+@pytest.mark.parametrize("nU,mh,ms,resident", [
+    (17, 7174, 70, True),      # the pendulum loop's QP
+    (30, 60, 2480, True),      # the car loop's QP
+    (6, 1, 1, True),           # m_h, m_s < 16: most ranks hold no row
+    (6, 5, 3, True),
+    (6, 15, 1, True),
+    (6, 15, 3, True),
+    (20, 52000, 512, False),   # chip_smoke.WIDE_QP, streamed
+    (128, 20000, 1000, False),
+])
+def test_ipm_prepare_matches_plain(dev, nU, mh, ms, resident):
+    """Seeded QPs cold, then warm from a plain solve of the same QP with g
+    moved by 1e-3 (accepted), field by field and the choice."""
+    assert ipm.prepare_layout(nU, mh, ms).resident == resident
+    args = ipm.seeded_qp(nU, mh, ms, 5, dev)
+    assert not _prepare_vs_plain(dev, args, None, None)
+    moved, ws = _carried(args, 1e-3)
+    valid = torch.ones((), dtype=torch.bool, device=dev)
+    assert _prepare_vs_plain(dev, moved, ws, valid)
+
+
+@pytest.mark.parametrize("nU,mh,ms", [(17, 7174, 70), (20, 52000, 512)])
+def test_ipm_prepare_rejected_warm_start(dev, nU, mh, ms):
+    """A stale carried pair (g moved by 5: rq >= 1e-2) and a carried pair
+    flagged invalid both give the cold start, as in prepare_plain."""
+    args = ipm.seeded_qp(nU, mh, ms, 6, dev)
+    moved, ws = _carried(args, 5.0)
+    valid = torch.ones((), dtype=torch.bool, device=dev)
+    assert not _prepare_vs_plain(dev, moved, ws, valid)
+    moved, ws = _carried(args, 1e-3)
+    assert not _prepare_vs_plain(dev, moved, ws, ~valid)
+
+
 def _close(got, ref, tol):
     """assert_allclose at rtol = atol = tol (the JAX tests' bars)."""
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
