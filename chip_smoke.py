@@ -47,14 +47,15 @@ params_car (ns=20, H=15, four SQP iterations, 4 soft ellipse obstacles):
              the closed loops' (nU=64 resident, nU=128 streamed: the
              block-wide factor and the kernel build for up to 33 Schur
              pairs a thread);
-8. loop    — 12 teacher-forced car steps through the kernels and through
-             the plain versions, against each other and against
-             tests/goldens/torch_oracle_car.npz; then 12 free-running steps
+8. loop    — 6 teacher-forced car steps (the golden's first 6 of 12)
+             through the kernels and through the plain versions, against
+             each other and against tests/goldens/torch_oracle_car.npz;
+             then 6 free-running steps
              (DEMPC.run) with the counters zeroed before and read after,
              SQP iterations and ms per step;
 the 2D pendulum's GP stages (params_pendulum: ns=20, Ht=120, R=180, hall
-capacity Rh=360), seeded with the port's kernel_matrix (its env is not
-ported), where the earlier kernels refused the TPU kernels' shapes:
+capacity Rh=360), seeded with the port's kernel_matrix up to the full
+capacity, where the earlier kernels refused the TPU kernels' shapes:
 9. f1      — the GP-sample kernel, both outputs in one launch, and the
              hall-block kernels at nh = 120 (factor tiles in shared
              memory), 240 and 360 (tiles in the global workspace), each
@@ -87,6 +88,30 @@ params_car_residual_fs (ns=4000 value-only realizations x 50 steps):
              first 256, 1.2x the JAX float32 path's own envelope error on
              all 4000, inside the state box + 10x its width), and sampled
              steps/s (warm, median of 3);
+the hard-constraint QP family (m_s = 0, the IPM kernels' hard-only build):
+13. pend2d — params_pendulum at full width (ns=20, H=30, three SQP
+             iterations, two outputs; QP nU=30, m_h=2460): golden step 5's
+             solve walked through the kernels (gp_sample, gp_hall at
+             nh = 120 and 240, each against the float64 posterior and the
+             plain version), the three IPM checks on the cold step-0 QP and
+             on the warm QP of SQP iteration 2; 10 teacher-forced steps
+             through the kernels and the plain versions against
+             tests/goldens/torch_oracle_pendulum.npz; 10 free-running steps
+             (DEMPC.run) with the counters zeroed before and read after, ms
+             per step against dt = 15 ms; the IPM kernels' timing cold and
+             warm;
+14. car_residual — params_car_residual at full width (ns=1, H=50, up to
+             150 SQP iterations; QP nU=100, m_h=800; the oracle sample, so
+             no GP stage): its one MPC step (counters zeroed before, read
+             after) against tests/goldens/params_car_residual.npz, the IPM
+             checks on its first and its last QP, their timing;
+15. h1     — params_pendulum_samples (ns=500), params_pendulum_invariant
+             and params_pendulum1D_invariant (H = 1, QP nU = 1): 4
+             free-running steps each on the port's own draws (finite, the
+             JAX float64 run's SQP status, every kernel of the path
+             launched), and on the first stage (and the 1D config's first
+             hall stage, Ht = 3) and first QP each kernel against its plain
+             version; the IPM timing at nU=1, m_h=2002, cold and warm;
 then one JSON line listing the kernels, the card line, and the contract
 line {"ok": true, "device": {...}}.
 """
@@ -113,6 +138,17 @@ NOISE_REL = 1e-3               # f32 posterior-variance cancellation floor
 # beta (sigma + sigma_n) there: float32 rounding of the same algorithm is
 # ~1e-7 of it; a dropped eps or a wrong factor moves a draw by O(1) of it.
 GP_REL_TOL = 1e-3
+# The GP-sample kernel vs its plain version at the 2D pendulum's own
+# stages (params_pendulum: noise 1e-6, three inputs with their gradient
+# tasks), where the posterior variance near the data cancels to its
+# float32 floor (Ktt - V'V): the plain version's own float32 draw sits
+# 0.35-0.59 of the tube width from its float64 evaluation on the same
+# inputs (phase pend2d prints it; the tube's sigma_n covers that floor),
+# and the kernel 1.006e-3 of the tube from the plain version (output 0,
+# golden step 5, on an H100), past the 1e-3 of the other stages.  Ten times
+# that reading, as for GP_HALL_REL_TOL; a kernel that returned the mean
+# reads 0.3 or more.
+GP_PEND2D_REL_TOL = 1e-2
 # Hall-block kernels vs their plain version, pointwise, as a share of the
 # tube width: about ten times the largest value measured on an H100
 # (9.3e-4, car SQP iteration 3, nh=180, output 0; the others <= 4.2e-4).
@@ -151,6 +187,9 @@ TF_CAR_TOL_X, TF_CAR_TOL_U = 3.0, 2.0
 # pendulum's does: phases 5-7 hold each kernel alone on the same inputs.
 TF_CAR_KP_TOL_X, TF_CAR_KP_TOL_U = 2.5, 2.0
 CAR_STEP = 5                   # golden step whose solve feeds phases 5-7
+# Car steps of phase 8, teacher-forced and free-running: the golden's first
+# 6 of 12, so that the hard-constraint phases (13-15) fit the script's time
+CAR_LOOP_STEPS = 6
 # Batched Cholesky / triangular-solve kernels vs their plain versions: the
 # JAX package's own bars for its kernels (tests/test_batch_linalg.py).
 LINALG_F_TOL, LINALG_S_TOL = 2e-4, 3e-4
@@ -164,16 +203,53 @@ WIDE_SCHUR_QPS = ((64, 4000, 400, True), (128, 20000, 1000, False))
 # H = 30 test points of D = 3 inputs with their gradient tasks, Ty = 4, so
 # Ht = 120; 45 real points, R = 180; a hall capacity of 90 points, Rh =
 # 360), where the earlier kernels refused the shapes the TPU kernels take.
-# Its env is not ported, so the stages are seeded: the blocks come from
-# the port's kernel_matrix on seeded points, with the config's
+# These stages are seeded, so that they reach the full hall capacity
+# (nh = 360) that the closed loop's three SQP iterations do not: the blocks
+# come from the port's kernel_matrix on seeded points, with the config's
 # lengthscales and outputscales, the real targets drawn from the GP prior
 # and the hall targets near the real-data posterior mean.  The noise is
 # 1e-4 (the config's is 1e-6) so that the float32 real factor stays well
-# conditioned (condition number ~2e4), as the tube criterion needs.
+# conditioned (condition number ~2e4), as the tube criterion needs.  Phase
+# pend2d runs the config's own stages.
 F1_NS, F1_H, F1_D, F1_REAL, F1_HALL = 20, 30, 3, 45, 90
 F1_LS = ((5.2649, 4.5967, 7.0177), (3.9696, 2.1265, 6.6749))
 F1_OS, F1_NOISE, F1_BETA = (0.65, 0.55), 1e-4, 2.5
 F1_FILLS = (120, 240, 360)
+# The hard-constraint QP family (m_s = 0: the kernels' hard-only build).
+# params_pendulum at full width against its float64 golden (10 steps,
+# written by tests/make_torch_pendulum_golden.py); the stage and QP checks
+# run on the solve of golden step PEND2D_STEP.
+PEND2D_CONFIG = "params_pendulum"
+PEND2D_GOLDEN = os.path.join(HERE, "tests", "goldens",
+                             "torch_oracle_pendulum.npz")
+PEND2D_STEP = 5
+# Its float32 teacher-forced envelope against the golden's float64
+# teacher-forced plans: the JAX package's float32 path deviates by up to
+# 0.3009 in X and 3.925 in U over the 10 steps (the port's plain float32
+# path 0.2998 / 3.763; measured on the CPU by tests/test_torch_pendulum.py
+# ::test_f32_teacher_forced_pendulum_envelope).  Flat input directions of
+# the float32 QP exit, as for the 1D pendulum and the car; the two paths
+# deviate alike step by step, so the deviation is the float32 problem's,
+# not either solver's.  The bar is about twice the JAX path's envelope, as
+# TF_TOL_X/_U and TF_CAR_TOL_X/_U are for the other two loops.
+TF_PEND_TOL_X, TF_PEND_TOL_U = 0.62, 7.9
+# Kernel path vs plain path per step, on the same inputs: both float32
+# solves of the same algorithm, so their difference is bounded by the
+# same envelope.
+TF_PEND_KP_TOL_X, TF_PEND_KP_TOL_U = TF_PEND_TOL_X, TF_PEND_TOL_U
+# params_car_residual's one MPC step against tests/goldens/
+# params_car_residual.npz: the JAX package's float32 path leaves that
+# float64 plan by 7.33e-4 in X and 0.0176 in U (the port's plain float32
+# path 6.3e-4 / 0.0052; tests/test_torch_pendulum.py::
+# test_f32_car_residual_plan_envelope).  The bar is about twice the JAX
+# path's error, as for the teacher-forced loops.
+CAR_RES_CONFIG = "params_car_residual"
+CAR_RES_TOL_X, CAR_RES_TOL_U = 1.5e-3, 3.6e-2
+# The H = 1 configs and the SQP status of the JAX package's float64 run at
+# every step (params_pendulum1D_invariant: 4, the reference's own).
+H1_CONFIGS = (("params_pendulum_samples", 0), ("params_pendulum_invariant", 0),
+              ("params_pendulum1D_invariant", 4))
+H1_STEPS = 4
 FS_CONFIG = "params_car_residual_fs"
 FS_GOLDEN = os.path.join(HERE, "tests", "goldens", "params_car_residual.npz")
 # Float32 forward sampling against float64 on the same draws, with
@@ -251,9 +327,9 @@ def zero_launch_counts():
 
 
 def kernel_name(mangled):
-    """A mangled kernel name as in its source, with its template argument
-    (ipm_prepare_kernel<1>): the first length-prefixed name in it that ends
-    in _kernel."""
+    """A mangled kernel name as in its source, with its template arguments
+    (ipm_prepare_kernel<1,0>): the first length-prefixed name in it that
+    ends in _kernel."""
     import re
     for i, ch in enumerate(mangled):
         if not ch.isdigit() or (i and mangled[i - 1].isdigit()):
@@ -264,8 +340,9 @@ def kernel_name(mangled):
             name = mangled[at:at + n]
             if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*",
                                                          name):
-                t = re.match(r"IL[a-z](\d+)E", mangled[at + n:])
-                return name + (f"<{t.group(1)}>" if t else "")
+                t = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[at + n:])
+                args = re.findall(r"L[a-z](\d+)E", t.group(1)) if t else []
+                return name + (f"<{','.join(args)}>" if args else "")
     return mangled
 
 
@@ -391,12 +468,12 @@ def f1_stages(dev, seed=0):
     return out
 
 
-def f1_tube(mean64, var64, prior_var):
+def f1_tube(mean64, var64, prior_var, beta=F1_BETA):
     """beta (sigma + sigma_n) around the float64 evaluation, as
     :func:`tube_width`."""
     import torch
     sig_n = torch.sqrt(NOISE_REL * prior_var.to(torch.float64))
-    return F1_BETA * (torch.sqrt(torch.clamp(var64, min=0.0)) + sig_n)
+    return beta * (torch.sqrt(torch.clamp(var64, min=0.0)) + sig_n)
 
 
 def hall_output(st, j):
@@ -414,6 +491,166 @@ def tube_width(spec, mean64, cov64, prior_var):
     var64 = torch.clamp(torch.diagonal(cov64, dim1=-2, dim2=-1), min=0.0)
     sig_n = torch.sqrt(NOISE_REL * prior_var.to(torch.float64))
     return spec.gp.beta * (torch.sqrt(var64) + sig_n)
+
+
+def as64(kw):
+    """A stage's arguments with every tensor in float64."""
+    import torch
+    return {k: v.double() if torch.is_tensor(v) else v for k, v in kw.items()}
+
+
+def stage_walk(tag, spec, env, hyp, hyp64, ocp, gp, gp64, st, X, U, eps,
+               per_output, ref64=False):
+    """One teacher-forced solve walked SQP iteration by SQP iteration
+    through the kernels.  Each iteration's GP stage is checked on the
+    inputs the solve gives it (iteration 0 on the empty buffer, iteration
+    k >= 1 at fill k H Ty) against the float64 posterior (tube, 0
+    violations) and pointwise against the plain version: every output in
+    one launch (set), the main path's call; with ``per_output`` also each
+    output alone, and the empty buffer through the hall stage at iteration
+    1; with ``ref64`` (the 2D pendulum: GP_PEND2D_REL_TOL on its empty
+    stage) the plain version is also evaluated in float64 on the same
+    inputs (gp_report's ``d64``).  Then the iteration runs and
+    feeds the next.  Returns the stage
+    inputs (``empty``: every output, ``one``: output 0 alone, ``hall``:
+    {fill: every output}), ``warm``: the QP of iteration 2 with its carried
+    state and flag, and the errors."""
+    import torch
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.ops import gp_hall, gp_sample
+    f64 = torch.float64
+    gidx, Ty, Ht = list(spec.g_idx_inputs), spec.Ty, spec.H * spec.Ty
+    gp_it, ws, wv = agent.reset_hall(gp), None, None
+    out = dict(one=None, empty=None, hall={}, warm=None, gs_errs=[],
+               gh_errs=[], gh_rels=[])
+
+    def stacked_report(label, st_in, dps, d0s, tubes, means, d64s=None):
+        """All outputs in one launch set (the main path's call) against
+        the plain version of each output."""
+        dk = gp_hall.sample_hall(**st_in)
+        for j in range(spec.g_ny):
+            err, rel = gp_report(
+                "gp_hall", spec, f"{label}, nh={st_in['nh']}, all "
+                f"{spec.g_ny} outputs in one launch set: output {j}", dk[j],
+                dps[j], tubes[j], means[j], GP_HALL_REL_TOL, d0=d0s[j],
+                d64=d64s[j] if d64s else None)
+            out["gh_errs"].append(err)
+            out["gh_rels"].append(rel)
+
+    for it in range(spec.max_sqp_iter):
+        Xt = sqp._linearization_inputs(spec, ocp, X, U)[..., gidx]
+        eps_it = eps[it]
+        gp64_it = gp64._replace(hall_Z=gp_it.hall_Z.to(f64),
+                                hall_Y=gp_it.hall_Y.to(f64),
+                                hall_n=gp_it.hall_n)
+        m64r, c64r = agent._batched_posterior_real(spec, hyp64, gp64_it,
+                                                   Xt.to(f64))
+        if it == 0:
+            m64, c64 = m64r, c64r
+        else:
+            m64, c64 = agent._batched_posterior_incremental(
+                spec, hyp64, gp64_it, Xt.to(f64))
+        dps, d0s, tubes, d64s = [], [], [], []
+        for j in range(spec.g_ny):
+            if it == 0:
+                kw = agent.empty_stage_inputs(spec, hyp, gp_it, Xt, eps_it,
+                                              j)
+                dp = gp_sample.sample_empty_plain(**kw)
+                if ref64:
+                    d64s.append(gp_sample.sample_empty_plain(**as64(kw)))
+                    d0s.append(gp_sample.sample_empty_plain(
+                        **dict(kw, eps=torch.zeros_like(kw["eps"]))))
+                tube = tube_width(spec, m64[:, j], c64[:, j],
+                                  kw["prior_var"])
+                if per_output:
+                    err, _ = gp_report(
+                        "gp", spec, f"{tag} ns={spec.ns} Ht={Ht} "
+                        f"R={kw['Kxm'].shape[-1]} output {j} alone",
+                        gp_sample.sample_empty_one(**kw), dp, tube,
+                        m64[:, j], GP_REL_TOL)
+                    out["gs_errs"].append(err)
+                if j == 0:
+                    out["one"] = kw
+            else:
+                kw = agent.hall_stage_inputs(spec, hyp, gp_it, Xt, eps_it, j)
+                dp = gp_hall.sample_hall_plain(**kw)
+                if ref64:
+                    d64s.append(gp_hall.sample_hall_plain(**as64(kw)))
+                d0 = gp_hall.sample_hall_plain(
+                    **dict(kw, eps=torch.zeros_like(kw["eps"])))
+                tube = tube_width(spec, m64[:, j], c64[:, j],
+                                  kw["prior_var"])
+                if per_output:
+                    err, rel = gp_report(
+                        "gp_hall", spec, f"{tag} SQP iteration {it}, nh="
+                        f"{kw['nh']} (Rr={kw['Kxr'].shape[-1]}, Rh="
+                        f"{kw['Kxh'].shape[-1]}) output {j} alone",
+                        gp_hall.sample_hall_one(**kw), dp, tube, m64[:, j],
+                        GP_HALL_REL_TOL, d0=d0)
+                    out["gh_errs"].append(err)
+                    out["gh_rels"].append(rel)
+                d0s.append(d0)
+            dps.append(dp)
+            tubes.append(tube)
+        if it == 0:
+            # every output in one launch: the main path's call
+            st_in = agent.empty_stage_inputs_all(spec, hyp, gp_it, Xt, eps_it)
+            dk = gp_sample.sample_empty(**st_in)
+            for j in range(spec.g_ny):
+                err, _ = gp_report(
+                    "gp", spec, f"{tag} ns={spec.ns} Ht={Ht} R="
+                    f"{st_in['Kxm'].shape[-1]}, all {spec.g_ny} outputs in "
+                    f"one launch: output {j}", dk[j], dps[j], tubes[j],
+                    m64[:, j], GP_PEND2D_REL_TOL if ref64 else GP_REL_TOL,
+                    d0=d0s[j] if ref64 else None,
+                    d64=d64s[j] if ref64 else None)
+                out["gs_errs"].append(err)
+            out["empty"] = st_in
+        else:
+            st_in = agent.hall_stage_inputs_all(spec, hyp, gp_it, Xt, eps_it)
+            stacked_report(f"{tag} SQP iteration {it}", st_in, dps, d0s,
+                           tubes, [m64[:, j] for j in range(spec.g_ny)],
+                           d64s)
+            out["hall"][st_in["nh"]] = st_in
+        if it == 1 and per_output:
+            # the empty buffer through the hall stage: the real-data
+            # posterior
+            st_in = agent.hall_stage_inputs_all(
+                spec, hyp, agent.reset_hall(gp_it), Xt, eps_it)
+            one = [hall_output(st_in, j) for j in range(spec.g_ny)]
+            stacked_report(
+                f"{tag}, empty hall buffer", st_in,
+                [gp_hall.sample_hall_plain(**kw) for kw in one],
+                [gp_hall.sample_hall_plain(
+                    **dict(kw, eps=torch.zeros_like(kw["eps"])))
+                 for kw in one],
+                [tube_width(spec, m64r[:, j], c64r[:, j],
+                            one[j]["prior_var"])
+                 for j in range(spec.g_ny)],
+                [m64r[:, j] for j in range(spec.g_ny)])
+            out["hall"][0] = st_in
+        if it == 2:
+            qp, _, _, _ = sqp.assemble_qp(spec, env, hyp, ocp, st, X, U,
+                                          gp_it, eps_it)
+            out["warm"] = (qp, ws, wv)
+        Xn, Un, gp_it, sol = sqp.sqp_iteration(
+            spec, env, hyp, ocp, st, X, U, gp_it, eps_it, qp_ws=ws,
+            qp_valid=wv, hall_empty=(it == 0))
+        if int(sol.status) != 0:
+            fail(f"{tag} SQP iteration {it}: QP status {int(sol.status)}")
+        X, U, ws, wv = Xn, Un, sol.state, sol.status == 0
+    fills = sorted(out["hall"])
+    if fills != [Ht * k for k in range(0 if per_output else 1,
+                                       spec.max_sqp_iter)]:
+        fail(f"{tag} hall fills {fills}")
+    return out
+
+
+def build_name(m_s):
+    """The IPM kernels' build a QP runs (csrc/ipm.cu's SOFT argument)."""
+    return ("soft build" if m_s else
+            "hard-only build SOFT=false, library ipm_hard")
 
 
 class IPMChecks:
@@ -484,20 +721,28 @@ class IPMChecks:
         return self.ipm.Prepared(d.H, d.g, d.Gth.T, d.dh[0], d.Gts.T,
                                  *d.sd[:6], d.qs[0], st, d.sch, d.scs)
 
-    def report(self, label, qp_args, ws, wv, resident=True):
+    def report(self, label, qp_args, ws, wv, resident=True, status=0):
+        """The three checks; ``status`` 4 for a QP that no solver can meet
+        (params_pendulum1D_invariant's infeasible rows 0 <= -2.4): then the
+        kernel and the plain version end with that status after the same
+        iterations, at the same iterate (1e-3 of its scale), and the
+        float64 solve is not a bound."""
         import torch
         f64 = torch.float64
         nU, m_h, m_s = (qp_args[1].shape[0], qp_args[3].shape[0],
                         qp_args[5].shape[0])
         lay = self.ipm.loop_layout(nU, m_h, m_s)
         play = self.ipm.prepare_layout(nU, m_h, m_s)
-        n_cl = self.ipm.cluster_size()
-        print(f"[ipm] {label}: prepare kernel on a cluster of {n_cl} CTAs, "
+        n_cl = self.ipm.cluster_size(m_s)
+        build = build_name(m_s)
+        print(f"[ipm] {label}: prepare kernel ({build}) on a cluster of "
+              f"{n_cl} CTAs, "
               f"{'resident' if play.resident else 'streamed'} branch (G "
               f"slices, row values and warm candidate "
               f"{'in shared memory' if play.resident else f'from global memory, staged {play.chunk} rows a chunk'}"
               f"; {play.smem} B of shared memory per CTA)", flush=True)
-        print(f"[ipm] {label}: Mehrotra kernel on a cluster of {n_cl} CTAs, "
+        print(f"[ipm] {label}: Mehrotra kernel ({build}) on a cluster of "
+              f"{n_cl} CTAs, "
               f"G slices and state rows "
               f"{'in shared memory' if lay.resident else 'streamed from global memory'}"
               f" ({lay.smem} B of shared memory per CTA)", flush=True)
@@ -513,6 +758,8 @@ class IPMChecks:
         # the kernel may sit anywhere in the f32 tolerance ball, but no
         # farther from the exact solution than twice the plain f32 solver
         bound = 2.0 * ep + 1e-3 * scale
+        if status:
+            bound = 1e-3 * (1.0 + float(torch.max(torch.abs(p.z))))
         print(f"[ipm] {label}: nU={qp_args[1].shape[0]} "
               f"m_h={qp_args[3].shape[0]} m_s={qp_args[5].shape[0]}: "
               f"|du kernel - plain|inf = {du:.3e}; |u - u_f64|inf kernel "
@@ -520,7 +767,9 @@ class IPMChecks:
               f"{int(k.status)}/{int(p.status)}; kkt {float(k.gap):.3e}/"
               f"{float(p.gap):.3e}; iters {int(k.iters)}/{int(p.iters)}",
               flush=True)
-        if int(k.status) != 0 or int(p.status) != 0 or ek > bound:
+        if int(k.status) != status or int(p.status) != status or (
+                du if status else ek) > bound or (
+                status and int(k.iters) != int(p.iters)):
             fail(f"IPM kernel {label}")
         rel_prep, d = self.prepare_report(label, qp_args, ws, wv)
         pk = self.as_prepared(d)
@@ -533,7 +782,9 @@ class IPMChecks:
               f"kkt {float(rk):.3e}/{float(rp):.3e}; iters "
               f"{int(ik)}/{int(ip)}", flush=True)
         stat_tol = tol * self.qp.STATUS_RTOL
-        if du_m > bound or float(rk) > stat_tol or float(rp) > stat_tol:
+        met = (float(rk) <= stat_tol, float(rp) <= stat_tol)
+        if du_m > bound or met != ((status == 0),) * 2 or (
+                status and int(ik) != int(ip)):
             fail(f"IPM Mehrotra kernel {label}")
         return rel_prep, du_m
 
@@ -559,7 +810,8 @@ class IPMChecks:
         branch = "resident" if lay.resident else "streamed"
         warm = bool(prep.warm[0])
         print(f"[timing] ipm prepare {label} (nU={nU}, m_h={m_h}, m_s={m_s}"
-              f"; {branch} branch, cluster of {ipm.cluster_size()} CTAs, "
+              f"; {build_name(m_s)}, {branch} branch, cluster of "
+              f"{ipm.cluster_size(m_s)} CTAs, "
               f"{'warm' if warm else 'cold'} start): kernel {t_pk:.4f} ms, "
               f"plain {t_pp:.4f} ms, bound {bp:.5f} ms ({byp}: {pb} B, "
               f"{pf:.3e} flop)", flush=True)
@@ -597,12 +849,16 @@ class IPMChecks:
                             iters=iters)
 
 
-def gp_report(tag, spec, label, dk, dp, tube, mean64, rel_tol, d0=None):
+def gp_report(tag, spec, label, dk, dp, tube, mean64, rel_tol, d0=None,
+              d64=None):
     """Tube violations of the kernel and the plain draws around the float64
     posterior, and the kernel's pointwise distance to the plain version as
     a share of the tube width; with ``d0`` (the plain draw at eps = 0, the
     posterior mean), also the share a kernel that returned the mean or
-    ignored eps would read, which must be far above the bar."""
+    ignored eps would read, which must be far above the bar.  With ``d64``
+    (the plain version evaluated in float64 on the same inputs), also how
+    far each float32 version is from that evaluation: the float32 rounding
+    of the stage itself, against which the bar is set."""
     import torch
     f64 = torch.float64
     viol_k = int((torch.abs(dk.to(f64) - mean64) > tube).sum())
@@ -616,6 +872,11 @@ def gp_report(tag, spec, label, dk, dp, tube, mean64, rel_tol, d0=None):
         rel_mean = float(torch.max(torch.abs(dp - d0).to(f64) / tube))
         extra = (f"; a kernel returning the mean would read {rel_mean:.3e} "
                  f"(must exceed 10x the bar)")
+    if d64 is not None:
+        rel_k64 = float(torch.max(torch.abs(dk.to(f64) - d64) / tube))
+        rel_p64 = float(torch.max(torch.abs(dp.to(f64) - d64) / tube))
+        extra += (f"; vs the float64 evaluation of the algorithm: kernel "
+                  f"{rel_k64:.3e}, plain {rel_p64:.3e} of the tube width")
     print(f"[{tag}] {label}: max|dg kernel - plain| = {err:.3e} = {rel:.3e} "
           f"of the tube width (tol {rel_tol}); tube violations kernel="
           f"{viol_k} plain={viol_p} of {dk.numel()}; finite={finite}{extra}",
@@ -871,6 +1132,315 @@ def fs_phase(dev):
     return rates
 
 
+@contextlib.contextmanager
+def captured_qps(out):
+    """Record the QP of every ``ipm.run_full`` call (the 11 arrays, the
+    carried state and its flag, cloned) into ``out``, first call first."""
+    from sampling_gpmpc_torch.ops import ipm
+    run = ipm.run_full
+
+    def recording(*a, **k):
+        clone = lambda t: None if t is None else t.clone()
+        out.append((tuple(clone(t) for t in a[:11]),
+                    None if a[11] is None else tuple(map(clone, a[11])),
+                    clone(a[12])))
+        return run(*a, **k)
+
+    ipm.run_full = recording
+    try:
+        yield
+    finally:
+        ipm.run_full = run
+
+
+def free_run(tag, params, spec, data, env, dev, epistemic=None):
+    """DEMPC.run through the kernels, cuda float32, with the launch counts
+    zeroed just before it and read just after.  Returns (out, launches,
+    per-step ms); out["sqp_its"] holds each step's SQP iterations."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch.dempc import DEMPC
+    from sampling_gpmpc_torch.ocp import sqp
+    mpc = DEMPC(params, spec, data, env, device=dev, dtype=torch.float32,
+                epistemic=epistemic)
+    its = []
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    with sqp_iterations(sqp, its):
+        out = mpc.run()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    out["sqp_its"] = its
+    traj = np.stack(out["physical_state_traj"] + [out["final_state"]])
+    step_ms = [1e3 * t for t in out["solver_time"]]
+    print(f"[{tag}] free-running {spec.num_mpc_iter} steps (DEMPC.run, cuda "
+          f"float32): statuses {out['sqp_status_traj']}, finite "
+          f"{bool(np.isfinite(traj).all())}, final state "
+          f"{out['final_state']}; SQP iterations {its}; qp iters "
+          f"{out['qp_iters']}; launches {launches}", flush=True)
+    if not np.isfinite(traj).all():
+        fail(f"{tag} free-running closed loop: non-finite state")
+    return out, launches, step_ms
+
+
+def stage_ref64(st, nh=None):
+    """The float64 evaluation of a GP stage's algorithm on its own
+    (float32) inputs, every output: mean and variance (the empty stage's
+    Kxm alpha and diag(Ktt) - |Linv Kxm'|^2; the hall stage's bordered
+    factor at fill nh)."""
+    import torch
+    from sampling_gpmpc_torch.ops import gp_hall
+    f64 = lambda k: st[k].to(torch.float64)
+    if nh is None:
+        V = f64("Linv")[:, None] @ f64("Kxm").transpose(-1, -2)
+        var = (torch.diagonal(f64("Ktt"), dim1=-2, dim2=-1)
+               - (V * V).sum(-2))
+        return (f64("Kxm") @ f64("alpha")[:, None, :, None])[..., 0], var
+    refs = [gp_hall.bordered_factor(
+        nh, *(st[k][j].to(torch.float64) for k in (
+            "Kxr", "Kxh", "Ktt", "Arh", "Ahh", "yh", "Linv", "w_r")),
+        jitter=st["jitter"])[1:] for j in range(st["Kxr"].shape[0])]
+    return (torch.stack([r[0] for r in refs]),
+            torch.stack([r[1] for r in refs]))
+
+
+def pendulum2d_phase(dev, checks, results):
+    """params_pendulum at full width (ns=20, H=30, three SQP iterations,
+    two outputs; QP nU=30, m_h=2460, m_s=0): one teacher-forced solve's GP
+    stages (nh = 0, 120, 240) and the IPM checks on its cold step-0 QP and
+    a warm QP; 10 teacher-forced steps through the kernels and the plain
+    versions against tests/goldens/torch_oracle_pendulum.npz; 10
+    free-running steps (DEMPC.run) with the counts zeroed before and read
+    after; the IPM kernels' timing at the QP's shape.  Returns the
+    free-running launches."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch.config import load_problem
+    from sampling_gpmpc_torch.envs import make_env
+    from sampling_gpmpc_torch.gp.exact import GPHyperArrays
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.ocp.spec import make_ocp_data
+    f32, f64 = torch.float32, torch.float64
+    T = lambda a: torch.as_tensor(a, dtype=f32, device=dev)
+    g = np.load(PEND2D_GOLDEN)
+    params, spec, data = load_problem(
+        os.path.join(HERE, "params", PEND2D_CONFIG + ".yaml"))
+    n = int(g["n_steps"])
+    if (spec.ns, spec.H, spec.max_sqp_iter) != (
+            int(g["ns"]), int(g["H"]), int(g["max_sqp_iter"])):
+        fail("the 2D pendulum golden does not match the config")
+    spec = dataclasses.replace(spec, num_mpc_iter=n)
+    env = make_env(spec, params)
+    ocp = make_ocp_data(spec, data, dev, f32)
+    hyp = GPHyperArrays.from_spec(spec.gp, dev, f32)
+    hyp64 = GPHyperArrays.from_spec(spec.gp, dev, f64)
+    gp = agent.init_gp_state(spec, env, dev, f32, hyp=hyp)
+    gp64 = agent.init_gp_state(spec, env, dev, f64, hyp=hyp64)
+    eps = T(g["eps"])
+    phys, sX, sU = (g["physical_state_traj"], g["start_X_traj"],
+                    g["start_U_traj"])
+
+    m = PEND2D_STEP
+    walk = stage_walk("2D pendulum", spec, env, hyp, hyp64, ocp, gp, gp64,
+                      T(phys[m]), T(sX[m]), T(sU[m]), eps[m],
+                      per_output=False, ref64=True)
+    if sorted(walk["hall"]) != [120, 240]:
+        fail(f"2D pendulum hall fills {sorted(walk['hall'])}")
+    results["gp_sample"]["max_abs_err_pendulum_2d_stage"] = max(
+        walk["gs_errs"])
+    results["gp_hall"]["max_abs_err_pendulum_2d_stage"] = max(
+        walk["gh_errs"])
+    qp0, _, _, _ = sqp.assemble_qp(spec, env, hyp, ocp, T(phys[0]), T(sX[0]),
+                                   T(sU[0]), agent.reset_hall(gp), eps[0, 0],
+                                   hall_empty=True)
+    qpw, wsw, wvw = walk["warm"]
+    errs = [checks.report("2D pendulum cold, step 0", qp0, None, None),
+            checks.report(f"2D pendulum warm, step {m} SQP iteration 2",
+                          qpw, wsw, wvw)]
+
+    ex, eu, kx, ku = [], [], [], []
+    for m in range(n):
+        start = (T(phys[m]), T(sX[m]), T(sU[m]))
+        st = sqp.solve(spec, env, hyp, ocp, *start, gp, eps[m])
+        with plain_route():
+            sp = sqp.solve(spec, env, hyp, ocp, *start, gp, eps[m])
+        if int(st.status) != 0 or int(sp.status) != 0:
+            fail(f"2D pendulum teacher-forced step {m}: status "
+                 f"{int(st.status)} (plain {int(sp.status)})")
+        ex.append(float(np.max(np.abs(st.X.cpu().numpy() - g["tf_X_traj"][m]))))
+        eu.append(float(np.max(np.abs(st.U.cpu().numpy() - g["tf_U_traj"][m]))))
+        kx.append(float(torch.max(torch.abs(st.X - sp.X))))
+        ku.append(float(torch.max(torch.abs(st.U - sp.U))))
+    print(f"[loop] 2D pendulum teacher-forced {n} steps vs the f64 golden: "
+          f"status 0 all; max|dX| {max(ex):.3e} (tol {TF_PEND_TOL_X}), "
+          f"max|dU| {max(eu):.3e} (tol {TF_PEND_TOL_U}); per step dX "
+          f"{[round(v, 4) for v in ex]}, dU {[round(v, 4) for v in eu]}",
+          flush=True)
+    print(f"[loop] 2D pendulum teacher-forced {n} steps, kernels vs plain "
+          f"versions: max|dX| {max(kx):.3e} (tol {TF_PEND_KP_TOL_X}), "
+          f"max|dU| {max(ku):.3e} (tol {TF_PEND_KP_TOL_U}); per step dX "
+          f"{[f'{v:.2e}' for v in kx]}, dU {[f'{v:.2e}' for v in ku]}",
+          flush=True)
+    if max(ex) > TF_PEND_TOL_X or max(eu) > TF_PEND_TOL_U:
+        fail("2D pendulum teacher-forced steps outside the JAX float32 "
+             "envelope")
+    if max(kx) > TF_PEND_KP_TOL_X or max(ku) > TF_PEND_KP_TOL_U:
+        fail("2D pendulum teacher-forced kernel path disagrees with the "
+             "plain path")
+
+    out, launches, step_ms = free_run("loop", params, spec, data, env, dev,
+                                      epistemic=g["eps"])
+    window = sum(step_ms[1:]) / (len(step_ms) - 1)
+    print(f"[loop] 2D pendulum ms per MPC step over steps 1..{n - 1}: mean "
+          f"{window} (median {statistics.median(step_ms[1:])}, max "
+          f"{max(step_ms[1:])}) against dt = {1e3 * spec.dt:.1f} ms; first "
+          f"step {step_ms[0]}; per step {[round(v, 3) for v in step_ms]}",
+          flush=True)
+    if set(out["sqp_status_traj"]) != {0}:
+        fail("2D pendulum free-running closed loop: status")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the 2D pendulum path was not launched: {launches}")
+
+    cold = checks.timing("2D pendulum cold", qp0, None, None)
+    warm = checks.timing("2D pendulum warm", qpw, wsw, wvw)
+    return dict(launches=launches, errs=errs, timing=(cold, warm),
+                ms_per_step=window, dt_ms=1e3 * spec.dt)
+
+
+def car_residual_phase(dev, checks):
+    """params_car_residual at full width (ns=1, H=50, up to 150 SQP
+    iterations; QP nU=100, m_h=800, m_s=0; the oracle sample, so no GP
+    stage): its one MPC step (DEMPC.run, the counts zeroed before and read
+    after) against tests/goldens/params_car_residual.npz, the IPM checks
+    on its first and its last QP, and their timing."""
+    import numpy as np
+    from sampling_gpmpc_torch.config import load_problem
+    from sampling_gpmpc_torch.envs import make_env
+    g = np.load(FS_GOLDEN)
+    params, spec, data = load_problem(
+        os.path.join(HERE, "params", CAR_RES_CONFIG + ".yaml"))
+    env = make_env(spec, params)
+    qps = []
+    with captured_qps(qps):
+        out, launches, step_ms = free_run("car_residual", params, spec, data,
+                                          env, dev)
+    dX = float(np.abs(out["state_traj"][-1] - g["last_plan_X"]).max())
+    dU = float(np.abs(out["input_traj"][-1] - g["last_plan_U"]).max())
+    print(f"[car_residual] one MPC step, {out['sqp_iters']} SQP iterations "
+          f"({len(qps)} QPs, m_s = 0) in {step_ms[0]:.1f} ms: plan vs the "
+          f"float64 golden max|dX| {dX:.3e} (tol {CAR_RES_TOL_X}), max|dU| "
+          f"{dU:.3e} (tol {CAR_RES_TOL_U}; the JAX float32 path reads "
+          f"7.33e-4 / 1.76e-2); launches {launches}", flush=True)
+    if out["sqp_status_traj"] != [0] or dX > CAR_RES_TOL_X \
+            or dU > CAR_RES_TOL_U:
+        fail("params_car_residual plan")
+    if launches["ipm_prepare"] != len(qps) or \
+            launches["ipm_mehrotra"] != len(qps) or \
+            launches["gp_sample"] or launches["gp_hall"]:
+        fail(f"params_car_residual launches {launches} for {len(qps)} QPs")
+    (qa, _, _), (qz, wsz, wvz) = qps[0], qps[-1]
+    errs = [checks.report("car_residual cold, SQP iteration 0", qa, None,
+                          None),
+            checks.report(f"car_residual warm, SQP iteration {len(qps) - 1}",
+                          qz, wsz, wvz)]
+    cold = checks.timing("car_residual cold", qa, None, None)
+    warm = checks.timing("car_residual warm", qz, wsz, wvz)
+    return dict(launches=launches, errs=errs, timing=(cold, warm),
+                plan_err=(dX, dU), sqp_iters=out["sqp_iters"])
+
+
+def h1_phase(dev, checks):
+    """The three H = 1 configs (QP nU = 1, m_s = 0): H1_STEPS free-running
+    steps each on the port's own draws (counts zeroed before, read after),
+    each step finite with the JAX float64 run's SQP status; on the first
+    stage and first QP each kernel against its plain version.  Returns
+    per config the launches and, for params_pendulum_samples, the IPM
+    timing cold (step 0) and warm (step 1)."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch.config import load_problem
+    from sampling_gpmpc_torch.envs import make_env
+    from sampling_gpmpc_torch.gp.exact import GPHyperArrays
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.ocp.spec import make_ocp_data
+    from sampling_gpmpc_torch.ops import gp_hall, gp_sample
+    f32 = torch.float32
+    res = {}
+    for name, status in H1_CONFIGS:
+        params, spec, data = load_problem(
+            os.path.join(HERE, "params", name + ".yaml"))
+        spec = dataclasses.replace(spec, num_mpc_iter=H1_STEPS)
+        env = make_env(spec, params)
+        qps = []
+        with captured_qps(qps):
+            out, launches, step_ms = free_run(name, params, spec, data, env,
+                                              dev)
+        # the hall stage runs from SQP iteration 1, which a failed QP at
+        # iteration 0 ends before (params_pendulum1D_invariant, as in the
+        # JAX package: one SQP iteration a step)
+        need = ["gp_sample", "ipm_prepare", "ipm_mehrotra"] + (
+            ["gp_hall"] if max(out["sqp_its"]) > 1 else [])
+        print(f"[{name}] SQP statuses {out['sqp_status_traj']} (the JAX "
+              f"float64 run's: {status} at every step); ms per step "
+              f"{[round(v, 2) for v in step_ms]}", flush=True)
+        if out["sqp_status_traj"] != [status] * H1_STEPS:
+            fail(f"{name}: SQP statuses {out['sqp_status_traj']}")
+        if min(launches[k] for k in need) <= 0:
+            fail(f"{name}: a kernel of its path was not launched: {launches}")
+
+        # the first stage (and, with more SQP iterations, the first hall
+        # stage) and the first QP, kernel against plain
+        ocp = make_ocp_data(spec, data, dev, f32)
+        hyp = GPHyperArrays.from_spec(spec.gp, dev, f32)
+        gp = agent.reset_hall(agent.init_gp_state(spec, env, dev, f32,
+                                                  hyp=hyp))
+        eps = agent.make_epistemic(spec, torch.Generator().manual_seed(1),
+                                   dev, f32)[0]
+        st = torch.as_tensor(data.start, dtype=f32, device=dev)
+        X, U = sqp.init_iterate(spec, dev, f32, data.start)
+        Xt = sqp._linearization_inputs(spec, ocp, X, U)[
+            ..., list(spec.g_idx_inputs)]
+        stages = [(None, agent.empty_stage_inputs_all(spec, hyp, gp, Xt,
+                                                      eps[0]))]
+        if spec.max_sqp_iter > 1:
+            X1, U1, gp1, _ = sqp.sqp_iteration(spec, env, hyp, ocp, st, X, U,
+                                               gp, eps[0], hall_empty=True)
+            Xt1 = sqp._linearization_inputs(spec, ocp, X1, U1)[
+                ..., list(spec.g_idx_inputs)]
+            hall = agent.hall_stage_inputs_all(spec, hyp, gp1, Xt1, eps[1])
+            stages.append((hall["nh"], hall))
+        for nh, kw in stages:
+            empty = nh is None
+            dk = (gp_sample.sample_empty if empty else gp_hall.sample_hall)(**kw)
+            plain = (gp_sample.sample_empty_plain_stacked if empty
+                     else gp_hall.sample_hall_plain_stacked)
+            dps = plain(**kw)
+            d0s = plain(**dict(kw, eps=torch.zeros_like(kw["eps"])))
+            d64s = plain(**as64(kw))
+            m64, v64 = stage_ref64(kw, nh)
+            for j in range(dk.shape[0]):
+                gp_report("gp" if empty else "gp_hall", None,
+                          f"{name} {'gp_sample' if empty else 'gp_hall'} "
+                          f"ns={spec.ns} Ht={kw['Ktt'].shape[-1]}"
+                          f"{'' if empty else f' nh={nh}'} output {j}", dk[j],
+                          dps[j], f1_tube(m64[j], v64[j], kw["prior_var"][j],
+                                          spec.gp.beta),
+                          m64[j], GP_REL_TOL if empty else GP_HALL_REL_TOL,
+                          d0=d0s[j], d64=d64s[j])
+        (qa, _, _) = qps[0]
+        err = checks.report(f"{name} cold, step 0", qa, None, None,
+                            status=status)
+        res[name] = dict(launches=launches, err=err)
+        if name == "params_pendulum_samples":
+            qb, wsb, wvb = qps[1]
+            res[name]["timing"] = (
+                checks.timing(f"{name} cold", qa, None, None),
+                checks.timing(f"{name} warm, step 1", qb, wsb, wvb))
+    return res
+
+
 def main():
     try:
         import torch
@@ -906,6 +1476,10 @@ def main():
     checks = IPMChecks()
     t_start = time.perf_counter()
 
+    def phase(name):
+        print(f"[phase] {name} from {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -939,6 +1513,7 @@ def main():
     X0, U0 = sqp.init_iterate(spec, dev, f32, data.start)
 
     # ---- 2. GP-sample kernel vs plain -----------------------------------
+    phase("gp")
     xu = sqp._linearization_inputs(spec, ocp, X0, U0)
     Xt = xu[..., list(spec.g_idx_inputs)]
     gp_in = agent.empty_stage_inputs(spec, hyp, agent.reset_hall(gp0), Xt,
@@ -962,6 +1537,7 @@ def main():
     results["gp_sample"]["max_abs_err"] = gp_err
 
     # ---- 3. IPM kernels vs plain ----------------------------------------
+    phase("ipm")
     qp0, _, _, _ = sqp.assemble_qp(spec, env, hyp, ocp, st0, X0, U0,
                                    agent.reset_hall(gp0), eps_all[0, 0],
                                    hall_empty=True)
@@ -979,6 +1555,7 @@ def main():
     prep_errs, mehr_errs = [prep0, prep1], [du0, du1]
 
     # ---- 4. closed loop -------------------------------------------------
+    phase("loop")
     # Each teacher-forced step is solved twice on the same inputs: through
     # the kernels, and through their plain versions (swapped in for the
     # wrappers the main path calls).  Both share the float32 QP exit, so the
@@ -1048,7 +1625,7 @@ def main():
     gc = np.load(CAR_GOLDEN)
     params_c, spec_c, data_c = load_problem(
         os.path.join(HERE, "params", CAR_CONFIG + ".yaml"))
-    n_car = int(gc["n_steps"])
+    n_car = min(int(gc["n_steps"]), CAR_LOOP_STEPS)
     if (spec_c.ns, spec_c.H, spec_c.max_sqp_iter) != (
             int(gc["ns"]), int(gc["H"]), int(gc["max_sqp_iter"])):
         fail("the car golden does not match the config's ns, H and SQP "
@@ -1064,132 +1641,22 @@ def main():
     cX, cU, cphys = gc["plan_X_traj"], gc["plan_U_traj"], \
         gc["physical_state_traj"]
     tfX, tfU = gc["tf_X_traj"], gc["tf_U_traj"]
-    gidx = list(spec_c.g_idx_inputs)
-    Ty_c, Ht_c = spec_c.Ty, spec_c.H * spec_c.Ty
 
     # ---- 5.-7. one solve's GP stages and QPs, iteration by iteration ----
+    phase("car gp, gp_hall, ipm")
     # golden step CAR_STEP, teacher-forced: each SQP iteration's GP stage
     # is checked on the inputs the solve gives it (iteration 0 on the
     # empty buffer, iterations 1-3 at fills 60, 120, 180), then the
     # iteration runs through the kernels and feeds the next
-    st_c = T(cphys[CAR_STEP])
-    Xc, Uc = T(cX[CAR_STEP - 1]), T(cU[CAR_STEP - 1])
-    gp_it, ws, wv = agent.reset_hall(gp_c), None, None
-    car_gp_in, car_empty_in, hall_in, qp_warm_c = None, None, {}, None
-    gs_errs, gh_errs, gh_rels = [], [], []
-
-    def stacked_report(label, st, dps, d0s, tubes, means):
-        """All outputs in one launch set (the main path's call) against
-        the plain version of each output."""
-        dk = gp_hall.sample_hall(**st)
-        for j in range(spec_c.g_ny):
-            err, rel = gp_report(
-                "gp_hall", spec_c, f"{label}, nh={st['nh']}, all "
-                f"{spec_c.g_ny} outputs in one launch set: output {j}",
-                dk[j], dps[j], tubes[j], means[j], GP_HALL_REL_TOL, d0=d0s[j])
-            gh_errs.append(err)
-            gh_rels.append(rel)
-
-    for it in range(spec_c.max_sqp_iter):
-        Xt = sqp._linearization_inputs(spec_c, ocp_c, Xc, Uc)[..., gidx]
-        eps_it = eps_c[CAR_STEP, it]
-        gp64_it = gp_c64._replace(hall_Z=gp_it.hall_Z.to(f64),
-                                  hall_Y=gp_it.hall_Y.to(f64),
-                                  hall_n=gp_it.hall_n)
-        m64r, c64r = agent._batched_posterior_real(spec_c, hyp_c64, gp64_it,
-                                                   Xt.to(f64))
-        if it == 0:
-            m64, c64 = m64r, c64r
-        else:
-            m64, c64 = agent._batched_posterior_incremental(
-                spec_c, hyp_c64, gp64_it, Xt.to(f64))
-        dps, d0s, tubes = [], [], []
-        for j in range(spec_c.g_ny):
-            if it == 0:
-                kw = agent.empty_stage_inputs(spec_c, hyp_c, gp_it, Xt,
-                                              eps_it, j)
-                dk = gp_sample.sample_empty_one(**kw)
-                dp = gp_sample.sample_empty_plain(**kw)
-                tube = tube_width(spec_c, m64[:, j], c64[:, j],
-                                  kw["prior_var"])
-                err, _ = gp_report(
-                    "gp", spec_c, f"car ns={spec_c.ns} Ht={Ht_c} "
-                    f"R={kw['Kxm'].shape[-1]} output {j} alone", dk, dp,
-                    tube, m64[:, j], GP_REL_TOL)
-                gs_errs.append(err)
-                dps.append(dp)
-                tubes.append(tube)
-                if j == 0:
-                    car_gp_in = kw
-            else:
-                kw = agent.hall_stage_inputs(spec_c, hyp_c, gp_it, Xt,
-                                             eps_it, j)
-                dk = gp_hall.sample_hall_one(**kw)
-                dp = gp_hall.sample_hall_plain(**kw)
-                d0 = gp_hall.sample_hall_plain(
-                    **dict(kw, eps=torch.zeros_like(kw["eps"])))
-                tube = tube_width(spec_c, m64[:, j], c64[:, j],
-                                  kw["prior_var"])
-                err, rel = gp_report(
-                    "gp_hall", spec_c, f"car SQP iteration {it}, nh="
-                    f"{kw['nh']} (Rr={kw['Kxr'].shape[-1]}, Rh="
-                    f"{kw['Kxh'].shape[-1]}) output {j} alone", dk, dp,
-                    tube, m64[:, j], GP_HALL_REL_TOL, d0=d0)
-                gh_errs.append(err)
-                gh_rels.append(rel)
-                dps.append(dp)
-                d0s.append(d0)
-                tubes.append(tube)
-        if it == 0:
-            # every output in one launch: the main path's call
-            st = agent.empty_stage_inputs_all(spec_c, hyp_c, gp_it, Xt,
-                                              eps_it)
-            dk = gp_sample.sample_empty(**st)
-            for j in range(spec_c.g_ny):
-                err, _ = gp_report(
-                    "gp", spec_c, f"car, all {spec_c.g_ny} outputs in one "
-                    f"launch: output {j}", dk[j], dps[j], tubes[j],
-                    m64[:, j], GP_REL_TOL)
-                gs_errs.append(err)
-            car_empty_in = st
-        if it >= 1:
-            st = agent.hall_stage_inputs_all(spec_c, hyp_c, gp_it, Xt, eps_it)
-            stacked_report(f"car SQP iteration {it}", st, dps, d0s, tubes,
-                           [m64[:, j] for j in range(spec_c.g_ny)])
-            hall_in[st["nh"]] = st
-        if it == 1:
-            # the empty buffer through the hall stage: the real-data
-            # posterior
-            st = agent.hall_stage_inputs_all(
-                spec_c, hyp_c, agent.reset_hall(gp_it), Xt, eps_it)
-            one = [hall_output(st, j) for j in range(spec_c.g_ny)]
-            stacked_report(
-                "car, empty hall buffer", st,
-                [gp_hall.sample_hall_plain(**kw) for kw in one],
-                [gp_hall.sample_hall_plain(
-                    **dict(kw, eps=torch.zeros_like(kw["eps"])))
-                 for kw in one],
-                [tube_width(spec_c, m64r[:, j], c64r[:, j],
-                            one[j]["prior_var"])
-                 for j in range(spec_c.g_ny)],
-                [m64r[:, j] for j in range(spec_c.g_ny)])
-            hall_in[0] = st
-        if it == 2:
-            qp_warm_c, _, _, _ = sqp.assemble_qp(
-                spec_c, env_c, hyp_c, ocp_c, st_c, Xc, Uc, gp_it, eps_it)
-            ws_warm_c, wv_warm_c = ws, wv
-        Xn, Un, gp_it, sol = sqp.sqp_iteration(
-            spec_c, env_c, hyp_c, ocp_c, st_c, Xc, Uc, gp_it, eps_it,
-            qp_ws=ws, qp_valid=wv, hall_empty=(it == 0))
-        if int(sol.status) != 0:
-            fail(f"car SQP iteration {it}: QP status {int(sol.status)}")
-        Xc, Uc, ws, wv = Xn, Un, sol.state, sol.status == 0
-    if sorted(hall_in) != [Ty_c * spec_c.H * k
-                           for k in range(spec_c.max_sqp_iter)]:
-        fail(f"car hall fills {sorted(hall_in)}")
-    results["gp_sample"]["max_abs_err_car"] = max(gs_errs)
-    results["gp_hall"].update(max_abs_err=max(gh_errs),
-                              max_rel_tube=max(gh_rels))
+    walk = stage_walk("car", spec_c, env_c, hyp_c, hyp_c64, ocp_c, gp_c,
+                      gp_c64, T(cphys[CAR_STEP]), T(cX[CAR_STEP - 1]),
+                      T(cU[CAR_STEP - 1]), eps_c[CAR_STEP], per_output=True)
+    car_gp_in, car_empty_in = walk["one"], walk["empty"]
+    hall_in = walk["hall"]
+    qp_warm_c, ws_warm_c, wv_warm_c = walk["warm"]
+    results["gp_sample"]["max_abs_err_car"] = max(walk["gs_errs"])
+    results["gp_hall"].update(max_abs_err=max(walk["gh_errs"]),
+                              max_rel_tube=max(walk["gh_rels"]))
 
     X0c, U0c = sqp.init_iterate(spec_c, dev, f32, data_c.start)
     qp0_c, _, _, _ = sqp.assemble_qp(
@@ -1219,6 +1686,7 @@ def main():
     results["ipm_mehrotra"]["max_abs_err"] = max(mehr_errs)
 
     # ---- 8. car closed loop ---------------------------------------------
+    phase("car loop")
     ex, eu, kx, ku, its_tf = [], [], [], [], []
     for m in range(n_car):
         if m == 0:
@@ -1283,6 +1751,7 @@ def main():
         fail(f"a kernel of the car path was not launched: {launches_car}")
 
     # ---- 9. the 2D pendulum's GP stages, seeded ------------------------
+    phase("f1")
     f1 = f1_stages(dev)
     f1_errs = []
     st, m64, v64 = f1["empty"]
@@ -1320,6 +1789,7 @@ def main():
     results["gp_hall"]["max_abs_err_pendulum_2d"] = max(f1_errs[no1:])
 
     # ---- 10. timing at the main paths' shapes ---------------------------
+    phase("timing")
     def time_gp_sample(label, st):
         """The every-output call (the main path's) on stacked inputs."""
         no, ns, Ht, R = st["Kxm"].shape
@@ -1439,10 +1909,37 @@ def main():
         results["ipm_prepare"][f"wide_schur_nU{nU}"] = prep_t
 
     # ---- 11. kernels 5-7 through their own entry point ------------------
+    phase("linalg")
     linalg, launches_linalg = linalg_phase(dev)
 
     # ---- 12. forward-sampling reachability at full width ----------------
+    phase("fs")
     fs_phase(dev)
+
+    # ==== the hard-constraint QP family (m_s = 0) =========================
+    # ---- 13. params_pendulum at full width ------------------------------
+    phase("pend2d")
+    pend2d = pendulum2d_phase(dev, checks, results)
+    # ---- 14. params_car_residual at full width --------------------------
+    phase("car_residual")
+    car_res = car_residual_phase(dev, checks)
+    # ---- 15. the H = 1 configs ------------------------------------------
+    phase("h1")
+    h1 = h1_phase(dev, checks)
+    prep_errs += [e[0] for e in pend2d["errs"] + car_res["errs"]] + [
+        r["err"][0] for r in h1.values()]
+    mehr_errs += [e[1] for e in pend2d["errs"] + car_res["errs"]] + [
+        r["err"][1] for r in h1.values()]
+    results["ipm_prepare"]["max_abs_err"] = max(prep_errs)
+    results["ipm_mehrotra"]["max_abs_err"] = max(mehr_errs)
+    hard_shapes = (("pendulum_2d", pend2d["timing"]),
+                   ("car_residual", car_res["timing"]),
+                   ("pendulum_samples", h1["params_pendulum_samples"]["timing"]))
+    for key, (cold, warm) in hard_shapes:
+        results["ipm_prepare"][f"hard_only_{key}"] = cold[0]
+        results["ipm_prepare"][f"hard_only_{key}_warm"] = warm[0]
+        results["ipm_mehrotra"][f"hard_only_{key}"] = cold[1]
+        results["ipm_mehrotra"][f"hard_only_{key}_warm"] = warm[1]
 
     # ---- report -----------------------------------------------------------
     meta = {
@@ -1463,9 +1960,13 @@ def main():
         kernels.append({
             "name": name, "route": "cuda",
             "source": "sampling_gpmpc_torch/" + src, "replaces": rep,
-            # this slice's main path (the car loop) runs all four kernels
+            # the car loop's main path runs all four kernels
             "launches": launches_car[name],
             "launches_pendulum": launches_pend[name],
+            "launches_pendulum_2d": pend2d["launches"][name],
+            "launches_car_residual": car_res["launches"][name],
+            **{f"launches_{c[7:]}": r["launches"][name]
+               for c, r in h1.items()},
             **{k: r[k] for k in keys},
             **{k: v for k, v in r.items() if k not in keys}})
     # kernels 5-7: launches from the microbench (their entry point), times

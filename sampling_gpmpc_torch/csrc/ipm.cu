@@ -85,13 +85,31 @@
 // memory chunk by chunk, and the warm candidate is written to h0/s0 in pass
 // 3 (overwritten by the cold start if rejected).  The branch is a template
 // argument, so every shared-memory access compiles as one.
+//
+// QPs with no soft rows (m_s = 0: the pendulum configs, the residual car)
+// run a hard-only build of both kernels (template argument SOFT = false),
+// the counterpart of the `if m_s` branches of the JAX package's XLA body
+// (ocp/qp.py::solve_qp_soft; its Pallas gate refuses m_s = 0): the soft
+// slice length is a compile-time 0, so no soft row is staged, reduced or
+// stepped; m_total = m_h; qscale = 1 + max|g| needs no cluster reduction;
+// the staging buffers carry one row input (d_h) instead of six.  No dummy
+// soft row is padded in: that would change m_total, mu and the iterates.
+// This source builds two libraries (ops/build.py), each instantiating one
+// value of SOFT, so that the two compile in parallel: IPM_SOFT = 1 (the
+// default, library `ipm`) and IPM_SOFT = 0 (library `ipm_hard`).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
 
+#ifndef IPM_SOFT
+#define IPM_SOFT 1
+#endif
+
 namespace {
+
+constexpr bool kSoft = IPM_SOFT != 0;   // the kernels' build in this library
 
 constexpr int NT_LOOP = 256;    // loop kernel: up to 255 registers a thread
 // Schur pairs per thread: ceil(nU (nU + 1) / 2 / NT_LOOP); the loop kernel
@@ -235,15 +253,19 @@ __device__ float block_reduce1(float v, float* red, int& par, Op op, float init)
 // [hb, hb + nh), soft rows [sb, sb + ns); contiguous, in rank order, at
 // most ceil(m / CL) each, possibly empty (m < CL).  Both kernels slice the
 // rows this way.
+// SOFT = false (a QP with no soft rows, m_s = 0): no soft slice, its
+// length a compile-time 0, so every soft loop of either kernel compiles
+// away.
 struct RowSlice {
   int hb, nh, sb, ns;
 };
+template <bool SOFT>
 __device__ __forceinline__ RowSlice row_slice(int m_h, int m_s, int rank) {
   RowSlice r;
   r.hb = (int)((long long)m_h * rank / CL);
-  r.sb = (int)((long long)m_s * rank / CL);
   r.nh = (int)((long long)m_h * (rank + 1) / CL) - r.hb;
-  r.ns = (int)((long long)m_s * (rank + 1) / CL) - r.sb;
+  r.sb = SOFT ? (int)((long long)m_s * rank / CL) : 0;
+  r.ns = SOFT ? (int)((long long)m_s * (rank + 1) / CL) - r.sb : 0;
   return r;
 }
 
@@ -389,8 +411,10 @@ __device__ __forceinline__ float hard_b(const float* h, const float* ca, int m_h
 
 // One QP on one cluster.  `resident`: G slices and state rows in shared
 // memory (else read from global memory, `work` holding the state rows);
-// MP: Schur pairs per thread.
-template <int MP>
+// MP: Schur pairs per thread; SOFT = false: the hard-only QP (m_s = 0, the
+// XLA body of ocp/qp.py::solve_qp_soft with its `if m_s` terms absent:
+// m_total = m_h, no soft residual, Schur weight, direction or step pair).
+template <int MP, bool SOFT>
 __global__ void __launch_bounds__(NT_LOOP, 1)
 ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
                     const float* __restrict__ Gth, const float* __restrict__ dh,
@@ -403,9 +427,9 @@ ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, nt = blockDim.x, ldm = nU + 1, nv = nU + 8;
-  const RowSlice rs = row_slice(m_h, m_s, rank);
+  const RowSlice rs = row_slice<SOFT>(m_h, m_s, rank);
   const int hb = rs.hb, nh = rs.nh, sb = rs.sb, ns = rs.ns;
-  const int hmax = (m_h + CL - 1) / CL, smax = (m_s + CL - 1) / CL;
+  const int hmax = (m_h + CL - 1) / CL, smax = SOFT ? (m_s + CL - 1) / CL : 0;
 
   extern __shared__ float sm[];
   float* sM = sm;                          // nU x ldm: Schur, then its factor
@@ -426,27 +450,32 @@ ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
   float* tail = sv + 8;
 
   const float* gh;                         // this CTA's columns of Gth / Gts
-  const float* gs;
-  int ldh, lds;
+  const float* gs = nullptr;
+  int ldh, lds = 1;
   float *sG = nullptr, *sW = nullptr, *st;
   if (resident) {
     // odd row strides: the Schur pass reads rows p and q of one column at
     // once in every lane, which an even stride would put on few banks
     ldh = nh | 1;
-    lds = ns | 1;
     float* sGh = tail;                     // nU x ldh
-    float* sGs = sGh + nU * (hmax | 1);    // nU x lds
-    st = sGs + nU * (smax | 1);
+    st = sGh + nU * (hmax | 1);
     for (int e = tid; e < nU * nh; e += nt)
       sGh[(e / nh) * ldh + e % nh] = Gth[(size_t)(e / nh) * m_h + hb + e % nh];
-    for (int e = tid; e < nU * ns; e += nt)
-      sGs[(e / ns) * lds + e % ns] = Gts[(size_t)(e / ns) * m_s + sb + e % ns];
-    gh = sGh; gs = sGs;
+    gh = sGh;
+    if (SOFT) {
+      lds = ns | 1;
+      float* sGs = st;                     // nU x lds
+      st = sGs + nU * (smax | 1);
+      for (int e = tid; e < nU * ns; e += nt)
+        sGs[(e / ns) * lds + e % ns] = Gts[(size_t)(e / ns) * m_s + sb + e % ns];
+      gs = sGs;
+    }
   } else {
     sG = tail;                             // nU x (chunk+1)
     sW = sG + nU * (chunk + 1);            // chunk
     st = work + 9 * (size_t)hb + 36 * (size_t)sb;
-    gh = Gth + hb; ldh = m_h; gs = Gts + sb; lds = m_s;
+    gh = Gth + hb; ldh = m_h;
+    if (SOFT) { gs = Gts + sb; lds = m_s; }
   }
   // this CTA's state rows (row blocks of stride nh / ns)
   float* ch = st;                          // th, lh
@@ -463,9 +492,9 @@ ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
 
   const float* dvec = dh + hb;
   const float* wrel = dh + m_h + hb;
-  const float* sdl = sd + sb;              // row blocks of stride m_s
+  const float* sdl = SOFT ? sd + sb : nullptr;   // row blocks of stride m_s
   const float qscale = qs[0], mu0 = qscale;
-  const float m_total = (float)(m_h + 4 * m_s);
+  const float m_total = (float)(SOFT ? m_h + 4 * m_s : m_h);
   const Pairs<MP> pr(nU);
 
   for (int i = tid; i < nh; i += nt) {
@@ -523,9 +552,9 @@ ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
   auto gt_partial = [&](const float* a, const float* b, float sgn, float* out) {
     __syncthreads();
     gtv(gh, ldh, a, nU, nh, vA);
-    gtv(gs, lds, b, nU, ns, vB);
+    if (SOFT) gtv(gs, lds, b, nU, ns, vB);
     __syncthreads();
-    for (int p = tid; p < nU; p += nt) out[p] = vA[p] + sgn * vB[p];
+    for (int p = tid; p < nU; p += nt) out[p] = SOFT ? vA[p] + sgn * vB[p] : vA[p];
   };
   // out = this CTA's partial of Gh' lh + Gs' (lU - lL)
   auto stationarity_partial = [&](float* out) {
@@ -595,7 +624,7 @@ ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
 #pragma unroll
     for (int j = 0; j < MP; ++j) acc[j] = 0.f;
     schur_acc(gh, ldh, wh, nU, nh, resident, chunk, sG, sW, pr, acc);
-    schur_acc(gs, lds, sxg + 10 * ns, nU, ns, resident, chunk, sG, sW, pr, acc);
+    if (SOFT) schur_acc(gs, lds, sxg + 10 * ns, nU, ns, resident, chunk, sG, sW, pr, acc);
 #pragma unroll
     for (int j = 0; j < MP; ++j)
       if (j < pr.n) sP[pr.p[j] * ldm + pr.q[j]] = acc[j];
@@ -792,7 +821,7 @@ __device__ float* stage_async(float* raw, const float* src, int n) {
 // else the matvecs read Gth/Gts back from global memory, the per-row
 // values come back from the outputs, and the warm candidate goes straight
 // to h0/s0 (overwritten by the cold start when it is rejected).
-template <bool RES>
+template <bool RES, bool SOFT>
 __global__ void __launch_bounds__(NT_PREP, 1)
 ipm_prepare_kernel(const float* __restrict__ H, const float* __restrict__ g,
                    const float* __restrict__ Gh, const float* __restrict__ d_h,
@@ -810,15 +839,16 @@ ipm_prepare_kernel(const float* __restrict__ H, const float* __restrict__ g,
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, wid = tid >> 5, nw = nt >> 5;
-  const RowSlice rows = row_slice(m_h, m_s, rank);
+  const RowSlice rows = row_slice<SOFT>(m_h, m_s, rank);
   const int hb = rows.hb, nh = rows.nh, sb = rows.sb, ns = rows.ns;
-  const int hmax = (m_h + CL - 1) / CL, smax = (m_s + CL - 1) / CL;
+  const int hmax = (m_h + CL - 1) / CL, smax = SOFT ? (m_s + CL - 1) / CL : 0;
   const int CH = RES ? max(hmax, smax) : chunk;   // rows per staged chunk
   // one staging buffer: the chunk's rows of G, then its rows of the row
-  // inputs (d_h, or lo hi zl zu Zl Zu), 6 x CH; each a multiple of 16 bytes
-  const int side_n = (6 * CH + 3) & ~3;
+  // inputs (d_h, or lo hi zl zu Zl Zu: 6 x CH, 1 x CH when hard-only); each
+  // a multiple of 16 bytes
+  const int side_n = ((SOFT ? 6 : 1) * CH + 3) & ~3;
   const int raw_n = ((CH * nU + 4 + 3) & ~3) + side_n;
-  const float m_total = (float)(m_h + 4 * m_s);
+  const float m_total = (float)(SOFT ? m_h + 4 * m_s : m_h);
 
   extern __shared__ __align__(16) float psm[];
   float* raw0 = psm;                       // two staging buffers
@@ -841,7 +871,7 @@ ipm_prepare_kernel(const float* __restrict__ H, const float* __restrict__ g,
   if (RES) {
     float* p = tail;
     sGh = p; p += nU * (hmax | 1);
-    sGs = p; p += nU * (smax | 1);
+    sGs = p; p += SOFT ? nU * (smax | 1) : 0;
     hsc = p; p += hmax; hds = p; p += hmax; hwr = p; p += hmax;
     ssc = p; p += smax; slo = p; p += smax; shi = p; p += smax;
     swU = p; p += smax; swL = p; p += smax;
@@ -875,7 +905,7 @@ ipm_prepare_kernel(const float* __restrict__ H, const float* __restrict__ g,
     int r0, n;
     const bool hard = chunk_rows(c, r0, n);
     float* side = raw + raw_n - side_n;
-    if (hard) {
+    if (hard || !SOFT) {
       for (int k = tid; k < n; k += nt) sgp::cp_async4(side + k, d_h + hb + r0 + k);
     } else {
       const float* in[6] = {lo, hi, zl, zu, Zl, Zu};
@@ -921,7 +951,7 @@ ipm_prepare_kernel(const float* __restrict__ H, const float* __restrict__ g,
       const float sc = sgp::nmax(a, 1e-10f);
       rsc[k] = sc;
       const int i = r0 + k;
-      if (hard) {
+      if (hard || !SOFT) {
         const float ds = side[k] / sc, wr = 1.f / (1.f + fabsf(ds));
         sch[hb + i] = sc;
         dho[hb + i] = ds;
@@ -964,14 +994,19 @@ ipm_prepare_kernel(const float* __restrict__ H, const float* __restrict__ g,
   }
 
   // ---- reduction 1: qscale = 1 + max|g| + max(0, max zl'), every CTA
+  // (hard-only: 1 + max|g|, g is the same in every CTA)
   int par = 0, rpar = 0;
   float gm = 0.f;
   for (int p = tid; p < nU; p += nt) gm = sgp::nmax(gm, fabsf(g[p]));
   gm = block_reduce1(gm, red, rpar, sgp::MaxOp(), 0.f);
-  zmax = block_reduce1(zmax, red, rpar, sgp::MaxOp(), 0.f);
-  if (tid == 0) { vals[0] = gm; vals[1] = zmax; }
-  reduce_over_cluster(cluster, pub, PUB_PREP, par, vals, 2, 0, 2);
-  const float qscale = 1.f + vals[0] + vals[1], mu0 = qscale;
+  float qscale = 1.f + gm;
+  if (SOFT) {
+    zmax = block_reduce1(zmax, red, rpar, sgp::MaxOp(), 0.f);
+    if (tid == 0) { vals[0] = gm; vals[1] = zmax; }
+    reduce_over_cluster(cluster, pub, PUB_PREP, par, vals, 2, 0, 2);
+    qscale = 1.f + vals[0] + vals[1];
+  }
+  const float mu0 = qscale;
 
   // One pass over this CTA's rows, hard then soft, in chunks of CH rows:
   // row(k, i, hard) fills t1[k] (and t2[k]) for row i of the slice, then
@@ -980,7 +1015,7 @@ ipm_prepare_kernel(const float* __restrict__ H, const float* __restrict__ g,
   auto gt_pass = [&](int nvec, auto&& row) {
     __syncthreads();                       // every thread has read vals
     for (int e = tid; e < nvec * nU; e += nt) vals[e] = 0.f;
-    for (int hard = 1; hard >= 0; --hard) {
+    for (int hard = 1; hard >= (SOFT ? 0 : 1); --hard) {
       const int m = hard ? nh : ns;
       for (int r0 = 0; r0 < m; r0 += CH) {
         const int n = min(CH, m - r0);
@@ -1022,7 +1057,7 @@ ipm_prepare_kernel(const float* __restrict__ H, const float* __restrict__ g,
     // stationarity vector, primal residual and complementarity sum
     float rp = 0.f, cp = 0.f;
     gt_pass(2, [&](int k, int i, bool hard) {
-      if (hard) {
+      if (hard || !SOFT) {
         const float ds = Hds[i], th = sgp::nmax(ds, 1.f), lc = mu0 / th;
         t1[k] = lh_w[hb + i] * Hsc[i];
         t2[k] = lc;
@@ -1062,7 +1097,7 @@ ipm_prepare_kernel(const float* __restrict__ H, const float* __restrict__ g,
     const float flo = ws_floor * mu_ws, fhi = ws_cap * mu_ws;
     float rpw = 0.f, cpw = 0.f;
     gt_pass(1, [&](int k, int i, bool hard) {
-      if (hard) {
+      if (hard || !SOFT) {
         const float ds = Hds[i];
         const float th = sgp::nmax(ds, tau * (1.f + fabsf(ds)));
         const float lh = sgp::nclip(lh_w[hb + i] * Hsc[i], flo / th, fhi / th);
@@ -1190,13 +1225,13 @@ int co_schedules(K* kernel, int threads) {
 }  // namespace
 
 // The cluster size both kernels launch with, CL = 16, if the card can
-// co-schedule a cluster of 16 CTAs of every build of both at the largest
-// shared memory; else 0, or a negative cudaError_t.
+// co-schedule a cluster of 16 CTAs of every build of both in this library
+// at the largest shared memory; else 0, or a negative cudaError_t.
 extern "C" int ipm_cluster_size() {
-  const int ok[4] = {co_schedules(ipm_mehrotra_kernel<MAXP_SMALL>, NT_LOOP),
-                     co_schedules(ipm_mehrotra_kernel<MAXP>, NT_LOOP),
-                     co_schedules(ipm_prepare_kernel<true>, NT_PREP),
-                     co_schedules(ipm_prepare_kernel<false>, NT_PREP)};
+  const int ok[4] = {co_schedules(ipm_mehrotra_kernel<MAXP_SMALL, kSoft>, NT_LOOP),
+                     co_schedules(ipm_mehrotra_kernel<MAXP, kSoft>, NT_LOOP),
+                     co_schedules(ipm_prepare_kernel<true, kSoft>, NT_PREP),
+                     co_schedules(ipm_prepare_kernel<false, kSoft>, NT_PREP)};
   for (int v : ok)
     if (v != 1) return v;
   return CL;
@@ -1213,9 +1248,10 @@ extern "C" int ipm_prepare(const float* H, const float* g, const float* Gh,
                            float* qs, float* sch, float* scs, int* warm, int nU, int m_h,
                            int m_s, float ws_floor, float ws_cap, int chunk, int resident,
                            int smem_bytes, void* stream) {
-  if (nU < 1 || nU > 128 || 2 * nU + 2 > PUB_PREP || (!resident && chunk < 1))
+  if (nU < 1 || nU > 128 || m_h < 1 || (m_s > 0) != kSoft || 2 * nU + 2 > PUB_PREP ||
+      (!resident && chunk < 1))
     return (int)cudaErrorInvalidValue;
-  auto kernel = resident ? ipm_prepare_kernel<true> : ipm_prepare_kernel<false>;
+  auto kernel = resident ? ipm_prepare_kernel<true, kSoft> : ipm_prepare_kernel<false, kSoft>;
   cudaError_t err = cluster_attributes(kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
@@ -1237,9 +1273,11 @@ extern "C" int ipm_mehrotra(const float* H, const float* g, const float* Gth,
                             int max_iter, int stall_iters, float stall_rtol,
                             float mu_grind, int chunk, int resident, int smem_bytes,
                             void* stream) {
-  if (nU > 128 || nU + 2 > PUB) return (int)cudaErrorInvalidValue;
+  if (nU < 1 || nU > 128 || m_h < 1 || (m_s > 0) != kSoft || nU + 2 > PUB)
+    return (int)cudaErrorInvalidValue;
   const bool small = nU * (nU + 1) / 2 <= MAXP_SMALL * NT_LOOP;
-  auto kernel = small ? ipm_mehrotra_kernel<MAXP_SMALL> : ipm_mehrotra_kernel<MAXP>;
+  auto kernel = small ? ipm_mehrotra_kernel<MAXP_SMALL, kSoft>
+                      : ipm_mehrotra_kernel<MAXP, kSoft>;
   cudaError_t err = cluster_attributes(kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];

@@ -1,8 +1,11 @@
 """Device time of the two IPM kernels, from the CUDA trace, on the GPU.
 
 For seeded QPs (``ops/ipm.seeded_qp``) at the closed loops' shapes
-(pendulum nU=17, m_h=7174, m_s=70; car nU=30, m_h=60, m_s=2480) and at the
-seeded wide QPs ``chip_smoke.py`` checks, cold and warm started (the
+(pendulum nU=17, m_h=7174, m_s=70; car nU=30, m_h=60, m_s=2480), at the
+seeded wide QPs ``chip_smoke.py`` checks and at the hard-only loops'
+shapes (m_s = 0: params_pendulum nU=30, m_h=2460; params_pendulum_samples
+nU=1, m_h=2002; params_car_residual nU=100, m_h=800), cold and warm
+started (the
 carried state of a plain solve, with g moved by 1e-3, so the warm start is
 accepted), it times ``ipm.prepare`` and ``ipm.mehrotra`` by the mean
 device duration of their kernels under ``torch.profiler`` over N calls:
@@ -30,7 +33,7 @@ import time
 import torch
 
 QPS = ((17, 7174, 70), (30, 60, 2480), (20, 52000, 512), (64, 4000, 400),
-       (128, 20000, 1000))
+       (128, 20000, 1000), (30, 2460, 0), (1, 2002, 0), (100, 800, 0))
 
 
 def device_us(fn, name: str, n: int) -> float:

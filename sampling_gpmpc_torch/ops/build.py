@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-Each source compiles with ``nvcc`` into its own shared library with a
-plain C interface, loaded with ``ctypes``: no PyTorch headers, so a build
-takes seconds.  Libraries land in ``build/`` at the repository root, named
-by a hash of the source, the shared header and the flags, so an edited
-source rebuilds and an unchanged one is reused.  Nothing is built when a
-module is imported: the first launch builds, or ``build_all`` builds every
-source in parallel.
+Each library compiles with one ``nvcc`` from one source into a shared
+library with a plain C interface, loaded with ``ctypes``: no PyTorch
+headers, so a build takes seconds.  ``ipm_hard`` is ``ipm.cu`` built with
+``-DIPM_SOFT=0`` (the IPM kernels' hard-only instances), so the two halves
+of the IPM kernels compile in parallel.  Libraries land in ``build/`` at
+the repository root, named by a hash of the source, the shared header and
+the flags, so an edited source rebuilds and an unchanged one is reused.
+Nothing is built when a module is imported: the first launch builds, or
+``build_all`` builds every library in parallel.
 """
 
 from __future__ import annotations
@@ -23,7 +25,10 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build")
-SOURCES = ("gp_sample", "gp_hall", "ipm", "batch_linalg", "batched_chol")
+SOURCES = ("gp_sample", "gp_hall", "ipm", "ipm_hard", "batch_linalg",
+           "batched_chol")
+# library -> (source in csrc/, extra nvcc flags); the rest build name.cu
+VARIANTS = {"ipm_hard": ("ipm", ("-DIPM_SOFT=0",))}
 SMEM_MAX = 232448          # H100 opt-in dynamic shared memory per block (227 KB)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,12 +45,19 @@ def _nvcc() -> str:
     return path
 
 
+def _source(name: str):
+    """(source file, nvcc flags) of one library."""
+    src, extra = VARIANTS.get(name, (name, ()))
+    return os.path.join(_CSRC, f"{src}.cu"), FLAGS + extra
+
+
 def _target(name: str) -> str:
+    src, flags = _source(name)
     h = hashlib.sha256()
-    for f in (f"{name}.cu", "common.cuh"):
-        with open(os.path.join(_CSRC, f), "rb") as fh:
+    for f in (src, os.path.join(_CSRC, "common.cuh")):
+        with open(f, "rb") as fh:
             h.update(fh.read())
-    h.update(" ".join(FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -57,9 +69,9 @@ def _start(name: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     log = open(so[:-3] + ".log", "w")
-    proc = subprocess.Popen(
-        [_nvcc(), *FLAGS, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")],
-        stdout=log, stderr=subprocess.STDOUT)
+    src, flags = _source(name)
+    proc = subprocess.Popen([_nvcc(), *flags, "-o", tmp, src], stdout=log,
+                            stderr=subprocess.STDOUT)
     return proc, log, tmp, so
 
 
@@ -74,7 +86,7 @@ def _finish(job) -> None:
 
 
 def build_all(names=SOURCES) -> dict:
-    """Build every source at once (one nvcc each, all started together).
+    """Build every library at once (one nvcc each, all started together).
     Returns {name: nvcc's log text} (register and shared-memory use)."""
     jobs = [(n, _start(n)) for n in names]
     for _, job in jobs:

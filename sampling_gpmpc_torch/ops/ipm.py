@@ -28,8 +28,11 @@ with the soft slacks eliminated analytically, so every Newton system is the
 scale_s)`` — the scaled best iterate ``(u, sl, su, th, lh, tU, lU, tL, lL,
 nl, nu)`` — for ``ocp/qp.py::_finish``.  It runs :func:`run_full_plain` for
 CPU tensors and the two kernels (``csrc/ipm.cu``) for CUDA tensors, never
-falling back: a CUDA problem the kernels cannot take (float64, no soft or
-hard rows, nU > 128) raises, naming the limit (:func:`check_supported`).
+falling back: a CUDA problem the kernels cannot take (float64, no hard
+rows, nU > 128) raises, naming the limit (:func:`check_supported`).  A QP
+with no soft rows (m_s = 0) runs the kernels' hard-only build, the
+counterpart of the JAX package's XLA body for it (``pallas_ipm.fused_ok``
+refuses m_s = 0).
 """
 
 from __future__ import annotations
@@ -47,17 +50,17 @@ NU_MAX = 128
 
 def check_supported(nU: int, m_h: int, m_s: int, dtype) -> None:
     """Raise ValueError naming the limit when the kernels cannot take a
-    problem (the limits of pallas_ipm.fused_ok): float32 only, hard and soft
-    rows present, and a Schur matrix small enough for one CTA's shared
-    memory."""
+    problem: float32 only, hard rows present (the Pallas path cannot take
+    m_h = 0 either), and a Schur matrix small enough for one CTA's shared
+    memory.  m_s = 0 takes the kernels' hard-only build."""
     if dtype != torch.float32:
         raise ValueError(f"ipm kernels take float32 only, got {dtype}; "
                          "solve float64 problems with device='cpu'")
     if not 1 <= nU <= NU_MAX:
         raise ValueError(f"ipm kernels take 1 <= nU <= {NU_MAX}, got "
                          f"nU={nU}")
-    if m_h < 1 or m_s < 1:
-        raise ValueError(f"ipm kernels need m_h >= 1 and m_s >= 1, got "
+    if m_h < 1 or m_s < 0:
+        raise ValueError(f"ipm kernels need m_h >= 1 and m_s >= 0, got "
                          f"m_h={m_h}, m_s={m_s}")
 
 
@@ -380,12 +383,13 @@ def loop_layout(nU: int, m_h: int, m_s: int) -> LoopLayout:
     """Each CTA owns ceil(m / CLUSTER) rows at most; its columns of G and
     its state rows (9 floats per hard row, 36 per soft row) stay in shared
     memory when they fit beside the Schur matrices and vectors, else the
-    same kernel reads them from global memory (streamed)."""
+    same kernel reads them from global memory (streamed).  The hard-only
+    build (m_s = 0) has no soft slice."""
     hmax, smax = -(-m_h // CLUSTER), -(-m_s // CLUSTER)
     base = 2 * nU * (nU + 1) + 2 * PUB + 8 * (nU + 8) + 2 * nU + 72
     # G slices at odd row strides (hmax | 1, smax | 1)
-    resident = (base + nU * ((hmax | 1) + (smax | 1)) + 9 * hmax
-                + 36 * smax)
+    resident = (base + nU * ((hmax | 1) + ((smax | 1) if m_s else 0))
+                + 9 * hmax + 36 * smax)
     if 4 * resident <= build.SMEM_MAX:
         return LoopLayout(True, 0, 4 * resident)
     chunk = _schur_chunk(nU)
@@ -417,16 +421,19 @@ def prepare_layout(nU: int, m_h: int, m_s: int) -> PrepLayout:
     per-chunk rows; resident,
     with chunk = the larger slice, also the slices' transposed columns at
     odd row strides, 3 values per hard row and 5 per soft row, and the warm
-    candidate (2 per hard row, 8 per soft row); else the chunk transposed."""
+    candidate (2 per hard row, 8 per soft row); else the chunk transposed.
+    The hard-only build (m_s = 0) stages one row input (d_h), not six, and
+    has no soft slice."""
     hmax, smax = -(-m_h // CLUSTER), -(-m_s // CLUSTER)
+    n_in = 6 if m_s else 1
 
     def floats(chunk, tail):
-        raw = -(-(chunk * nU + 4) // 4) * 4 + -(-6 * chunk // 4) * 4
+        raw = -(-(chunk * nU + 4) // 4) * 4 + -(-n_in * chunk // 4) * 4
         return 2 * raw + 2 * PUB_PREP + 2 * nU + 8 + 64 + 3 * chunk + tail
 
     chunk = max(hmax, smax)
-    resident = floats(chunk, nU * ((hmax | 1) + (smax | 1)) + 5 * hmax
-                      + 13 * smax)
+    resident = floats(chunk, nU * ((hmax | 1) + ((smax | 1) if m_s else 0))
+                      + 5 * hmax + 13 * smax)
     if 4 * resident <= build.SMEM_MAX:
         return PrepLayout(True, chunk, 4 * resident)
     chunk = _prep_chunk(nU)
@@ -436,21 +443,28 @@ def prepare_layout(nU: int, m_h: int, m_s: int) -> PrepLayout:
 _CLUSTER: dict = {}
 
 
-def cluster_size() -> int:
+def _library(m_s: int) -> str:
+    """The library of the kernels' build for a QP: ``ipm`` (soft rows) or
+    ``ipm_hard`` (m_s = 0; csrc/ipm.cu built with IPM_SOFT=0)."""
+    return "ipm" if m_s else "ipm_hard"
+
+
+def cluster_size(m_s: int = 1) -> int:
     """CTAs per QP, CLUSTER; raises if the card cannot co-schedule a
-    cluster of that many CTAs of either kernel (asked of the CUDA runtime
-    once)."""
-    if "n" not in _CLUSTER:
-        fn = build.load("ipm").ipm_cluster_size
+    cluster of that many CTAs of either kernel of the build for ``m_s``
+    (asked of the CUDA runtime once per library)."""
+    name = _library(m_s)
+    if name not in _CLUSTER:
+        fn = build.load(name).ipm_cluster_size
         fn.argtypes, fn.restype = [], ctypes.c_int
         n = fn()
         if n != CLUSTER:
             raise RuntimeError(
                 f"ipm: this card cannot co-schedule a cluster of {CLUSTER} "
-                f"CTAs of the IPM kernels (returned {n}; a negative value is "
-                f"a CUDA error)")
-        _CLUSTER["n"] = n
-    return _CLUSTER["n"]
+                f"CTAs of the IPM kernels of {name} (returned {n}; a "
+                f"negative value is a CUDA error)")
+        _CLUSTER[name] = n
+    return _CLUSTER[name]
 
 
 class Device(NamedTuple):
@@ -470,8 +484,15 @@ class Device(NamedTuple):
     work: torch.Tensor       # the loop kernel's state rows when streamed
 
 
-def _lib_fns():
-    lib = build.load("ipm")
+def _ptr(t):
+    """A kernel argument: the tensor's address, or NULL for no tensor and
+    for an empty one (its address may be 0; the hard-only build reads no
+    soft argument)."""
+    return None if t is None or t.numel() == 0 else t.data_ptr()
+
+
+def _lib_fns(m_s: int):
+    lib = build.load(_library(m_s))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     prep, loop = lib.ipm_prepare, lib.ipm_mehrotra
     prep.argtypes = [P] * 30 + [I, I, I, F, F, I, I, I, P]
@@ -505,7 +526,7 @@ def prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws, ws_valid,
             ws_valid = torch.ones((), dtype=torch.bool, device=dev)
         if ws_valid.dtype != torch.bool or ws_valid.device != dev:
             raise ValueError("ws_valid: need a bool tensor on the device")
-    cluster_size()
+    cluster_size(m_s)
     lay = prepare_layout(nU, m_h, m_s)
     if lay.smem > build.SMEM_MAX:
         raise ValueError(f"ipm_prepare: {lay.smem} B of shared memory exceeds "
@@ -521,17 +542,16 @@ def prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws, ws_valid,
         buf[k] = flat[o:o + n]
         o += n
     buf["warm"] = buf["warm"].view(torch.int32)
-    ptr = lambda t: None if t is None else t.data_ptr()
     wsp = [None] * 8 if ws is None else [
-        ptr(ws[i]) for i in (0, 1, 2, 4, 6, 8, 9, 10)]  # u sl su lh lU lL nl nu
-    prep, _ = _lib_fns()
+        _ptr(ws[i]) for i in (0, 1, 2, 4, 6, 8, 9, 10)]  # u sl su lh lU lL nl nu
+    prep, _ = _lib_fns(m_s)
     with torch.cuda.device(dev):
-        rc = prep(*(t.data_ptr() for t in (H, g, G_h, d_h, G_s, lo_s, hi_s,
-                                           zl, zu, Zl, Zu)),
+        rc = prep(*(_ptr(t) for t in (H, g, G_h, d_h, G_s, lo_s, hi_s,
+                                      zl, zu, Zl, Zu)),
                   *wsp, None if ws is None else ws_valid.data_ptr(),
-                  *(buf[k].data_ptr() for k in ("Gth", "Gts", "dh", "sd", "h0",
-                                                "s0", "qs", "sch", "scs",
-                                                "warm")),
+                  *(_ptr(buf[k]) for k in ("Gth", "Gts", "dh", "sd", "h0",
+                                           "s0", "qs", "sch", "scs",
+                                           "warm")),
                   nU, m_h, m_s, float(ws_band[0]), float(ws_band[1]),
                   lay.chunk, int(lay.resident), lay.smem,
                   torch.cuda.current_stream(dev).cuda_stream)
@@ -547,21 +567,22 @@ def prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws, ws_valid,
 def prepared_fields(d: Device, p: Prepared) -> list:
     """``(name, kernel output, plain value)`` for every output field of the
     prepare kernel, against :func:`prepare_plain`'s result ``p`` on the same
-    inputs."""
+    inputs: 25 fields, the 7 not on soft rows when the QP has none."""
     s, inv = p.st0, (lambda x: 1.0 / (1.0 + torch.abs(x)))
     soft = (("lo_s", p.lo_s), ("hi_s", p.hi_s), ("zl", p.zl), ("zu", p.zu),
             ("Zl", p.Zl), ("Zu", p.Zu), ("1/(1+|hi|)", inv(p.hi_s)),
             ("1/(1+|lo|)", inv(p.lo_s)))
-    return [("G_h", d.Gth.T, p.G_h), ("d_h", d.dh[0], p.d_h),
-            ("1/(1+|d_h|)", d.dh[1], inv(p.d_h)), ("G_s", d.Gts.T, p.G_s),
-            *[(n, d.sd[k], v) for k, (n, v) in enumerate(soft)],
-            ("qscale", d.qs[0], p.qscale), ("scale_h", d.sch, p.scale_h),
-            ("scale_s", d.scs, p.scale_s), ("th", d.h0[0], s[3]),
-            ("lh", d.h0[1], s[4]), ("tU", d.s0[0], s[5]),
-            ("tL", d.s0[1], s[7]), ("sl", d.s0[2], s[1]),
-            ("su", d.s0[3], s[2]), ("lU", d.s0[4], s[6]),
-            ("lL", d.s0[5], s[8]), ("nl", d.s0[6], s[9]),
-            ("nu", d.s0[7], s[10])]
+    fields = [("G_h", d.Gth.T, p.G_h), ("d_h", d.dh[0], p.d_h),
+              ("1/(1+|d_h|)", d.dh[1], inv(p.d_h)), ("G_s", d.Gts.T, p.G_s),
+              *[(n, d.sd[k], v) for k, (n, v) in enumerate(soft)],
+              ("qscale", d.qs[0], p.qscale), ("scale_h", d.sch, p.scale_h),
+              ("scale_s", d.scs, p.scale_s), ("th", d.h0[0], s[3]),
+              ("lh", d.h0[1], s[4]), ("tU", d.s0[0], s[5]),
+              ("tL", d.s0[1], s[7]), ("sl", d.s0[2], s[1]),
+              ("su", d.s0[3], s[2]), ("lU", d.s0[4], s[6]),
+              ("lL", d.s0[5], s[8]), ("nl", d.s0[6], s[9]),
+              ("nu", d.s0[7], s[10])]
+    return [f for f in fields if f[2].numel()]
 
 
 def mehrotra(d: Device, tol: float, reg: float, max_iter: int,
@@ -573,7 +594,7 @@ def mehrotra(d: Device, tol: float, reg: float, max_iter: int,
     """
     dev = d.g.device
     nU, m_h, m_s = d.g.shape[0], d.dh.shape[1], d.sd.shape[1]
-    cluster_size()
+    cluster_size(m_s)
     lay = loop_layout(nU, m_h, m_s)
     if lay.smem > build.SMEM_MAX:
         raise ValueError(f"ipm: {lay.smem} B of shared memory exceeds "
@@ -584,11 +605,11 @@ def mehrotra(d: Device, tol: float, reg: float, max_iter: int,
     bs = out[nU + 2 * m_h:nU + 2 * m_h + 8 * m_s].view(8, m_s)
     bres = out[-1:]
     bit = torch.empty(1, dtype=torch.int32, device=dev)
-    _, loop = _lib_fns()
+    _, loop = _lib_fns(m_s)
     with torch.cuda.device(dev):
-        rc = loop(*(t.data_ptr() for t in (d.H, d.g, d.Gth, d.dh, d.Gts, d.sd,
-                                           d.h0, d.s0, d.qs, bu, bh, bs, bres,
-                                           bit, d.work)),
+        rc = loop(*(_ptr(t) for t in (d.H, d.g, d.Gth, d.dh, d.Gts, d.sd,
+                                      d.h0, d.s0, d.qs, bu, bh, bs, bres,
+                                      bit, d.work)),
                   nU, m_h, m_s, float(tol), float(reg), int(max_iter),
                   int(stall_iters), float(stall_rtol), float(mu_grind),
                   lay.chunk, int(lay.resident), lay.smem,

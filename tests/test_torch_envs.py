@@ -1,6 +1,6 @@
-"""Pendulum1D and residual-car (``bicycle_Bdx``) dynamics of the port vs
-the JAX package (float64, 1e-12: the same closed forms) and their analytic
-Jacobians vs torch.func autodiff (the car's are in
+"""Pendulum1D, 2D pendulum and residual-car (``bicycle_Bdx``) dynamics of
+the port vs the JAX package (float64, 1e-12: the same closed forms) and
+their analytic Jacobians vs torch autodiff (the car's are in
 tests/test_torch_car.py)."""
 
 import os
@@ -79,11 +79,73 @@ def test_analytic_jacobians_match_autodiff(envs):
                                    Jg.numpy(), atol=TOL)
 
 
-@pytest.mark.parametrize("name", ["params_pendulum"])
-def test_unported_envs_raise(name):
-    params, spec, _ = tload(os.path.join(PDIR, name + ".yaml"))
-    with pytest.raises(NotImplementedError, match="a later port slice"):
-        tmake_env(spec, params)
+PENDULUM_CONFIGS = ["params_pendulum", "params_pendulum_samples",
+                    "params_pendulum_invariant"]
+
+
+def _pendulum_envs(name):
+    path = os.path.join(PDIR, name + ".yaml")
+    jp, js, _ = jload(path)
+    tp, ts, _ = tload(path)
+    assert ts.env_name == "pendulum"
+    return jmake_env(js, jp), tmake_env(ts, tp)
+
+
+@pytest.mark.parametrize("name", PENDULUM_CONFIGS)
+def test_pendulum_dynamics_match_jax(name):
+    """The 2D pendulum (the GP models the whole map, B_d = I): the known
+    part (all zeros), g_val, g_prior's value and gradient rows, B_d, the
+    plant step and the assembled rows against the JAX package."""
+    jenv, tenv = _pendulum_envs(name)
+    assert tenv.spec.g_idx_inputs == (0, 1, 2)
+    assert tenv.spec.pad_g == (0, 1, 2, 3)
+    xu = _points(seed=3)
+    txu, jxu = torch.as_tensor(xu), jnp.asarray(xu)
+    dg = np.random.default_rng(4).normal(size=(xu.shape[0], 2, 4))
+    pairs = [
+        (jax.vmap(jenv.f_val_jac)(jxu), tenv.f_val_jac(txu)),
+        (jax.vmap(jenv.g_val)(jenv.g_inputs(jxu)),
+         tenv.g_val(tenv.g_inputs(txu))),
+        (jax.vmap(jenv.g_prior)(jenv.g_inputs(jxu)),
+         tenv.g_prior(tenv.g_inputs(txu))),
+        (jax.vmap(jenv.B_d)(jxu), tenv.B_d(txu)),
+        (jax.vmap(jenv.discrete_dyn)(jxu[:, :2], jxu[:, 2:]),
+         tenv.discrete_dyn(txu[:, :2], txu[:, 2:])),
+        (jax.vmap(jenv.assemble_val_jac)(jxu, jnp.asarray(dg)),
+         tenv.assemble_val_jac(txu, torch.as_tensor(dg))),
+    ]
+    for ref, got in pairs:
+        assert tuple(got.shape) == tuple(np.shape(ref))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL,
+                                   rtol=TOL)
+    assert not tenv.f_val_jac(txu).any()
+    np.testing.assert_array_equal(tenv.B_d(txu[0]).numpy(), np.eye(2))
+
+
+@pytest.mark.parametrize("name", PENDULUM_CONFIGS)
+def test_pendulum_training_grid_matches_jax(name):
+    """The n_data_x^2 n_data_u grid over (x1, x2, u) and its targets."""
+    jenv, tenv = _pendulum_envs(name)
+    (jX, jY), (tX, tY) = jenv.training_grid(), tenv.training_grid()
+    assert tX.shape == (45, 3)                     # 3 x 3 x 5
+    assert tY.shape == (2, 45, 4)
+    np.testing.assert_allclose(tX, jX, atol=TOL)
+    np.testing.assert_allclose(tY, jY, atol=TOL)
+
+
+def test_pendulum_analytic_jacobians_match_autodiff():
+    """g_prior's gradient entries are the Jacobians of g_val
+    (torch.autograd through torch.func.jacfwd), and the plant step's
+    Jacobian is B_d times them."""
+    _, tenv = _pendulum_envs("params_pendulum")
+    for xu in torch.as_tensor(_points(4, seed=5)):
+        z = tenv.g_inputs(xu)
+        Jg = torch.func.jacfwd(tenv.g_val)(z)
+        np.testing.assert_allclose(tenv.g_prior(z)[:, 1:].numpy(),
+                                   Jg.numpy(), atol=TOL)
+        Jd = torch.autograd.functional.jacobian(
+            lambda v: tenv.discrete_dyn(v[:2], v[2:]), xu)
+        np.testing.assert_allclose(Jd.numpy(), Jg.numpy(), atol=TOL)
 
 
 def _car_points(n=16, seed=0):

@@ -207,6 +207,10 @@ def test_hall_check_supported_no_tighter(Ht):
     (128, 100000, 5000, False),  # the widest Schur matrix
     (128, 1, 1, True),
     (1, 1, 1, True),
+    (30, 2460, 0, True),         # hard-only: params_pendulum
+    (1, 2002, 0, True),          # params_pendulum_samples
+    (100, 800, 0, True),         # params_car_residual: 108,632 B
+    (20, 52000, 0, False),
 ])
 def test_ipm_loop_layout(nU, m_h, m_s, resident):
     """The closed loops' QPs keep their G slices and state rows in shared

@@ -234,6 +234,11 @@ def test_row_slices_tile_the_rows(m):
     (64, 4000, 400, True),      # chip_smoke's wide Schur QPs
     (20, 52000, 512, False),    # chip_smoke.WIDE_QP
     (128, 20000, 1000, False),
+    (30, 2460, 0, True),        # hard-only: params_pendulum
+    (1, 2002, 0, True),         # params_pendulum_samples
+    (1, 202, 0, True),          # the invariant configs
+    (100, 800, 0, True),        # params_car_residual
+    (20, 52000, 0, False),
 ])
 def test_prepare_layout_branches(nU, m_h, m_s, resident):
     """Both closed loops' QPs keep the prepare kernel's slices in shared
@@ -246,6 +251,8 @@ def test_prepare_layout_branches(nU, m_h, m_s, resident):
         assert lay.chunk == max(-(-m_h // 16), -(-m_s // 16))
     else:
         assert 32 <= lay.chunk <= 1024
+    if m_s == 0:   # the hard-only build stages one row input and no soft slice
+        assert lay.smem < ipm.prepare_layout(nU, m_h, 1).smem
 
 
 def test_prepare_layout_takes_every_gated_shape(monkeypatch):

@@ -67,6 +67,8 @@ def test_gp_sample_kernel_matches_plain(dev, ns, H, ty, R):
     (3, 20, 60, 180, 0),    # the car, all outputs in one launch
     (1, 70, 51, 108, 0),    # the 1D pendulum
     (2, 20, 120, 180, 0),   # the 2D pendulum (the earlier layout refused it)
+    (2, 500, 4, 180, 0),    # params_pendulum_samples (H = 1)
+    (1, 50, 3, 135, 0),     # params_pendulum1D_invariant (H = 1)
     (1, 3, 200, 150, 1),    # Ktt_i's tiles in the global workspace
     (1, 3, 300, 200, 2),    # the covariance tiles too
     (1, 2, 800, 100, 3),    # and the V' block
@@ -126,6 +128,8 @@ def _hall_problem(ns, Ht, Rr, Rh, nh, seed):
 @pytest.mark.parametrize("ns,H,ty,Rr,Rh,nh", [
     (8, 5, 3, 36, 45, 30),          # small, partly filled
     (20, 15, 4, 180, 240, 180),     # the car at its largest fill
+    (50, 1, 3, 135, 9, 3),          # params_pendulum1D_invariant (Ht = 3),
+    (50, 1, 3, 135, 9, 6),          #   SQP iterations 1 and 2
 ])
 def test_gp_hall_kernel_matches_plain(dev, ns, H, ty, Rr, Rh, nh):
     """The kernels against the plain version on the same float32 inputs:
@@ -366,6 +370,68 @@ def test_ipm_prepare_rejected_warm_start(dev, nU, mh, ms):
     assert not _prepare_vs_plain(dev, moved, ws, valid)
     moved, ws = _carried(args, 1e-3)
     assert not _prepare_vs_plain(dev, moved, ws, ~valid)
+
+
+# Hard-only QPs (m_s = 0): the shapes of the configs with no soft rows,
+# (nU, m_h, G slices resident): params_pendulum_invariant and
+# params_pendulum1D_invariant, params_pendulum_samples, params_pendulum,
+# params_car_residual, and one too wide for shared memory.
+HARD_ONLY = [(1, 202, True), (1, 2002, True), (30, 2460, True),
+             (100, 800, True), (20, 52000, False)]
+
+
+@pytest.mark.parametrize("nU,mh,resident", HARD_ONLY)
+def test_ipm_hard_only_prepare_matches_plain(dev, nU, mh, resident):
+    """The hard-only build of the prepare kernel, cold, and warm from a
+    plain solve carried to g moved by 1e-3 (accepted), field by field and
+    the choice; its layout has no soft slice."""
+    lay = ipm.prepare_layout(nU, mh, 0)
+    assert lay.resident == resident == ipm.loop_layout(nU, mh, 0).resident
+    args = ipm.seeded_qp(nU, mh, 0, 5, dev)
+    assert not _prepare_vs_plain(dev, args, None, None)
+    moved, ws = _carried(args, 1e-3)
+    assert all(ws[k].numel() == 0 for k in (1, 2, 5, 6, 7, 8, 9, 10))
+    valid = torch.ones((), dtype=torch.bool, device=dev)
+    assert _prepare_vs_plain(dev, moved, ws, valid)
+
+
+@pytest.mark.parametrize("nU,mh,resident", HARD_ONLY)
+def test_ipm_hard_only_mehrotra_matches_plain(dev, nU, mh, resident):
+    """The hard-only build of the loop kernel on the same prepared problem
+    as the plain loop, both held to the float64 solution."""
+    _mehrotra_vs_f64(dev, nU, mh, 0, resident)
+
+
+@pytest.mark.parametrize("nU,mh,resident", HARD_ONLY)
+def test_ipm_hard_only_solve_matches_plain(dev, nU, mh, resident):
+    """solve_qp_soft through both kernels, cold and then warm on the QP
+    with g moved by 1e-3: status 0, no farther from the float64 solution
+    than twice the plain float32 solver plus 1e-3 of its scale; launches
+    counted once per kernel and solve."""
+    args = ipm.seeded_qp(nU, mh, 0, 7, dev)
+    kw = (3e-5, 1e-7, 150, qp_mod.STALL_ITERS, qp_mod.STALL_RTOL,
+          qp_mod.MU_GRIND, qp_mod.WS_BAND)
+    kw64 = (1e-12, 1e-13) + kw[2:]
+    before = dict(ipm.LAUNCHES)
+    ws = wv = ws64 = None
+    for dg in (0.0, 1e-3):
+        a = list(args)
+        a[1] = args[1] + dg
+        sol = qp_mod.solve_qp_soft(*a, ws=ws, ws_valid=wv)
+        plain = qp_mod._finish(*ipm.run_full_plain(*a, ws, wv, *kw), 3e-5)
+        ex = qp_mod._finish(*ipm.run_full_plain(
+            *[x.double() for x in a], ws64, wv, *kw64), 1e-12)
+        torch.cuda.synchronize()
+        assert int(sol.status) == 0 and int(plain.status) == 0
+        assert int(ex.status) == 0
+        err_k = float((sol.z.double() - ex.z).abs().max())
+        err_p = float((plain.z.double() - ex.z).abs().max())
+        scale = 1.0 + float(ex.z.abs().max())
+        assert err_k <= 2.0 * err_p + 1e-3 * scale, (dg, err_k, err_p)
+        ws, ws64 = sol.state, ex.state
+        wv = torch.ones((), dtype=torch.bool, device=dev)
+    assert {k: ipm.LAUNCHES[k] - before[k] for k in before} == {
+        "ipm_prepare": 2, "ipm_mehrotra": 2}
 
 
 def _close(got, ref, tol):

@@ -143,16 +143,27 @@ def test_plain_ipm_warm_start_matches_pallas_interpret(monkeypatch):
     np.testing.assert_allclose(tb[0].numpy(), np.asarray(jb[0]), atol=2e-4)
 
 
-def test_ipm_gate():
-    """The kernels' limits (pallas_ipm.fused_ok's) raise, naming the limit;
-    the flagship QP is inside them."""
+def test_ipm_gate(monkeypatch):
+    """The kernels' limits raise, naming the limit: float64, no hard rows
+    (the Pallas path cannot take m_h = 0 either) and nU > 128; the
+    flagship QP is inside them, and so are the hard-only QPs (m_s = 0) of
+    the pendulum configs and the residual car, which pallas_ipm.fused_ok
+    leaves to the XLA body and the kernels take in their hard-only
+    build."""
     for args, limit in (((6, 10, 5, torch.float64), "float32"),
-                        ((6, 10, 0, torch.float32), "m_s"),
+                        ((6, 10, 0, torch.float64), "float32"),
                         ((6, 0, 5, torch.float32), "m_h"),
-                        ((200, 10, 5, torch.float32), "nU")):
+                        ((6, 0, 0, torch.float32), "m_h"),
+                        ((200, 10, 5, torch.float32), "nU"),
+                        ((129, 10, 0, torch.float32), "nU")):
         with pytest.raises(ValueError, match=limit):
             ipm.check_supported(*args)
     ipm.check_supported(17, 7174, 70, torch.float32)
+    monkeypatch.setattr(pallas_ipm, "_INTERPRET", True)   # the gate's shapes
+    assert pallas_ipm.fused_ok(17, 7174, 70, jnp.float32)
+    for nU, m_h in ((30, 2460), (1, 2002), (1, 202), (100, 800)):
+        ipm.check_supported(nU, m_h, 0, torch.float32)
+        assert not pallas_ipm.fused_ok(nU, m_h, 0, jnp.float32)
 
 
 def test_condense_forms_match_each_other_and_jax():
