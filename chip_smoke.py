@@ -112,6 +112,39 @@ the hard-constraint QP family (m_s = 0, the IPM kernels' hard-only build):
              launched), and on the first stage (and the 1D config's first
              hall stage, Ht = 3) and first QP each kernel against its plain
              version; the IPM timing at nU=1, m_h=2002, cold and warm;
+the wide QPs (128 < nU <= 256, the IPM kernels' wide builds: the Schur
+matrix in 32x32 tiles):
+16. wide   — seeded QPs at nU = 129, 200 (m_h=400, m_s=5010), 240
+             (hard-only, m_h=840) and 256 (soft and hard-only), cold, and
+             warm at 200 and 240: the three IPM checks, the kernels taking
+             as many Mehrotra iterations as the plain versions; their
+             timing;
+17. qp_car_h100 — params_car_samples' committed QP in float32, ill-
+             conditioned in the reference itself: the kernels and the plain
+             version on the card reach the same status, their best KKT
+             residual and objective excess over the float64 optimum within
+             10x of each other, beside the plain version on the CPU and
+             the 3.45 distance from float64 that the JAX package reads too;
+18. car_samples — params_car_samples at full width (ns=10, H=100, four
+             SQP iterations; GP Ht=400, R=448; QP nU=200): the golden step's
+             solve walked through the kernels (gp_sample, gp_hall at
+             nh = 400, 800 and 1200, each against the float64 posterior and
+             the plain version), the IPM checks on its cold and warm QPs;
+             its one MPC step (DEMPC.run, counters zeroed before and read
+             after, every kernel and the wide builds launched) and the same
+             step through the plain versions on the card against
+             tests/goldens/torch_oracle_car_samples.npz within twice the
+             JAX float32 path's own distance from it; the timing of the
+             four kernels at its shapes;
+19. drone  — params_drone_obstacles_approx (sampling_gpmpc_torch.approx):
+             10 pessimistic (QP nU=60, soft build) and 10 optimistic steps
+             (nU=240, the wide hard-only build) of
+             tests/goldens/torch_oracle_drone.npz, teacher-forced through
+             the kernels and through the plain versions, within twice the
+             JAX float32 path's envelope and with no more status-4 steps;
+             the IPM checks on each planner's first QP; each planner's
+             closed loop (ApproxMPC.run, counters zeroed before and read
+             after) and its ms per step against dt = 100 ms;
 then one JSON line listing the kernels, the card line, and the contract
 line {"ok": true, "device": {...}}.
 """
@@ -266,6 +299,49 @@ FS_GOLDEN = os.path.join(HERE, "tests", "goldens", "params_car_residual.npz")
 FS_REAL_TOL, FS_ENV_TOL, FS_ENV_NS = 0.25, 0.15, 256
 FS_JAX_ENV = {"replay of the golden plan": 0.213, "zero inputs": 0.184}
 FS_JAX_ENV_FACTOR = 1.2
+# The IPM kernels' wide builds (128 < nU <= 256).  Seeded QPs (nU, m_h,
+# m_s) of the kernels' family, well conditioned: the narrowest wide QP,
+# params_car_samples' row counts, the drone's optimistic planner's
+# (hard-only), the widest soft and hard-only; those in WIDE_WARM also
+# warm started (a plain solve carried to g moved by 1e-3).
+WIDE_BUILD_QPS = ((129, 600, 300), (200, 400, 5010), (240, 840, 0),
+                  (256, 1000, 400), (256, 1000, 0))
+WIDE_WARM = ((200, 400, 5010), (240, 840, 0))
+# Warm, the loop kernel alone on its prepared problem may stop one
+# Mehrotra iteration apart from the plain loop: at (240, 840, 0) an H100
+# read 5 against 6, the kernel's best KKT residual (2.27e-5) under the
+# 3e-5 exit where the plain loop's was not, float32 rounding in another
+# summation order (the whole solves took 5 and 5).
+WIDE_WARM_ITERS_SLACK = 1
+# params_car_samples' committed QP (tests/goldens/qp_car_h100.npz: nU=200,
+# m_h=400, m_s=5010) in float32.  It is ill-conditioned in the reference
+# itself: the JAX package's float32 solve and the port's plain float32
+# solve both end with status 0 after 18 iterations 3.45 from the float64
+# solution (on the CPU: JAX 3.4506, the port 3.4507; its objective 2.0e-4
+# above the float64 optimum), so the kernel is held to the plain version
+# on the card: the same status, its best KKT residual and its objective's
+# excess over the float64 optimum each within QP_CAR_FACTOR of the plain
+# version's.  A wrong factor or step is orders of magnitude off both.
+QP_CAR_GOLDEN = os.path.join(HERE, "tests", "goldens", "qp_car_h100.npz")
+QP_CAR_FACTOR = 10.0
+# params_car_samples (H = 100, ns = 10, four SQP iterations; GP Ht = 400,
+# R = 448, hall fills 400 / 800 / 1200; QP nU = 200): its one MPC step on
+# the draws of tests/goldens/torch_oracle_car_samples.npz (written by
+# tests/make_torch_car_samples_golden.py).  The plan is held to
+# ENV_FACTOR times the JAX float32 path's own distance from the float64
+# plan, read from the golden.
+CAR_SAMPLES_CONFIG = "params_car_samples"
+CAR_SAMPLES_GOLDEN = os.path.join(HERE, "tests", "goldens",
+                                  "torch_oracle_car_samples.npz")
+ENV_FACTOR = 2.0
+# The approximate drone MPC (params_drone_obstacles_approx): teacher-forced
+# pessimistic (QP nU = 60, m_h = 482, m_s = 124: the soft build) and
+# optimistic (nU = 240, m_h = 840, m_s = 0: the wide hard-only build) steps
+# of tests/goldens/torch_oracle_drone.npz (tests/make_torch_drone_golden.py)
+# held to ENV_FACTOR times the JAX float32 path's envelope in the golden.
+DRONE_CONFIG = os.path.join(HERE, "params",
+                            "params_drone_obstacles_approx.yaml")
+DRONE_GOLDEN = os.path.join(HERE, "tests", "goldens", "torch_oracle_drone.npz")
 
 
 def fail(msg):
@@ -319,9 +395,15 @@ def launch_counts():
     return {**gp_sample.LAUNCHES, **gp_hall.LAUNCHES, **ipm.LAUNCHES}
 
 
+def wide_launch_counts():
+    from sampling_gpmpc_torch.ops import ipm
+    return dict(ipm.LAUNCHES_WIDE)
+
+
 def zero_launch_counts():
     from sampling_gpmpc_torch.ops import gp_hall, gp_sample, ipm
-    for k in (gp_sample.LAUNCHES, gp_hall.LAUNCHES, ipm.LAUNCHES):
+    for k in (gp_sample.LAUNCHES, gp_hall.LAUNCHES, ipm.LAUNCHES,
+              ipm.LAUNCHES_WIDE):
         for name in k:
             k[name] = 0
 
@@ -387,6 +469,32 @@ def gp_hall_bound(ns, Ht, Rr, nh):
                   + 2 * Rr * Ht + nh ** 3 / 3 + (Ht + 1) * nh * nh
                   + Ht * (Ht + 1) * nh + 2 * Ht * nh + Ht ** 3 / 3 + Ht * Ht)
     return nbytes, flops
+
+
+def time_gp_sample(label, st):
+    """gp_sample's every-output call (the main path's) on stacked inputs,
+    beside its plain version, its bound and torch.linalg.cholesky of the
+    covariance batch (a partial yardstick)."""
+    import torch
+    from sampling_gpmpc_torch.microbench_linalg import cuda_ms
+    from sampling_gpmpc_torch.ops import gp_sample
+    no, ns, Ht, R = st["Kxm"].shape
+    t_k = cuda_ms(lambda: gp_sample.sample_empty(**st))
+    t_p = cuda_ms(lambda: gp_sample.sample_empty_plain_stacked(**st),
+                  n=5, warm=1, k=1)
+    cov_batch = (st["Ktt"].reshape(no * ns, Ht, Ht)
+                 + 1e-3 * torch.eye(Ht, device=st["Ktt"].device)).contiguous()
+    t_chol = cuda_ms(lambda: torch.linalg.cholesky(cov_batch))
+    nb, fl = gp_sample_bound(ns, Ht, R)
+    b, by = bound_ms(no * nb, no * fl)
+    print(f"[timing] gp_sample {label} (no={no}, ns={ns}, Ht={Ht}, R={R}"
+          f"): all {no} outputs in one launch {t_k:.4f} ms, plain "
+          f"{t_p:.4f} ms, bound {b:.5f} ms ({by}: {no * nb} B, "
+          f"{no * fl:.3e} flop); partial yardstick torch.linalg.cholesky "
+          f"of the ({no * ns},{Ht},{Ht}) covariance batch {t_chol:.4f} "
+          f"ms (only the factorization)", flush=True)
+    return dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by,
+                partial_library_ms=t_chol)
 
 
 def f1_stages(dev, seed=0):
@@ -500,7 +608,7 @@ def as64(kw):
 
 
 def stage_walk(tag, spec, env, hyp, hyp64, ocp, gp, gp64, st, X, U, eps,
-               per_output, ref64=False):
+               per_output, ref64=False, empty_rel_tol=None):
     """One teacher-forced solve walked SQP iteration by SQP iteration
     through the kernels.  Each iteration's GP stage is checked on the
     inputs the solve gives it (iteration 0 on the empty buffer, iteration
@@ -510,8 +618,8 @@ def stage_walk(tag, spec, env, hyp, hyp64, ocp, gp, gp64, st, X, U, eps,
     output alone, and the empty buffer through the hall stage at iteration
     1; with ``ref64`` (the 2D pendulum: GP_PEND2D_REL_TOL on its empty
     stage) the plain version is also evaluated in float64 on the same
-    inputs (gp_report's ``d64``).  Then the iteration runs and
-    feeds the next.  Returns the stage
+    inputs (gp_report's ``d64``); ``empty_rel_tol`` overrides the empty
+    stage's bar.  Then the iteration runs and feeds the next.  Returns the stage
     inputs (``empty``: every output, ``one``: output 0 alone, ``hall``:
     {fill: every output}), ``warm``: the QP of iteration 2 with its carried
     state and flag, and the errors."""
@@ -602,7 +710,8 @@ def stage_walk(tag, spec, env, hyp, hyp64, ocp, gp, gp64, st, X, U, eps,
                     "gp", spec, f"{tag} ns={spec.ns} Ht={Ht} R="
                     f"{st_in['Kxm'].shape[-1]}, all {spec.g_ny} outputs in "
                     f"one launch: output {j}", dk[j], dps[j], tubes[j],
-                    m64[:, j], GP_PEND2D_REL_TOL if ref64 else GP_REL_TOL,
+                    m64[:, j], empty_rel_tol or (
+                        GP_PEND2D_REL_TOL if ref64 else GP_REL_TOL),
                     d0=d0s[j] if ref64 else None,
                     d64=d64s[j] if ref64 else None)
                 out["gs_errs"].append(err)
@@ -647,10 +756,13 @@ def stage_walk(tag, spec, env, hyp, hyp64, ocp, gp, gp64, st, X, U, eps,
     return out
 
 
-def build_name(m_s):
-    """The IPM kernels' build a QP runs (csrc/ipm.cu's SOFT argument)."""
-    return ("soft build" if m_s else
-            "hard-only build SOFT=false, library ipm_hard")
+def build_name(m_s, nU):
+    """The IPM kernels' build a QP runs (csrc/ipm.cu's SOFT and WIDE
+    arguments) and its library."""
+    from sampling_gpmpc_torch.ops import ipm
+    return (("soft build" if m_s else "hard-only build SOFT=false")
+            + (", wide (IPM_WIDE=1)" if nU > ipm.NU_NARROW else "")
+            + f", library {ipm._library(m_s, nU)}")
 
 
 class IPMChecks:
@@ -721,20 +833,26 @@ class IPMChecks:
         return self.ipm.Prepared(d.H, d.g, d.Gth.T, d.dh[0], d.Gts.T,
                                  *d.sd[:6], d.qs[0], st, d.sch, d.scs)
 
-    def report(self, label, qp_args, ws, wv, resident=True, status=0):
+    def report(self, label, qp_args, ws, wv, resident=True, status=0,
+               prep_resident=None, iters_slack=None):
         """The three checks; ``status`` 4 for a QP that no solver can meet
         (params_pendulum1D_invariant's infeasible rows 0 <= -2.4): then the
         kernel and the plain version end with that status after the same
         iterations, at the same iterate (1e-3 of its scale), and the
-        float64 solve is not a bound."""
+        float64 solve is not a bound.  ``prep_resident``: the prepare
+        kernel's branch where it differs from the loop kernel's (a wide
+        QP's loop kernel always streams); ``iters_slack``: the kernels take
+        as many Mehrotra iterations as the plain versions, the loop kernel
+        alone on the prepared problem up to ``iters_slack`` more or fewer
+        (the wide seeded QPs)."""
         import torch
         f64 = torch.float64
         nU, m_h, m_s = (qp_args[1].shape[0], qp_args[3].shape[0],
                         qp_args[5].shape[0])
         lay = self.ipm.loop_layout(nU, m_h, m_s)
         play = self.ipm.prepare_layout(nU, m_h, m_s)
-        n_cl = self.ipm.cluster_size(m_s)
-        build = build_name(m_s)
+        n_cl = self.ipm.cluster_size(m_s, nU)
+        build = build_name(m_s, nU)
         print(f"[ipm] {label}: prepare kernel ({build}) on a cluster of "
               f"{n_cl} CTAs, "
               f"{'resident' if play.resident else 'streamed'} branch (G "
@@ -746,10 +864,17 @@ class IPMChecks:
               f"G slices and state rows "
               f"{'in shared memory' if lay.resident else 'streamed from global memory'}"
               f" ({lay.smem} B of shared memory per CTA)", flush=True)
-        # at the QPs checked here both kernels take the same branch
-        if lay.resident != resident or play.resident != resident:
+        # at the QPs checked here both kernels take the same branch, but
+        # for the wide QPs whose prepare slices fit shared memory
+        prep_resident = resident if prep_resident is None else prep_resident
+        if lay.resident != resident or play.resident != prep_resident:
             fail(f"IPM {label}: expected the "
                  f"{'resident' if resident else 'streamed'} branch")
+        if lay.group:
+            t = -(-nU // 32)
+            print(f"[ipm] {label}: wide build, the Schur matrix in "
+                  f"{t * (t + 1) // 2} lower 32x32 tiles formed {lay.group} "
+                  f"at a time, G staged {lay.chunk} rows a step", flush=True)
         k, p, ex = self.solve_pair(qp_args, ws, wv)
         du = float(torch.max(torch.abs(k.z - p.z)))
         ek = float(torch.max(torch.abs(k.z.to(f64) - ex.z)))
@@ -769,7 +894,8 @@ class IPMChecks:
               flush=True)
         if int(k.status) != status or int(p.status) != status or (
                 du if status else ek) > bound or (
-                status and int(k.iters) != int(p.iters)):
+                (status or iters_slack is not None)
+                and int(k.iters) != int(p.iters)):
             fail(f"IPM kernel {label}")
         rel_prep, d = self.prepare_report(label, qp_args, ws, wv)
         pk = self.as_prepared(d)
@@ -783,8 +909,9 @@ class IPMChecks:
               f"{int(ik)}/{int(ip)}", flush=True)
         stat_tol = tol * self.qp.STATUS_RTOL
         met = (float(rk) <= stat_tol, float(rp) <= stat_tol)
+        slack = 0 if status else iters_slack
         if du_m > bound or met != ((status == 0),) * 2 or (
-                status and int(ik) != int(ip)):
+                slack is not None and abs(int(ik) - int(ip)) > slack):
             fail(f"IPM Mehrotra kernel {label}")
         return rel_prep, du_m
 
@@ -810,8 +937,8 @@ class IPMChecks:
         branch = "resident" if lay.resident else "streamed"
         warm = bool(prep.warm[0])
         print(f"[timing] ipm prepare {label} (nU={nU}, m_h={m_h}, m_s={m_s}"
-              f"; {build_name(m_s)}, {branch} branch, cluster of "
-              f"{ipm.cluster_size(m_s)} CTAs, "
+              f"; {build_name(m_s, nU)}, {branch} branch, cluster of "
+              f"{ipm.cluster_size(m_s, nU)} CTAs, "
               f"{'warm' if warm else 'cold'} start): kernel {t_pk:.4f} ms, "
               f"plain {t_pp:.4f} ms, bound {bp:.5f} ms ({byp}: {pb} B, "
               f"{pf:.3e} flop)", flush=True)
@@ -1441,6 +1568,332 @@ def h1_phase(dev, checks):
     return res
 
 
+def wide_phase(dev, checks):
+    """The IPM kernels' wide builds on WIDE_BUILD_QPS: the three IPM checks
+    cold (and warm for WIDE_WARM), the kernels taking as many Mehrotra
+    iterations as the plain versions, and their timing."""
+    import torch
+    from sampling_gpmpc_torch.ocp import qp as qp_mod
+    from sampling_gpmpc_torch.ops import ipm
+    errs, timing = [], {}
+    valid = torch.ones((), dtype=torch.bool, device=dev)
+    kw = (checks.tol, checks.reg, 150, *checks.consts, qp_mod.WS_BAND)
+    for shape in WIDE_BUILD_QPS:
+        nU, m_h, m_s = shape
+        qp = ipm.seeded_qp(*shape, 3, dev)
+        prep_res = ipm.prepare_layout(*shape).resident
+        errs.append(checks.report(f"wide build, seeded QP {shape} cold", qp,
+                                  None, None, resident=False,
+                                  prep_resident=prep_res, iters_slack=0))
+        timing[f"nU{nU}_{m_h}_{m_s}"] = checks.timing(
+            f"wide build {shape} cold", qp, None, None)
+        if shape in WIDE_WARM:
+            sol = qp_mod._finish(*ipm.run_full_plain(*qp, None, None, *kw),
+                                 checks.tol)
+            moved = list(qp)
+            moved[1] = qp[1] + 1e-3
+            errs.append(checks.report(
+                f"wide build, seeded QP {shape} warm", moved, sol.state,
+                valid, resident=False, prep_resident=prep_res,
+                iters_slack=WIDE_WARM_ITERS_SLACK))
+            timing[f"nU{nU}_{m_h}_{m_s}_warm"] = checks.timing(
+                f"wide build {shape} warm", moved, sol.state, valid)
+    return dict(errs=errs, timing=timing)
+
+
+def qp_objective(qp, u):
+    """The soft QP's objective at u in float64, with each soft row's slacks
+    at their optimum for u (max(0, lo - G_s u), max(0, G_s u - hi)), and
+    its largest hard-row violation."""
+    import torch
+    H, g, Gh, dh, Gs, lo, hi, zl, zu, Zl, Zu = (a.double() for a in qp)
+    u = u.double()
+    gs = Gs @ u
+    sl = torch.clamp(lo - gs, min=0.0)
+    su = torch.clamp(gs - hi, min=0.0)
+    f = (0.5 * u @ H @ u + g @ u
+         + (zl * sl + 0.5 * Zl * sl * sl + zu * su + 0.5 * Zu * su * su).sum())
+    return float(f), float(torch.clamp(Gh @ u - dh, min=0.0).max())
+
+
+def qp_car_phase(dev, checks):
+    """tests/goldens/qp_car_h100.npz in float32 (QP_CAR_FACTOR): the kernels
+    and the plain version on the card, beside the plain version on the CPU
+    and the float64 solution u_ref."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch.ocp import qp as qp_mod
+    from sampling_gpmpc_torch.ops import ipm
+    g = np.load(QP_CAR_GOLDEN)
+    names = ("H", "g", "Gh", "dh", "Gs", "lo", "hi", "zl", "zu", "Zl", "Zu")
+    qp = tuple(torch.as_tensor(g[k], dtype=torch.float32, device=dev)
+               for k in names)
+    qp_cpu = tuple(a.cpu() for a in qp)
+    u_ref = torch.as_tensor(g["u_ref"], dtype=torch.float64)
+    f_ref, _ = qp_objective(qp_cpu, u_ref)
+    kw = (checks.tol, checks.reg, 150, *checks.consts, qp_mod.WS_BAND)
+    rel_prep, _ = checks.prepare_report("qp_car_h100", qp, None, None)
+    sols = {"kernel": qp_mod._finish(*ipm.run_full(*qp, None, None, *kw),
+                                     checks.tol),
+            "plain on the card": qp_mod._finish(
+                *ipm.run_full_plain(*qp, None, None, *kw), checks.tol),
+            "plain on the CPU": qp_mod._finish(
+                *ipm.run_full_plain(*qp_cpu, None, None, *kw), checks.tol)}
+    read = {}
+    for name, sol in sols.items():
+        u = sol.z.cpu().double()
+        f, viol = qp_objective(qp_cpu, u)
+        read[name] = dict(status=int(sol.status), iters=int(sol.iters),
+                          kkt=float(sol.gap),
+                          dist_f64=float(torch.max(torch.abs(u - u_ref))),
+                          excess=(f - f_ref) / abs(f_ref), hard_viol=viol)
+        print(f"[qp_car_h100] {name}: status {read[name]['status']}, "
+              f"{read[name]['iters']} iterations, best KKT "
+              f"{read[name]['kkt']:.4e}, |u - u_f64|inf "
+              f"{read[name]['dist_f64']:.4f} (the JAX float32 path on the "
+              f"CPU: 3.4506), objective {read[name]['excess']:.4e} above "
+              f"the float64 optimum (relative), hard rows violated by "
+              f"{viol:.3e}", flush=True)
+    k, p = read["kernel"], read["plain on the card"]
+    spread = abs(p["dist_f64"] - read["plain on the CPU"]["dist_f64"])
+    print(f"[qp_car_h100] the plain version's own float32 spread between the "
+          f"CPU and the card: {spread:.4e} in |u - u_f64|; bars: the same "
+          f"status, best KKT and objective excess within {QP_CAR_FACTOR}x "
+          f"the plain version's on the card", flush=True)
+    if k["status"] != p["status"] or \
+            k["kkt"] > QP_CAR_FACTOR * p["kkt"] or \
+            k["excess"] > QP_CAR_FACTOR * max(p["excess"], 1e-7):
+        fail("qp_car_h100: the kernels' float32 solve against the plain "
+             "version's")
+    return dict(read=read, rel_prep=rel_prep)
+
+
+def plan_err(X, U, gX, gU):
+    import numpy as np
+    X = X.cpu().numpy() if hasattr(X, "cpu") else np.asarray(X)
+    U = U.cpu().numpy() if hasattr(U, "cpu") else np.asarray(U)
+    return float(np.abs(X - gX).max()), float(np.abs(U - gU).max())
+
+
+def car_samples_phase(dev, checks):
+    """params_car_samples at full width (ns=10, H=100, four SQP iterations,
+    three outputs; QP nU=200, m_h=400, m_s=5010): the golden step's solve
+    walked stage by stage (gp_sample, gp_hall at nh = 400, 800, 1200, each
+    against the float64 posterior and its plain version), the IPM checks
+    on its cold and warm QPs; the one MPC step (DEMPC.run, the counts zeroed
+    before and read after) and the same step through the plain versions on
+    the card, each plan against the float64 golden; the kernels' timing at
+    its shapes."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch.config import load_problem
+    from sampling_gpmpc_torch.envs import make_env
+    from sampling_gpmpc_torch.gp.exact import GPHyperArrays
+    from sampling_gpmpc_torch.microbench_linalg import cuda_ms
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.ocp.spec import make_ocp_data
+    from sampling_gpmpc_torch.ops import gp_hall
+    f32, f64 = torch.float32, torch.float64
+    T = lambda a: torch.as_tensor(a, dtype=f32, device=dev)
+    g = np.load(CAR_SAMPLES_GOLDEN)
+    params, spec, data = load_problem(
+        os.path.join(HERE, "params", CAR_SAMPLES_CONFIG + ".yaml"))
+    if (spec.ns, spec.H, spec.max_sqp_iter, spec.num_mpc_iter) != (
+            int(g["ns"]), int(g["H"]), int(g["max_sqp_iter"]), 1):
+        fail("the car_samples golden does not match the config")
+    env = make_env(spec, params)
+    ocp = make_ocp_data(spec, data, dev, f32)
+    hyp = GPHyperArrays.from_spec(spec.gp, dev, f32)
+    hyp64 = GPHyperArrays.from_spec(spec.gp, dev, f64)
+    gp = agent.init_gp_state(spec, env, dev, f32, hyp=hyp)
+    gp64 = agent.init_gp_state(spec, env, dev, f64, hyp=hyp64)
+    eps = T(g["eps"])[0]
+    st, X0, U0 = T(g["x0"]), T(g["X0"]), T(g["U0"])
+    k = spec.max_sqp_iter
+    gX, gU = g[f"plan_X_{k}"], g[f"plan_U_{k}"]
+    env_x, env_u = plan_err(g[f"f32_plan_X_{k}"], g[f"f32_plan_U_{k}"], gX,
+                            gU)
+    tol_x, tol_u = ENV_FACTOR * env_x, ENV_FACTOR * env_u
+
+    walk = stage_walk("car_samples", spec, env, hyp, hyp64, ocp, gp, gp64,
+                      st, X0, U0, eps, per_output=False, ref64=True,
+                      empty_rel_tol=GP_REL_TOL)
+    qp0, _, _, _ = sqp.assemble_qp(spec, env, hyp, ocp, st, X0, U0,
+                                   agent.reset_hall(gp), eps[0],
+                                   hall_empty=True)
+    qpw, wsw, wvw = walk["warm"]
+    errs = [checks.report("car_samples cold, SQP iteration 0", qp0, None,
+                          None, resident=False),
+            checks.report("car_samples warm, SQP iteration 2", qpw, wsw, wvw,
+                          resident=False)]
+
+    qps = []
+    with captured_qps(qps):
+        out, launches, _ = free_run("car_samples", params, spec, data, env,
+                                    dev, epistemic=g["eps"])
+    wide = wide_launch_counts()
+    dx, du = plan_err(out["state_traj"][-1], out["input_traj"][-1], gX, gU)
+    with plain_route():
+        sp = sqp.solve(spec, env, hyp, ocp, st, X0, U0, gp, eps)
+    px, pu = plan_err(sp.X, sp.U, gX, gU)
+    kx, ku = plan_err(out["state_traj"][-1], out["input_traj"][-1],
+                      sp.X.cpu().numpy(), sp.U.cpu().numpy())
+    _, _, step_ms = free_run("car_samples", params, spec, data, env, dev,
+                             epistemic=g["eps"])
+    print(f"[car_samples] one MPC step, {out['sqp_its']} SQP iterations, "
+          f"status {out['sqp_status_traj']}, {len(qps)} QPs: plan vs the "
+          f"float64 golden max|dX| {dx:.4e} (tol {tol_x:.4f}), max|dU| "
+          f"{du:.4e} (tol {tol_u:.4f}; the JAX float32 path reads "
+          f"{env_x:.4e} / {env_u:.4e}); the plain versions on the card "
+          f"{px:.4e} / {pu:.4e}; kernels vs plain {kx:.4e} / {ku:.4e}; "
+          f"{step_ms[0]:.1f} ms (a second run, warm); launches {launches}, "
+          f"of them in the wide builds {wide}", flush=True)
+    if out["sqp_status_traj"] != [0] or dx > tol_x or du > tol_u \
+            or kx > tol_x or ku > tol_u:
+        fail("params_car_samples plan")
+    if min(launches.values()) <= 0 or min(wide.values()) <= 0 or \
+            wide["ipm_mehrotra"] != len(qps):
+        fail(f"params_car_samples launches {launches} (wide {wide}) for "
+             f"{len(qps)} QPs")
+
+    res = {"gp_sample": time_gp_sample("car_samples", walk["empty"])}
+    rows = []
+    for nh, st_in in sorted(walk["hall"].items()):
+        no, ns, Ht, Rr = st_in["Kxr"].shape
+        t_k = cuda_ms(lambda: gp_hall.sample_hall(**st_in), n=5, warm=1, k=1)
+        t_p = cuda_ms(lambda: gp_hall.sample_hall_plain_stacked(**st_in),
+                      n=3, warm=1, k=1)
+        nb, fl = gp_hall_bound(ns, Ht, Rr, nh)
+        b, by = bound_ms(no * nb, no * fl)
+        branch = "global" if gp_hall.factor_tiles_global(Ht, nh) else "shared"
+        print(f"[timing] gp_hall car_samples nh={nh} (no={no}, ns={ns}, "
+              f"Ht={Ht}, Rr={Rr}, Rh={st_in['Kxh'].shape[-1]}; factor tiles "
+              f"in {branch} memory): all {no} outputs in one launch set "
+              f"{t_k:.4f} ms (bound {b:.5f} ms, {by}), plain {t_p:.4f} ms",
+              flush=True)
+        rows.append(dict(nh=nh, tiles=branch, ms=t_k, plain_ms=t_p,
+                         bound_ms=b, bound_by=by))
+    res["gp_hall"] = rows
+    res["ipm"] = (checks.timing("car_samples cold", qp0, None, None),
+                  checks.timing("car_samples warm", qpw, wsw, wvw))
+    return dict(launches=launches, wide=wide, errs=errs, timing=res,
+                plan_err=(dx, du), ms=step_ms[0])
+
+
+def drone_phase(dev, checks):
+    """params_drone_obstacles_approx on the card, float32: the golden's
+    pessimistic and optimistic steps teacher-forced through the kernels and
+    through the plain versions, each plan against the float64 golden; the
+    IPM checks on each planner's first QP; then each planner's closed loop
+    (ApproxMPC.run on the golden's draws, the counts zeroed before and read
+    after) and its ms per step against dt."""
+    import copy
+    import numpy as np
+    import torch
+    import yaml
+    from sampling_gpmpc_torch.approx.solver import ApproxMPC
+    f32 = torch.float32
+    T = lambda a: torch.as_tensor(a, dtype=f32, device=dev)
+    g = np.load(DRONE_GOLDEN)
+    with open(DRONE_CONFIG) as fh:
+        params = yaml.safe_load(fh)
+    p_opt = copy.deepcopy(params)
+    p_opt["agent"]["run"]["optimistic"] = True
+    p_opt["agent"]["run"]["pessimistic"] = False
+    dt_ms = 1e3 * params["optimizer"]["dt"]
+    res = {}
+    for tag, prm, n in (("pessimistic", params, int(g["n_pess"])),
+                        ("optimistic", p_opt, int(g["n_opt"]))):
+        key = "pess" if tag == "pessimistic" else "opt"
+        mpc = ApproxMPC(prm, device=dev, dtype=f32)
+        env_x, env_u = plan_err(g[f"{key}_f32_X"], g[f"{key}_f32_U"],
+                                g[f"{key}_X"], g[f"{key}_U"])
+        tol_x, tol_u = ENV_FACTOR * env_x, ENV_FACTOR * env_u
+
+        def step(m):
+            wpath = T(mpc.model.path_generator(m))
+            x = T(g[f"{key}_x"][m])
+            if key == "pess":
+                d = mpc._tightening(x, T(g["pess_U0"][m]), T(g["pess_z"][m]),
+                                    mpc.post, mpc.W_nominal)
+                X, U, s = mpc._sqp_solve(x, T(g["pess_X0"][m]),
+                                         T(g["pess_U0"][m]), wpath, d,
+                                         mpc.W_nominal)
+                return X, U, int(s)
+            X0 = U0 = None
+            if m:
+                X0, U0 = (np.concatenate([g[k][m - 1][1:], g[k][m - 1][-1:]])
+                          for k in ("opt_X", "opt_U"))
+            return mpc.solve_optimistic(x, wpath=wpath, X0=X0, U0=U0)
+
+        ex, eu, kx, ku, stat = [], [], [], [], []
+        qps = []
+        for m in range(n):
+            with captured_qps(qps):
+                X, U, s = step(m)
+            with plain_route():
+                Xp, Up, sp = step(m)
+            e = plan_err(X, U, g[f"{key}_X"][m], g[f"{key}_U"][m])
+            c = plan_err(X, U, Xp.cpu().numpy(), Up.cpu().numpy())
+            ex.append(e[0])
+            eu.append(e[1])
+            kx.append(c[0])
+            ku.append(c[1])
+            stat.append((s, sp))
+        jax_stat = [int(v) for v in g[f"{key}_f32_status"]]
+        n4, n4_jax = sum(a == 4 for a, _ in stat), sum(v == 4 for v in jax_stat)
+        print(f"[drone] {tag} teacher-forced {n} steps vs the f64 golden: "
+              f"max|dX| {max(ex):.4e} (tol {tol_x:.4f}), max|dU| "
+              f"{max(eu):.4e} (tol {tol_u:.4f}; the JAX float32 path reads "
+              f"{env_x:.4e} / {env_u:.4e}); kernels vs plain versions "
+              f"{max(kx):.4e} / {max(ku):.4e}; statuses kernel/plain "
+              f"{stat}, the JAX float32 path's {jax_stat}", flush=True)
+        if max(ex) > tol_x or max(eu) > tol_u or max(kx) > tol_x \
+                or max(ku) > tol_u or n4 > n4_jax:
+            fail(f"drone {tag} teacher-forced steps")
+        # the first QP of the first step: in float32 the pessimistic one
+        # ends with status 4 (as the JAX float32 path's step 0), so the
+        # kernels are held to the plain version's status
+        (qa, _, _) = qps[0]
+        shape = tuple(qa[i].shape[0] for i in (1, 3, 5))
+        plain = checks.qp._finish(*checks.ipm.run_full_plain(
+            *qa, None, None, checks.tol, checks.reg, 150, *checks.consts,
+            checks.qp.WS_BAND), checks.tol)
+        errs = [checks.report(
+            f"drone {tag}, step 0 QP (nU, m_h, m_s) = {shape}", qa, None,
+            None, resident=checks.ipm.loop_layout(*shape).resident,
+            prep_resident=checks.ipm.prepare_layout(*shape).resident,
+            status=int(plain.status))]
+        timing = checks.timing(f"drone {tag}, step 0 QP", qa, None, None)
+
+        mpc = ApproxMPC(prm, device=dev, dtype=f32)
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        out = mpc.run(num_iters=n, draws=g["pess_z"])
+        torch.cuda.synchronize()
+        launches, wide = launch_counts(), wide_launch_counts()
+        ms = [1e3 * t for t in out["solver_time"]]
+        window = sum(ms[1:]) / (len(ms) - 1)
+        traj = np.stack(out["physical_state_traj"] + [out["final_state"]])
+        print(f"[drone] {tag} closed loop, {n} steps (ApproxMPC.run, cuda "
+              f"float32): status {out['status']}, finite "
+              f"{bool(np.isfinite(traj).all())}; ms per MPC step over steps "
+              f"1..{n - 1}: mean {window} (median {statistics.median(ms[1:])}"
+              f", max {max(ms[1:])}) against dt = {dt_ms:.0f} ms; first step "
+              f"{ms[0]:.1f}; launches {launches}, of them in the wide builds "
+              f"{wide}", flush=True)
+        need_wide = tag == "optimistic"
+        if not np.isfinite(traj).all() or launches["ipm_prepare"] <= 0 or \
+                launches["ipm_mehrotra"] <= 0 or \
+                (min(wide.values()) > 0) != need_wide:
+            fail(f"drone {tag} closed loop")
+        res[tag] = dict(launches=launches, wide=wide, errs=errs,
+                        timing=timing, ms_per_step=window, dt_ms=dt_ms,
+                        plan_err=(max(ex), max(eu)))
+    return res
+
+
 def main():
     try:
         import torch
@@ -1790,26 +2243,6 @@ def main():
 
     # ---- 10. timing at the main paths' shapes ---------------------------
     phase("timing")
-    def time_gp_sample(label, st):
-        """The every-output call (the main path's) on stacked inputs."""
-        no, ns, Ht, R = st["Kxm"].shape
-        t_k = cuda_ms(lambda: gp_sample.sample_empty(**st))
-        t_p = cuda_ms(lambda: gp_sample.sample_empty_plain_stacked(**st),
-                      n=5, warm=1, k=1)
-        cov_batch = (st["Ktt"].reshape(no * ns, Ht, Ht)
-                     + 1e-3 * torch.eye(Ht, device=dev)).contiguous()
-        t_chol = cuda_ms(lambda: torch.linalg.cholesky(cov_batch))
-        nb, fl = gp_sample_bound(ns, Ht, R)
-        b, by = bound_ms(no * nb, no * fl)
-        print(f"[timing] gp_sample {label} (no={no}, ns={ns}, Ht={Ht}, R={R}"
-              f"): all {no} outputs in one launch {t_k:.4f} ms, plain "
-              f"{t_p:.4f} ms, bound {b:.5f} ms ({by}: {no * nb} B, "
-              f"{no * fl:.3e} flop); partial yardstick torch.linalg.cholesky "
-              f"of the ({no * ns},{Ht},{Ht}) covariance batch {t_chol:.4f} "
-              f"ms (only the factorization)", flush=True)
-        return dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by,
-                    partial_library_ms=t_chol)
-
     stack1 = {k: (v[None] if k in gp_sample.STACKED and v is not None
                   else v) for k, v in gp_in.items()}
     results["gp_sample"].update(time_gp_sample("pendulum", stack1),
@@ -1941,6 +2374,44 @@ def main():
         results["ipm_mehrotra"][f"hard_only_{key}"] = cold[1]
         results["ipm_mehrotra"][f"hard_only_{key}_warm"] = warm[1]
 
+    # ==== wide QPs (128 < nU <= 256: the IPM kernels' wide builds) ========
+    # ---- 16. the wide builds on seeded QPs ------------------------------
+    phase("wide")
+    wide = wide_phase(dev, checks)
+    # ---- 17. params_car_samples' committed QP in float32 ----------------
+    phase("qp_car_h100")
+    qp_car = qp_car_phase(dev, checks)
+    # ---- 18. params_car_samples at full width ---------------------------
+    phase("car_samples")
+    car_s = car_samples_phase(dev, checks)
+    # ---- 19. the approximate drone MPC ----------------------------------
+    phase("drone")
+    drone = drone_phase(dev, checks)
+    results["gp_sample"]["car_samples"] = car_s["timing"]["gp_sample"]
+    results["gp_hall"]["car_samples_by_fill"] = car_s["timing"]["gp_hall"]
+    results["ipm_prepare"]["drone_pessimistic"] = \
+        drone["pessimistic"]["timing"][0]
+    results["ipm_mehrotra"]["drone_pessimistic"] = \
+        drone["pessimistic"]["timing"][1]
+    (cs_prep, cs_mehr), (cs_prep_w, cs_mehr_w) = car_s["timing"]["ipm"]
+    wide_errs = (wide["errs"] + car_s["errs"]
+                 + drone["optimistic"]["errs"])
+    wide_results = {
+        "ipm_prepare_wide": dict(
+            cs_prep, max_abs_err=max(e[0] for e in wide_errs),
+            err_relative_to="each field's max |plain|", library_ms=None,
+            car_samples_warm=cs_prep_w,
+            drone_optimistic=drone["optimistic"]["timing"][0],
+            seeded={k: v[0] for k, v in wide["timing"].items()},
+            qp_car_h100_rel_err=qp_car["rel_prep"]),
+        "ipm_mehrotra_wide": dict(
+            cs_mehr, max_abs_err=max(e[1] for e in wide_errs),
+            max_abs_err_seeded=max(e[1] for e in wide["errs"]),
+            library_ms=None, car_samples_warm=cs_mehr_w,
+            drone_optimistic=drone["optimistic"]["timing"][1],
+            seeded={k: v[1] for k, v in wide["timing"].items()},
+            qp_car_h100=qp_car["read"])}
+
     # ---- report -----------------------------------------------------------
     meta = {
         "gp_sample": ("csrc/gp_sample.cu",
@@ -1967,6 +2438,24 @@ def main():
             "launches_car_residual": car_res["launches"][name],
             **{f"launches_{c[7:]}": r["launches"][name]
                for c, r in h1.items()},
+            "launches_car_samples": car_s["launches"][name],
+            "launches_drone_pessimistic":
+                drone["pessimistic"]["launches"][name],
+            "launches_drone_optimistic":
+                drone["optimistic"]["launches"][name],
+            **{k: r[k] for k in keys},
+            **{k: v for k, v in r.items() if k not in keys}})
+    # the IPM kernels' wide builds: launches of the car_samples step (its
+    # main path runs them alone) and of the drone's optimistic loop
+    for name in ("ipm_prepare", "ipm_mehrotra"):
+        r = wide_results[f"{name}_wide"]
+        kernels.append({
+            "name": f"{name}_wide", "route": "cuda",
+            "source": "sampling_gpmpc_torch/csrc/ipm.cu",
+            "build": "IPM_WIDE=1 (libraries ipm_wide, ipm_hard_wide)",
+            "replaces": meta[name][1],
+            "launches": car_s["wide"][name],
+            "launches_drone_optimistic": drone["optimistic"]["wide"][name],
             **{k: r[k] for k in keys},
             **{k: v for k, v in r.items() if k not in keys}})
     # kernels 5-7: launches from the microbench (their entry point), times

@@ -13,6 +13,7 @@ import torch
 
 from sampling_gpmpc_torch import setup
 from sampling_gpmpc_torch.agent import GPState
+from sampling_gpmpc_torch.approx.blr import BLRPosterior, BLRStats
 from sampling_gpmpc_torch.gp.exact import GPHyperArrays
 from sampling_gpmpc_torch.ocp.spec import OCPData
 
@@ -69,3 +70,17 @@ def qp_warm_start(state, device=None, dtype=None) -> tuple:
     """The QP warm-start 11-tuple (u, sl, su, th, lh, tU, lU, tL, lL, nl, nu)."""
     device, dtype = setup.resolve(device, dtype)
     return tuple(_t(a, device, dtype) for a in state)
+
+
+def blr_posterior(mu, chol, mask, device=None, dtype=None) -> BLRPosterior:
+    """The approx package's BLRPosterior from the JAX one's fields."""
+    device, dtype = setup.resolve(device, dtype)
+    return BLRPosterior(mu=_t(mu, device, dtype), chol=_t(chol, device, dtype),
+                        mask=_t(mask, device, dtype))
+
+
+def blr_stats(A, b) -> BLRStats:
+    """The approx package's host-side BLRStats from the JAX one's fields
+    (per-output tuples of arrays), as float64 numpy."""
+    return BLRStats(A=tuple(np.array(a, dtype=np.float64) for a in A),
+                    b=tuple(np.array(v, dtype=np.float64) for v in b))

@@ -46,8 +46,9 @@
 // the same decisions; each CTA loads every rank's partial at once, so a
 // reduction costs about one DSMEM latency.  The nU-sized work (Jacobi
 // scaling, the Cholesky and the two triangular solves) runs redundantly in
-// each CTA (nU <= 128); up to WARP_CHOL_MAX the factor and the solves take
-// one warp, without per-row warp reductions.  256 threads a CTA, so a
+// each CTA (nU <= 128; the wide build below holds it in tiles); up to
+// WARP_CHOL_MAX the factor and the solves take one warp, without per-row
+// warp reductions.  256 threads a CTA, so a
 // thread may hold 255 registers.  Per iteration: 8
 // cluster barriers (Schur + stationarity, two directions, two step lengths,
 // mu_aff, the finiteness vote, KKT + mu).
@@ -97,6 +98,33 @@
 // This source builds two libraries (ops/build.py), each instantiating one
 // value of SOFT, so that the two compile in parallel: IPM_SOFT = 1 (the
 // default, library `ipm`) and IPM_SOFT = 0 (library `ipm_hard`).
+//
+// Wide QPs (128 < nU <= 256: params_car_samples' nU = 200, the drone's
+// optimistic planner's nU = 240) build the same source once more with
+// IPM_WIDE = 1 (libraries `ipm_wide`, `ipm_hard_wide`), so that the
+// nU <= 128 builds stay exactly as they are.  Two nU x (nU + 1) matrices per
+// CTA no longer fit shared memory (321,600 B at nU = 200 against 232,448),
+// nor do the Schur sums in registers (79 pairs a thread), so the loop
+// kernel's wide branch (MP = MP_TILES) holds the Schur matrix as the lower
+// triangle of 32 x 32 tiles (sgp::Tiles, 118,272 B at nU = 200, 152,064 B
+// at 256), with its G slices and state rows always read from global memory:
+//   Schur pass: the lower tiles go in groups of `group` tiles (as many as
+//       fit beside the rest, at most GROUP_MAX; ops/ipm.py wide_layout).
+//       For each group every CTA stages its rows of G in chunks of `chunk`
+//       rows (zero rows past nU pad the last tile), forms the group's
+//       partial tiles over its rows as 4x4 register-tiled FMA (64 threads a
+//       tile), writes them to a staging area of its own shared memory;
+//       after a cluster barrier every CTA sums H and the 16 ranks' partials
+//       in rank order through distributed shared memory into its tiles, and
+//       a second barrier frees the staging area.  Every CTA holds the same
+//       tiles, as in the narrow branch, without an nU x nU partial per CTA;
+//   factor: Jacobi scaling + reg on the tiles, then the shared blocked
+//       factor in 32-column panels (sgp::factor_panel, kernels 3-5 and 7);
+//   solves: a blocked substitution over the tiles (tiles_chol_solve): per
+//       32-row block the off-diagonal products one warp per tile, then one
+//       warp substitutes in the diagonal tile with the rows in its lanes.
+// The prepare kernel has no Schur matrix; its wide build differs only in
+// its publish buffers (PUB_PREP: 2 nU + 2 <= 514 floats).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -106,24 +134,38 @@ namespace cg = cooperative_groups;
 #ifndef IPM_SOFT
 #define IPM_SOFT 1
 #endif
+#ifndef IPM_WIDE
+#define IPM_WIDE 0
+#endif
 
 namespace {
 
 constexpr bool kSoft = IPM_SOFT != 0;   // the kernels' build in this library
+constexpr bool kWide = IPM_WIDE != 0;   // 128 < nU <= 256 (else 1 <= nU <= 128)
+constexpr int NU_LO = kWide ? 129 : 1, NU_HI = kWide ? 256 : 128;
 
 constexpr int NT_LOOP = 256;    // loop kernel: up to 255 registers a thread
 // Schur pairs per thread: ceil(nU (nU + 1) / 2 / NT_LOOP); the loop kernel
 // is instantiated for up to 3 (nU <= 38: the closed loops' QPs, few
-// registers) and for up to 33 (nU <= 128)
+// registers) and for up to 33 (nU <= 128); MP_TILES is the wide branch
 constexpr int MAXP_SMALL = 3;
 constexpr int MAXP = 33;
+constexpr int MP_TILES = 0;
 constexpr int CL = 16;            // CTAs of the cluster that runs one QP
 // One-warp Cholesky and solves up to this nU (one row a lane), the
 // block-wide ones above it: on the H100 the one-warp path is the faster at
 // both closed loops' nU (17 and 30), the block-wide one runs for nU > 32.
 constexpr int WARP_CHOL_MAX = 32;
-constexpr int PUB = 136;  // floats of one publish buffer: nU + 2 <= 130
+// floats of one publish buffer: nU + 2 <= 130 (wide: <= 258)
+constexpr int PUB = kWide ? 264 : 136;
 constexpr int SMEM_OPT_IN = 232448;
+using sgp::TB;
+using sgp::TLD;
+using sgp::TILE_FLOATS;
+// wide branch: at most this many Schur tiles per group, 64 jobs of 4x4
+// outputs a tile, so JOBS per thread
+constexpr int GROUP_MAX = 16;
+constexpr int JOBS = GROUP_MAX * 64 / NT_LOOP;
 
 // out[p] = sum_i G[p*ld + i] v[i] over rows i < rows: one warp per p,
 // lanes along the rows.
@@ -230,6 +272,116 @@ __device__ void schur_acc(const float* __restrict__ G, int ld,
     }
   }
   __syncthreads();
+}
+
+// Wide branch: acc[j] += this CTA's partial of the lower tiles [g0, g0 +
+// ng) over its rows i < m, sum_i (G[p][i] w[i]) G[q][i].  Job j of a thread
+// is job tid + j NT_LOOP: tile g0 + job / 64, outputs (ty + 8u, tx + 8v) of
+// it, ty, tx = (job % 64) / 8, % 8.  `chunk` rows of G are staged at a time
+// in sG (npad x (chunk + 1), rows past nU zero), their weights in sW.
+__device__ __forceinline__ void schur_tiles_acc(const float* __restrict__ G, int ld,
+                                const float* __restrict__ w, int nU, int npad,
+                                int m, int chunk, float* sG, float* sW, int g0,
+                                int ng, float (&acc)[JOBS][16]) {
+  const int tid = threadIdx.x, nt = blockDim.x, ldc = chunk + 1;
+  int ra[JOBS], rb[JOBS];         // first staged row of each job's p and q
+#pragma unroll
+  for (int j = 0; j < JOBS; ++j) {
+    const int job = tid + j * NT_LOOP;
+    int I = 0, J = 0;
+    if (job < ng * 64) sgp::lower_tile(g0 + job / 64, I, J);
+    ra[j] = (I * TB + (job % 64) / 8) * ldc;
+    rb[j] = (J * TB + job % 8) * ldc;
+  }
+  for (int i0 = 0; i0 < m; i0 += chunk) {
+    const int cn = min(chunk, m - i0);
+    __syncthreads();
+    for (int e = tid; e < npad * cn; e += nt) {
+      const int p = e / cn, c = e - p * cn;
+      sG[p * ldc + c] = p < nU ? G[(size_t)p * ld + i0 + c] : 0.f;
+    }
+    for (int c = tid; c < cn; c += nt) sW[c] = w[i0 + c];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < JOBS; ++j) {
+      if (tid + j * NT_LOOP < ng * 64) {
+        const float* a = sG + ra[j];
+        const float* b = sG + rb[j];
+        for (int c = 0; c < cn; ++c) {
+          const float wc = sW[c];
+          float pa[4], pb[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) pa[u] = a[8 * u * ldc + c] * wc;
+#pragma unroll
+          for (int v = 0; v < 4; ++v) pb[v] = b[8 * v * ldc + c];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[j][u * 4 + v] = fmaf(pa[u], pb[v], acc[j][u * 4 + v]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Solve L L' x = b in place (x holds b, zero from n to the last whole
+// tile), L the lower factor held in tiles, by the whole block: a blocked
+// substitution one 32-row block at a time, forward then backward.  Per
+// block the products with the blocks already solved take one warp per
+// tile (lane r owns row r of the block), summed into `part` (32 floats a
+// warp) and then in warp order; one warp then substitutes in the diagonal
+// tile with the block's rows in its lanes (x_j passes by a shuffle).  Two
+// block barriers per block.
+__device__ void tiles_chol_solve(const sgp::Tiles& M, int n, float* x, float* part) {
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, nw = blockDim.x >> 5;
+  const int nb = (n + TB - 1) / TB;
+  for (int K = 0; K < nb; ++K) {                // L y = b
+    float acc = 0.f;
+    for (int J = w; J < K; J += nw) {
+      const float* T = M.tile(K, J) + lane * TLD;
+      const float* xj = x + J * TB;
+      for (int c = 0; c < TB; ++c) acc = fmaf(T[c], xj[c], acc);
+    }
+    part[w * TB + lane] = acc;
+    __syncthreads();
+    if (w == 0) {
+      const int nc = min(TB, n - K * TB);
+      float b = x[K * TB + lane];
+      for (int q = 0; q < min(nw, K); ++q) b -= part[q * TB + lane];
+      const float* D = M.tile(K, K);
+      for (int j = 0; j < nc; ++j) {
+        const float yj = __shfl_sync(0xffffffffu, b, j) / D[j * TLD + j];
+        if (lane == j) b = yj;
+        else if (lane > j) b = fmaf(-D[lane * TLD + j], yj, b);
+      }
+      if (lane < nc) x[K * TB + lane] = b;
+    }
+    __syncthreads();
+  }
+  for (int K = nb - 1; K >= 0; --K) {           // L' x = y
+    float acc = 0.f;
+    for (int I = K + 1 + w; I < nb; I += nw) {
+      const float* T = M.tile(I, K) + lane;     // column `lane` of tile (I, K)
+      const float* xi = x + I * TB;
+      for (int c = 0; c < TB; ++c) acc = fmaf(T[c * TLD], xi[c], acc);
+    }
+    part[w * TB + lane] = acc;
+    __syncthreads();
+    if (w == 0) {
+      const int nc = min(TB, n - K * TB);
+      float b = x[K * TB + lane];
+      for (int q = 0; q < min(nw, nb - K - 1); ++q) b -= part[q * TB + lane];
+      const float* D = M.tile(K, K);
+      for (int j = nc - 1; j >= 0; --j) {
+        const float xj = __shfl_sync(0xffffffffu, b, j) / D[j * TLD + j];
+        if (lane == j) b = xj;
+        else if (lane < j) b = fmaf(-D[j * TLD + lane], xj, b);
+      }
+      if (lane < nc) x[K * TB + lane] = b;
+    }
+    __syncthreads();
+  }
 }
 
 // Reduce one value per thread over the whole block with one barrier; every
@@ -411,7 +563,9 @@ __device__ __forceinline__ float hard_b(const float* h, const float* ca, int m_h
 
 // One QP on one cluster.  `resident`: G slices and state rows in shared
 // memory (else read from global memory, `work` holding the state rows);
-// MP: Schur pairs per thread; SOFT = false: the hard-only QP (m_s = 0, the
+// MP: Schur pairs per thread, or MP_TILES: the wide branch (the Schur
+// matrix in lower tiles, formed `group` tiles at a time; always streamed);
+// SOFT = false: the hard-only QP (m_s = 0, the
 // XLA body of ocp/qp.py::solve_qp_soft with its `if m_s` terms absent:
 // m_total = m_h, no soft residual, Schur weight, direction or step pair).
 template <int MP, bool SOFT>
@@ -423,18 +577,27 @@ ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
                     const float* __restrict__ qs, float* bu, float* bh, float* bs,
                     float* bres, int* bit, float* work, int nU, int m_h, int m_s,
                     float tol, float reg, int max_iter, int stall_iters,
-                    float stall_rtol, float mu_grind, int chunk, int resident) {
+                    float stall_rtol, float mu_grind, int chunk, int resident,
+                    int group) {
+  constexpr bool kTiles = MP == MP_TILES;
+  if (kTiles) resident = 0;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int tid = threadIdx.x, nt = blockDim.x, ldm = nU + 1, nv = nU + 8;
+  const int ntile = (nU + TB - 1) / TB, ntl = ntile * (ntile + 1) / 2;
+  const int npad = ntile * TB;             // tiles: nU padded to whole tiles
+  const int tid = threadIdx.x, nt = blockDim.x, ldm = nU + 1;
+  const int nv = (kTiles ? npad : nU) + 8;
   const RowSlice rs = row_slice<SOFT>(m_h, m_s, rank);
   const int hb = rs.hb, nh = rs.nh, sb = rs.sb, ns = rs.ns;
   const int hmax = (m_h + CL - 1) / CL, smax = SOFT ? (m_s + CL - 1) / CL : 0;
 
   extern __shared__ float sm[];
-  float* sM = sm;                          // nU x ldm: Schur, then its factor
-  float* sP = sM + nU * ldm;               // nU x ldm: this CTA's Schur partial
-  float* pub = sP + nU * ldm;              // 2 x PUB: published partials
+  // nU x ldm: Schur, then its factor (tiles: ntl lower tiles)
+  float* sM = sm;
+  // nU x ldm: this CTA's Schur partial (tiles: `group` partial tiles)
+  float* sP = sM + (kTiles ? ntl * TILE_FLOATS : nU * ldm);
+  float* pub = sP + (kTiles ? group * TILE_FLOATS : nU * ldm);   // 2 x PUB
+  const sgp::Tiles Mt{sM};
   float* su = pub + 2 * PUB;               // current u (nv each from here)
   float* sdA = su + nv;                    // affine du
   float* sdC = sdA + nv;                   // corrector du
@@ -471,8 +634,8 @@ ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
       gs = sGs;
     }
   } else {
-    sG = tail;                             // nU x (chunk+1)
-    sW = sG + nU * (chunk + 1);            // chunk
+    sG = tail;                             // nU (tiles: npad) x (chunk+1)
+    sW = sG + (kTiles ? npad : nU) * (chunk + 1);   // chunk
     st = work + 9 * (size_t)hb + 36 * (size_t)sb;
     gh = Gth + hb; ldh = m_h;
     if (SOFT) { gs = Gts + sb; lds = m_s; }
@@ -495,7 +658,7 @@ ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
   const float* sdl = SOFT ? sd + sb : nullptr;   // row blocks of stride m_s
   const float qscale = qs[0], mu0 = qscale;
   const float m_total = (float)(SOFT ? m_h + 4 * m_s : m_h);
-  const Pairs<MP> pr(nU);
+  const Pairs<kTiles ? 1 : MP> pr(kTiles ? 0 : nU);
 
   for (int i = tid; i < nh; i += nt) {
     ch[i] = h0[hb + i];
@@ -620,47 +783,110 @@ ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
       sxg[10 * ns + j] = w_U + w_L - w_U * w_U / Du - w_L * w_L / Dl;
     }
     stationarity_partial(sr1);   // its first barrier publishes wh and sxg
-    float acc[MP];
+    if constexpr (kTiles) {
+      // the Schur tiles, `group` at a time: this CTA's partials to its
+      // staging area sP, then H plus every rank's partials in rank order
+      for (int g0 = 0; g0 < ntl; g0 += group) {
+        const int ng = min(group, ntl - g0);
+        float acc[JOBS][16];
 #pragma unroll
-    for (int j = 0; j < MP; ++j) acc[j] = 0.f;
-    schur_acc(gh, ldh, wh, nU, nh, resident, chunk, sG, sW, pr, acc);
-    if (SOFT) schur_acc(gs, lds, sxg + 10 * ns, nU, ns, resident, chunk, sG, sW, pr, acc);
+        for (int j = 0; j < JOBS; ++j)
 #pragma unroll
-    for (int j = 0; j < MP; ++j)
-      if (j < pr.n) sP[pr.p[j] * ldm + pr.q[j]] = acc[j];
-    // the cluster barrier of this reduction also publishes every sP
-    cluster_reduce(sr1, nU, nU, 0);
-    for (int p = tid; p < nU; p += nt) sr1[p] = h_row(H, su, nU, p) + g[p] + sr1[p];
+          for (int k = 0; k < 16; ++k) acc[j][k] = 0.f;
+        schur_tiles_acc(gh, ldh, wh, nU, npad, nh, chunk, sG, sW, g0, ng, acc);
+        if (SOFT)
+          schur_tiles_acc(gs, lds, sxg + 10 * ns, nU, npad, ns, chunk, sG, sW, g0, ng, acc);
 #pragma unroll
-    for (int j = 0; j < MP; ++j)
-      if (j < pr.n) {
-        const int o = pr.p[j] * ldm + pr.q[j];
-        float x[CL];
+        for (int j = 0; j < JOBS; ++j) {
+          const int job = tid + j * NT_LOOP;
+          if (job < ng * 64) {
+            float* O = sP + (job / 64) * TILE_FLOATS;
+            const int ty = (job % 64) / 8, tx = job % 8;
 #pragma unroll
-        for (int r = 0; r < CL; ++r) x[r] = cluster.map_shared_rank(sP, r)[o];
-        float s = H[pr.p[j] * nU + pr.q[j]];
+            for (int u = 0; u < 4; ++u)
 #pragma unroll
-        for (int r = 0; r < CL; ++r) s += x[r];
-        sM[o] = s;
+              for (int v = 0; v < 4; ++v) O[(ty + 8 * u) * TLD + tx + 8 * v] = acc[j][u * 4 + v];
+          }
+        }
+        cluster.sync();                    // publishes every rank's partials
+        for (int e = tid; e < ng * TB * TB; e += nt) {
+          const int q = e / (TB * TB), r = (e / TB) % TB, c = e % TB;
+          int I, J;
+          sgp::lower_tile(g0 + q, I, J);
+          const int o = q * TILE_FLOATS + r * TLD + c;
+          float x[CL];
+#pragma unroll
+          for (int k = 0; k < CL; ++k) x[k] = cluster.map_shared_rank(sP, k)[o];
+          const int p = I * TB + r, pq = J * TB + c;
+          float s = (p < nU && pq < nU) ? H[p * nU + pq] : 0.f;
+#pragma unroll
+          for (int k = 0; k < CL; ++k) s += x[k];
+          Mt.tile(I, J)[r * TLD + c] = s;
+        }
+        cluster.sync();                    // no rank rewrites sP while read
       }
-    __syncthreads();
-    for (int p = tid; p < nU; p += nt) {
-      const float d = sM[p * ldm + p];
-      sinv[p] = 1.0f / sqrtf(d < 1e-30f ? 1e-30f : d);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < MP; ++j)
-      if (j < pr.n) {
-        const int p = pr.p[j], q = pr.q[j];
-        sM[p * ldm + q] = sinv[p] * sM[p * ldm + q] * sinv[q] + (p == q ? reg : 0.f);
+      cluster_reduce(sr1, nU, nU, 0);
+      for (int p = tid; p < nU; p += nt) sr1[p] = h_row(H, su, nU, p) + g[p] + sr1[p];
+      for (int p = tid; p < nU; p += nt) {
+        const float d = Mt.at(p, p);
+        sinv[p] = 1.0f / sqrtf(d < 1e-30f ? 1e-30f : d);
       }
-    if (nU <= WARP_CHOL_MAX) {
       __syncthreads();
-      if (tid < 32) chol_warp32(sM, ldm, nU, lbuf);
+      for (int e = tid; e < ntl * TB * TB; e += nt) {
+        const int q = e / (TB * TB), r = (e / TB) % TB, c = e % TB;
+        int I, J;
+        sgp::lower_tile(q, I, J);
+        const int p = I * TB + r, pq = J * TB + c;
+        if (p < nU && pq < nU) {
+          float& v = Mt.tile(I, J)[r * TLD + c];
+          v = sinv[p] * v * sinv[pq] + (p == pq ? reg : 0.f);
+        }
+      }
       __syncthreads();
+      for (int k = 0; k < ntile; ++k) sgp::factor_panel(Mt, k, nU);   // ends in a barrier
     } else {
-      sgp::chol_lower(sM, nU, ldm, lbuf);
+      float acc[MP];
+#pragma unroll
+      for (int j = 0; j < MP; ++j) acc[j] = 0.f;
+      schur_acc(gh, ldh, wh, nU, nh, resident, chunk, sG, sW, pr, acc);
+      if (SOFT) schur_acc(gs, lds, sxg + 10 * ns, nU, ns, resident, chunk, sG, sW, pr, acc);
+#pragma unroll
+      for (int j = 0; j < MP; ++j)
+        if (j < pr.n) sP[pr.p[j] * ldm + pr.q[j]] = acc[j];
+      // the cluster barrier of this reduction also publishes every sP
+      cluster_reduce(sr1, nU, nU, 0);
+      for (int p = tid; p < nU; p += nt) sr1[p] = h_row(H, su, nU, p) + g[p] + sr1[p];
+#pragma unroll
+      for (int j = 0; j < MP; ++j)
+        if (j < pr.n) {
+          const int o = pr.p[j] * ldm + pr.q[j];
+          float x[CL];
+#pragma unroll
+          for (int r = 0; r < CL; ++r) x[r] = cluster.map_shared_rank(sP, r)[o];
+          float s = H[pr.p[j] * nU + pr.q[j]];
+#pragma unroll
+          for (int r = 0; r < CL; ++r) s += x[r];
+          sM[o] = s;
+        }
+      __syncthreads();
+      for (int p = tid; p < nU; p += nt) {
+        const float d = sM[p * ldm + p];
+        sinv[p] = 1.0f / sqrtf(d < 1e-30f ? 1e-30f : d);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < MP; ++j)
+        if (j < pr.n) {
+          const int p = pr.p[j], q = pr.q[j];
+          sM[p * ldm + q] = sinv[p] * sM[p * ldm + q] * sinv[q] + (p == q ? reg : 0.f);
+        }
+      if (nU <= WARP_CHOL_MAX) {
+        __syncthreads();
+        if (tid < 32) chol_warp32(sM, ldm, nU, lbuf);
+        __syncthreads();
+      } else {
+        sgp::chol_lower(sM, nU, ldm, lbuf);
+      }
     }
   };
 
@@ -680,12 +906,18 @@ ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
     gt_partial(tmph, tmps, -1.f, sx);
     cluster_reduce(sx, nU, nU, 0);
     for (int p = tid; p < nU; p += nt) sx[p] = sinv[p] * (-sr1[p] + sx[p]);
-    __syncthreads();
-    if (tid < 32) {
-      if (nU <= WARP_CHOL_MAX) chol_solve_warp32(sM, ldm, nU, lbuf, sx);
-      else chol_solve_warp(sM, ldm, nU, sx);
+    if constexpr (kTiles) {
+      for (int p = nU + tid; p < npad; p += nt) sx[p] = 0.f;
+      __syncthreads();
+      tiles_chol_solve(Mt, nU, sx, lbuf);   // ends in a barrier
+    } else {
+      __syncthreads();
+      if (tid < 32) {
+        if (nU <= WARP_CHOL_MAX) chol_solve_warp32(sM, ldm, nU, lbuf, sx);
+        else chol_solve_warp(sM, ldm, nU, sx);
+      }
+      __syncthreads();
     }
-    __syncthreads();
     for (int p = tid; p < nU; p += nt) du[p] = sinv[p] * sx[p];
     __syncthreads();
     for (int i = tid; i < nh; i += nt) {
@@ -791,7 +1023,8 @@ ipm_mehrotra_kernel(const float* __restrict__ H, const float* __restrict__ g,
 // the loop kernel's row slices.
 
 constexpr int NT_PREP = 512;
-constexpr int PUB_PREP = 264;   // floats of one publish buffer: 2 nU + 2 <= 258
+// floats of one publish buffer: 2 nU + 2 <= 258 (wide: <= 514)
+constexpr int PUB_PREP = kWide ? 520 : 264;
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -1228,8 +1461,12 @@ int co_schedules(K* kernel, int threads) {
 // co-schedule a cluster of 16 CTAs of every build of both in this library
 // at the largest shared memory; else 0, or a negative cudaError_t.
 extern "C" int ipm_cluster_size() {
+#if IPM_WIDE
+  const int ok[3] = {co_schedules(ipm_mehrotra_kernel<MP_TILES, kSoft>, NT_LOOP),
+#else
   const int ok[4] = {co_schedules(ipm_mehrotra_kernel<MAXP_SMALL, kSoft>, NT_LOOP),
                      co_schedules(ipm_mehrotra_kernel<MAXP, kSoft>, NT_LOOP),
+#endif
                      co_schedules(ipm_prepare_kernel<true, kSoft>, NT_PREP),
                      co_schedules(ipm_prepare_kernel<false, kSoft>, NT_PREP)};
   for (int v : ok)
@@ -1248,7 +1485,7 @@ extern "C" int ipm_prepare(const float* H, const float* g, const float* Gh,
                            float* qs, float* sch, float* scs, int* warm, int nU, int m_h,
                            int m_s, float ws_floor, float ws_cap, int chunk, int resident,
                            int smem_bytes, void* stream) {
-  if (nU < 1 || nU > 128 || m_h < 1 || (m_s > 0) != kSoft || 2 * nU + 2 > PUB_PREP ||
+  if (nU < NU_LO || nU > NU_HI || m_h < 1 || (m_s > 0) != kSoft || 2 * nU + 2 > PUB_PREP ||
       (!resident && chunk < 1))
     return (int)cudaErrorInvalidValue;
   auto kernel = resident ? ipm_prepare_kernel<true, kSoft> : ipm_prepare_kernel<false, kSoft>;
@@ -1271,13 +1508,20 @@ extern "C" int ipm_mehrotra(const float* H, const float* g, const float* Gth,
                             float* bu, float* bh, float* bs, float* bres, int* bit,
                             float* work, int nU, int m_h, int m_s, float tol, float reg,
                             int max_iter, int stall_iters, float stall_rtol,
-                            float mu_grind, int chunk, int resident, int smem_bytes,
-                            void* stream) {
-  if (nU < 1 || nU > 128 || m_h < 1 || (m_s > 0) != kSoft || nU + 2 > PUB)
+                            float mu_grind, int chunk, int resident, int group,
+                            int smem_bytes, void* stream) {
+  if (nU < NU_LO || nU > NU_HI || m_h < 1 || (m_s > 0) != kSoft || nU + 2 > PUB)
     return (int)cudaErrorInvalidValue;
+#if IPM_WIDE
+  // the wide branch streams its slices and forms 1..GROUP_MAX tiles a group
+  if (resident || chunk < 1 || group < 1 || group > GROUP_MAX)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = ipm_mehrotra_kernel<MP_TILES, kSoft>;
+#else
   const bool small = nU * (nU + 1) / 2 <= MAXP_SMALL * NT_LOOP;
   auto kernel = small ? ipm_mehrotra_kernel<MAXP_SMALL, kSoft>
                       : ipm_mehrotra_kernel<MAXP, kSoft>;
+#endif
   cudaError_t err = cluster_attributes(kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
@@ -1285,7 +1529,7 @@ extern "C" int ipm_mehrotra(const float* H, const float* g, const float* Gth,
       cluster_config(smem_bytes, NT_LOOP, (cudaStream_t)stream, attr);
   err = cudaLaunchKernelEx(&cfg, kernel, H, g, Gth, dh, Gts, sd, h0, s0, qs, bu, bh, bs,
                            bres, bit, work, nU, m_h, m_s, tol, reg, max_iter, stall_iters,
-                           stall_rtol, mu_grind, chunk, resident);
+                           stall_rtol, mu_grind, chunk, resident, group);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,10 @@ For seeded QPs (``ops/ipm.seeded_qp``) at the closed loops' shapes
 (pendulum nU=17, m_h=7174, m_s=70; car nU=30, m_h=60, m_s=2480), at the
 seeded wide QPs ``chip_smoke.py`` checks and at the hard-only loops'
 shapes (m_s = 0: params_pendulum nU=30, m_h=2460; params_pendulum_samples
-nU=1, m_h=2002; params_car_residual nU=100, m_h=800), cold and warm
-started (the
+nU=1, m_h=2002; params_car_residual nU=100, m_h=800) and at the wide
+builds' shapes (128 < nU <= 256: nU=129; params_car_samples' nU=200,
+m_h=400, m_s=5010; the drone's optimistic nU=240, m_h=840, m_s=0; nU=256
+soft and hard-only), cold and warm started (the
 carried state of a plain solve, with g moved by 1e-3, so the warm start is
 accepted), it times ``ipm.prepare`` and ``ipm.mehrotra`` by the mean
 device duration of their kernels under ``torch.profiler`` over N calls:
@@ -21,6 +23,7 @@ It uses only ``ipm.prepare``, ``ipm.mehrotra``, ``ipm.seeded_qp`` and
 ``ipm.run_full_plain``, so the same file times another checkout's kernels
 when that checkout comes first on the path:
     PYTHONPATH=<checkout> python sampling_gpmpc_torch/microbench_ipm.py
+(a checkout whose kernels refuse a shape prints it as refused).
 Needs a GPU.
 """
 
@@ -33,7 +36,9 @@ import time
 import torch
 
 QPS = ((17, 7174, 70), (30, 60, 2480), (20, 52000, 512), (64, 4000, 400),
-       (128, 20000, 1000), (30, 2460, 0), (1, 2002, 0), (100, 800, 0))
+       (128, 20000, 1000), (30, 2460, 0), (1, 2002, 0), (100, 800, 0),
+       (129, 600, 300), (200, 400, 5010), (240, 840, 0), (256, 1000, 400),
+       (256, 1000, 0))
 
 
 def device_us(fn, name: str, n: int) -> float:
@@ -63,6 +68,12 @@ def run(n: int = 50) -> list:
     consts = kw[3:6]
     rows = []
     for shape in QPS:
+        try:
+            ipm.check_supported(*shape, torch.float32)
+        except ValueError as e:
+            print(f"[ipm] nU={shape[0]} m_h={shape[1]} m_s={shape[2]}: "
+                  f"refused ({e})", flush=True)
+            continue
         args = ipm.seeded_qp(*shape, 5, dev)
         sol = qp_mod._finish(*ipm.run_full_plain(*args, None, None, *kw),
                              3e-5)

@@ -3,8 +3,10 @@
 Each library compiles with one ``nvcc`` from one source into a shared
 library with a plain C interface, loaded with ``ctypes``: no PyTorch
 headers, so a build takes seconds.  ``ipm_hard`` is ``ipm.cu`` built with
-``-DIPM_SOFT=0`` (the IPM kernels' hard-only instances), so the two halves
-of the IPM kernels compile in parallel.  Libraries land in ``build/`` at
+``-DIPM_SOFT=0`` (the IPM kernels' hard-only instances), and ``ipm_wide`` /
+``ipm_hard_wide`` the same two with ``-DIPM_WIDE=1`` (their wide branch,
+128 < nU <= 256), so the four builds of the IPM kernels compile in
+parallel.  Libraries land in ``build/`` at
 the repository root, named by a hash of the source, the shared header and
 the flags, so an edited source rebuilds and an unchanged one is reused.
 Nothing is built when a module is imported: the first launch builds, or
@@ -25,10 +27,12 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build")
-SOURCES = ("gp_sample", "gp_hall", "ipm", "ipm_hard", "batch_linalg",
-           "batched_chol")
+SOURCES = ("gp_sample", "gp_hall", "ipm", "ipm_hard", "ipm_wide",
+           "ipm_hard_wide", "batch_linalg", "batched_chol")
 # library -> (source in csrc/, extra nvcc flags); the rest build name.cu
-VARIANTS = {"ipm_hard": ("ipm", ("-DIPM_SOFT=0",))}
+VARIANTS = {"ipm_hard": ("ipm", ("-DIPM_SOFT=0",)),
+            "ipm_wide": ("ipm", ("-DIPM_WIDE=1",)),
+            "ipm_hard_wide": ("ipm", ("-DIPM_SOFT=0", "-DIPM_WIDE=1"))}
 SMEM_MAX = 232448          # H100 opt-in dynamic shared memory per block (227 KB)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -29,10 +29,12 @@ scale_s)`` — the scaled best iterate ``(u, sl, su, th, lh, tU, lU, tL, lL,
 nl, nu)`` — for ``ocp/qp.py::_finish``.  It runs :func:`run_full_plain` for
 CPU tensors and the two kernels (``csrc/ipm.cu``) for CUDA tensors, never
 falling back: a CUDA problem the kernels cannot take (float64, no hard
-rows, nU > 128) raises, naming the limit (:func:`check_supported`).  A QP
+rows, nU > 256) raises, naming the limit (:func:`check_supported`).  A QP
 with no soft rows (m_s = 0) runs the kernels' hard-only build, the
 counterpart of the JAX package's XLA body for it (``pallas_ipm.fused_ok``
-refuses m_s = 0).
+refuses m_s = 0).  A wide QP (128 < nU <= 256, which ``fused_ok`` refuses
+too) runs the wide builds, whose loop kernel holds the Schur matrix in
+32 x 32 tiles (:func:`loop_layout`); nU <= 128 takes the narrow builds.
 """
 
 from __future__ import annotations
@@ -45,14 +47,18 @@ import torch
 from sampling_gpmpc_torch.ops import build
 
 LAUNCHES = {"ipm_prepare": 0, "ipm_mehrotra": 0}
-NU_MAX = 128
+# the launches of LAUNCHES that went to the wide builds (nU > NU_NARROW)
+LAUNCHES_WIDE = {"ipm_prepare": 0, "ipm_mehrotra": 0}
+NU_MAX = 256         # the wide builds' limit
+NU_NARROW = 128      # the narrow builds' limit
 
 
 def check_supported(nU: int, m_h: int, m_s: int, dtype) -> None:
     """Raise ValueError naming the limit when the kernels cannot take a
     problem: float32 only, hard rows present (the Pallas path cannot take
     m_h = 0 either), and a Schur matrix small enough for one CTA's shared
-    memory.  m_s = 0 takes the kernels' hard-only build."""
+    memory as tiles (nU <= 256).  m_s = 0 takes the kernels' hard-only
+    build."""
     if dtype != torch.float32:
         raise ValueError(f"ipm kernels take float32 only, got {dtype}; "
                          "solve float64 problems with device='cpu'")
@@ -369,7 +375,12 @@ def _schur_chunk(nU: int) -> int:
 
 PUB = 136            # floats of one publish buffer of the loop kernel
 PUB_PREP = 264       # ... and of the prepare kernel (csrc/ipm.cu)
+PUB_WIDE = 264       # ... of the wide builds' loop kernel
+PUB_PREP_WIDE = 520  # ... and prepare kernel
 CLUSTER = 16         # CTAs of the cluster that runs one QP (csrc/ipm.cu)
+TILE_FLOATS = 32 * 33      # one 32 x 32 Schur tile at row stride 33
+WIDE_CHUNK = 32      # rows of G staged per step of the wide Schur pass
+GROUP_MAX = 16       # Schur tiles per group of the wide pass (csrc/ipm.cu)
 
 
 class LoopLayout(NamedTuple):
@@ -377,6 +388,24 @@ class LoopLayout(NamedTuple):
     resident: bool       # G slices and state rows in shared memory
     chunk: int           # rows of G staged per Schur pass when streamed
     smem: int            # dynamic shared memory of each CTA, bytes
+    group: int = 0       # wide branch: Schur tiles formed per group
+
+
+def wide_layout(nU: int) -> LoopLayout:
+    """The wide branch (128 < nU <= 256): the Schur matrix as its t (t + 1)
+    / 2 lower 32 x 32 tiles, t = ceil(nU / 32), beside the publish buffers,
+    eight vectors of 32 t + 8, the factor scratch and a staged chunk of G
+    (32 t rows of WIDE_CHUNK + 1); the rest of the CTA's shared memory holds
+    the staging area of as many partial tiles as fit, at most GROUP_MAX.
+    The slices and state rows are always read from global memory, so the
+    layout does not depend on the row counts."""
+    t = -(-nU // 32)
+    ntl, npad = t * (t + 1) // 2, 32 * t
+    base = (ntl * TILE_FLOATS + 2 * PUB_WIDE + 8 * (npad + 8) + 2 * nU + 72
+            + npad * (WIDE_CHUNK + 1) + WIDE_CHUNK)
+    group = min(GROUP_MAX, ntl, (build.SMEM_MAX // 4 - base) // TILE_FLOATS)
+    return LoopLayout(False, WIDE_CHUNK, 4 * (base + group * TILE_FLOATS),
+                      group)
 
 
 def loop_layout(nU: int, m_h: int, m_s: int) -> LoopLayout:
@@ -384,7 +413,9 @@ def loop_layout(nU: int, m_h: int, m_s: int) -> LoopLayout:
     its state rows (9 floats per hard row, 36 per soft row) stay in shared
     memory when they fit beside the Schur matrices and vectors, else the
     same kernel reads them from global memory (streamed).  The hard-only
-    build (m_s = 0) has no soft slice."""
+    build (m_s = 0) has no soft slice; nU > 128 takes :func:`wide_layout`."""
+    if nU > NU_NARROW:
+        return wide_layout(nU)
     hmax, smax = -(-m_h // CLUSTER), -(-m_s // CLUSTER)
     base = 2 * nU * (nU + 1) + 2 * PUB + 8 * (nU + 8) + 2 * nU + 72
     # G slices at odd row strides (hmax | 1, smax | 1)
@@ -423,13 +454,15 @@ def prepare_layout(nU: int, m_h: int, m_s: int) -> PrepLayout:
     odd row strides, 3 values per hard row and 5 per soft row, and the warm
     candidate (2 per hard row, 8 per soft row); else the chunk transposed.
     The hard-only build (m_s = 0) stages one row input (d_h), not six, and
-    has no soft slice."""
+    has no soft slice; the wide build (nU > 128) has larger publish
+    buffers."""
     hmax, smax = -(-m_h // CLUSTER), -(-m_s // CLUSTER)
     n_in = 6 if m_s else 1
+    pub = PUB_PREP_WIDE if nU > NU_NARROW else PUB_PREP
 
     def floats(chunk, tail):
         raw = -(-(chunk * nU + 4) // 4) * 4 + -(-n_in * chunk // 4) * 4
-        return 2 * raw + 2 * PUB_PREP + 2 * nU + 8 + 64 + 3 * chunk + tail
+        return 2 * raw + 2 * pub + 2 * nU + 8 + 64 + 3 * chunk + tail
 
     chunk = max(hmax, smax)
     resident = floats(chunk, nU * ((hmax | 1) + ((smax | 1) if m_s else 0))
@@ -443,17 +476,19 @@ def prepare_layout(nU: int, m_h: int, m_s: int) -> PrepLayout:
 _CLUSTER: dict = {}
 
 
-def _library(m_s: int) -> str:
+def _library(m_s: int, nU: int) -> str:
     """The library of the kernels' build for a QP: ``ipm`` (soft rows) or
-    ``ipm_hard`` (m_s = 0; csrc/ipm.cu built with IPM_SOFT=0)."""
-    return "ipm" if m_s else "ipm_hard"
+    ``ipm_hard`` (m_s = 0; csrc/ipm.cu built with IPM_SOFT=0), with
+    ``_wide`` for 128 < nU <= 256 (IPM_WIDE=1)."""
+    return ("ipm" if m_s else "ipm_hard") + (
+        "_wide" if nU > NU_NARROW else "")
 
 
-def cluster_size(m_s: int = 1) -> int:
+def cluster_size(m_s: int = 1, nU: int = 1) -> int:
     """CTAs per QP, CLUSTER; raises if the card cannot co-schedule a
     cluster of that many CTAs of either kernel of the build for ``m_s``
-    (asked of the CUDA runtime once per library)."""
-    name = _library(m_s)
+    and ``nU`` (asked of the CUDA runtime once per library)."""
+    name = _library(m_s, nU)
     if name not in _CLUSTER:
         fn = build.load(name).ipm_cluster_size
         fn.argtypes, fn.restype = [], ctypes.c_int
@@ -491,13 +526,13 @@ def _ptr(t):
     return None if t is None or t.numel() == 0 else t.data_ptr()
 
 
-def _lib_fns(m_s: int):
-    lib = build.load(_library(m_s))
+def _lib_fns(m_s: int, nU: int):
+    lib = build.load(_library(m_s, nU))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     prep, loop = lib.ipm_prepare, lib.ipm_mehrotra
     prep.argtypes = [P] * 30 + [I, I, I, F, F, I, I, I, P]
     prep.restype = I
-    loop.argtypes = [P] * 15 + [I, I, I, F, F, I, I, F, F, I, I, I, P]
+    loop.argtypes = [P] * 15 + [I, I, I, F, F, I, I, F, F, I, I, I, I, P]
     loop.restype = I
     return prep, loop
 
@@ -526,7 +561,7 @@ def prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws, ws_valid,
             ws_valid = torch.ones((), dtype=torch.bool, device=dev)
         if ws_valid.dtype != torch.bool or ws_valid.device != dev:
             raise ValueError("ws_valid: need a bool tensor on the device")
-    cluster_size(m_s)
+    cluster_size(m_s, nU)
     lay = prepare_layout(nU, m_h, m_s)
     if lay.smem > build.SMEM_MAX:
         raise ValueError(f"ipm_prepare: {lay.smem} B of shared memory exceeds "
@@ -544,7 +579,7 @@ def prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws, ws_valid,
     buf["warm"] = buf["warm"].view(torch.int32)
     wsp = [None] * 8 if ws is None else [
         _ptr(ws[i]) for i in (0, 1, 2, 4, 6, 8, 9, 10)]  # u sl su lh lU lL nl nu
-    prep, _ = _lib_fns(m_s)
+    prep, _ = _lib_fns(m_s, nU)
     with torch.cuda.device(dev):
         rc = prep(*(_ptr(t) for t in (H, g, G_h, d_h, G_s, lo_s, hi_s,
                                       zl, zu, Zl, Zu)),
@@ -557,6 +592,8 @@ def prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws, ws_valid,
                   torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "ipm_prepare launch")
     LAUNCHES["ipm_prepare"] += 1
+    if nU > NU_NARROW:
+        LAUNCHES_WIDE["ipm_prepare"] += 1
     return Device(H=H, g=g, Gth=buf["Gth"].view(nU, m_h),
                   Gts=buf["Gts"].view(nU, m_s), dh=buf["dh"].view(2, m_h),
                   sd=buf["sd"].view(8, m_s), h0=buf["h0"].view(2, m_h),
@@ -594,7 +631,7 @@ def mehrotra(d: Device, tol: float, reg: float, max_iter: int,
     """
     dev = d.g.device
     nU, m_h, m_s = d.g.shape[0], d.dh.shape[1], d.sd.shape[1]
-    cluster_size(m_s)
+    cluster_size(m_s, nU)
     lay = loop_layout(nU, m_h, m_s)
     if lay.smem > build.SMEM_MAX:
         raise ValueError(f"ipm: {lay.smem} B of shared memory exceeds "
@@ -605,17 +642,19 @@ def mehrotra(d: Device, tol: float, reg: float, max_iter: int,
     bs = out[nU + 2 * m_h:nU + 2 * m_h + 8 * m_s].view(8, m_s)
     bres = out[-1:]
     bit = torch.empty(1, dtype=torch.int32, device=dev)
-    _, loop = _lib_fns(m_s)
+    _, loop = _lib_fns(m_s, nU)
     with torch.cuda.device(dev):
         rc = loop(*(_ptr(t) for t in (d.H, d.g, d.Gth, d.dh, d.Gts, d.sd,
                                       d.h0, d.s0, d.qs, bu, bh, bs, bres,
                                       bit, d.work)),
                   nU, m_h, m_s, float(tol), float(reg), int(max_iter),
                   int(stall_iters), float(stall_rtol), float(mu_grind),
-                  lay.chunk, int(lay.resident), lay.smem,
+                  lay.chunk, int(lay.resident), lay.group, lay.smem,
                   torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "ipm_mehrotra launch")
     LAUNCHES["ipm_mehrotra"] += 1
+    if nU > NU_NARROW:
+        LAUNCHES_WIDE["ipm_mehrotra"] += 1
     best = (bu, bs[2], bs[3], bh[0], bh[1], bs[0], bs[4], bs[1], bs[5],
             bs[6], bs[7])
     return best, bres[0], bit[0]

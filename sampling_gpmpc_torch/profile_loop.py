@@ -5,7 +5,9 @@ Usage (on a machine with an NVIDIA GPU):
     python -m sampling_gpmpc_torch.profile_loop [-param NAME]
         [--trace-dir DIR]
 
-Runs ``DEMPC.run`` four times on CUDA float32: untraced to build and warm
+Runs ``DEMPC.run`` (for ``params_drone_obstacles_approx``: the approximate
+MPC's ``ApproxMPC.run``, pessimistic or with ``--optimistic``) four
+times on CUDA float32: untraced to build and warm
 up, untraced again for the wall time, under ``torch.profiler`` with CUDA
 activity only (the kernels, copies and fills on the card), and with CPU
 activity only (the host's torch ops).  With ``--fs`` the traced work is one
@@ -56,6 +58,8 @@ def main(argv=None):
     parser.add_argument("--fs", action="store_true",
                         help="trace a forward-sampling rollout instead of "
                              "the closed loop")
+    parser.add_argument("--optimistic", action="store_true",
+                        help="the drone's optimistic planner")
     args = parser.parse_args(argv)
 
     import torch
@@ -68,19 +72,38 @@ def main(argv=None):
 
     dev = setup.resolve_device("cuda")
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    params, spec, data = load_problem(
-        os.path.join(here, "params", args.param + ".yaml"))
-    env = make_env(spec, params)
-    steps = spec.num_mpc_iter
+    cfg = os.path.join(here, "params", args.param + ".yaml")
+    if args.param.startswith("params_drone"):
+        import yaml
 
-    def run():
-        mpc = DEMPC(params, spec, data, env, device=dev,
-                    dtype=torch.float32)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = mpc.run()
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0), out
+        from sampling_gpmpc_torch.approx.solver import ApproxMPC
+        with open(cfg) as fh:
+            params = yaml.safe_load(fh)
+        params["agent"]["run"]["optimistic"] = args.optimistic
+        params["agent"]["run"]["pessimistic"] = not args.optimistic
+        steps = params["common"]["num_MPC_itrs"]
+        ns = params["agent"]["num_samples_tightening"]
+
+        def run():
+            mpc = ApproxMPC(params, dev, torch.float32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = mpc.run(num_iters=steps)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0), out
+    else:
+        params, spec, data = load_problem(cfg)
+        env = make_env(spec, params)
+        steps, ns = spec.num_mpc_iter, spec.ns
+
+        def run():
+            mpc = DEMPC(params, spec, data, env, device=dev,
+                        dtype=torch.float32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = mpc.run()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0), out
 
     if args.fs:
         import numpy as np
@@ -135,11 +158,11 @@ def main(argv=None):
     loop = {} if out is None else {
         "solve_ms_sum": 1e3 * sum(out["solver_time"]),
         "first_solve_ms": 1e3 * out["solver_time"][0],
-        "ipm_iters": out["qp_iters"]}
+        "ipm_iters": out.get("qp_iters")}
     print(json.dumps({
-        "config": args.param,
+        "config": args.param + (" optimistic" if args.optimistic else ""),
         "workload": "forward sampling" if args.fs else "closed loop",
-        "steps": steps, "ns": spec.ns,
+        "steps": steps, "ns": ns,
         "card": torch.cuda.get_device_name(0),
         "wall_ms": wall_ms, **loop,
         "traced_wall_ms": traced_wall_ms,

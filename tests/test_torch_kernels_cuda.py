@@ -408,7 +408,13 @@ def test_ipm_hard_only_solve_matches_plain(dev, nU, mh, resident):
     with g moved by 1e-3: status 0, no farther from the float64 solution
     than twice the plain float32 solver plus 1e-3 of its scale; launches
     counted once per kernel and solve."""
-    args = ipm.seeded_qp(nU, mh, 0, 7, dev)
+    _solve_vs_plain(dev, nU, mh, 0)
+
+
+def _solve_vs_plain(dev, nU, mh, ms):
+    """The checks of test_ipm_hard_only_solve_matches_plain on a seeded QP
+    of any row counts."""
+    args = ipm.seeded_qp(nU, mh, ms, 7, dev)
     kw = (3e-5, 1e-7, 150, qp_mod.STALL_ITERS, qp_mod.STALL_RTOL,
           qp_mod.MU_GRIND, qp_mod.WS_BAND)
     kw64 = (1e-12, 1e-13) + kw[2:]
@@ -432,6 +438,49 @@ def test_ipm_hard_only_solve_matches_plain(dev, nU, mh, resident):
         wv = torch.ones((), dtype=torch.bool, device=dev)
     assert {k: ipm.LAUNCHES[k] - before[k] for k in before} == {
         "ipm_prepare": 2, "ipm_mehrotra": 2}
+
+
+# Wide QPs (128 < nU <= 256, the wide builds: Schur tiles, slices always
+# streamed), (nU, m_h, m_s): the narrowest, params_car_samples' QP, the
+# drone's optimistic planner's (hard-only) and the widest, soft and hard.
+WIDE = [(129, 600, 300), (200, 400, 5010), (240, 840, 0), (256, 1000, 400),
+        (256, 1000, 0)]
+
+
+@pytest.mark.parametrize("nU,mh,ms", WIDE)
+def test_ipm_wide_prepare_matches_plain(dev, nU, mh, ms):
+    """The wide build of the prepare kernel, cold and warm from a plain
+    solve carried to g moved by 1e-3 (accepted), field by field and the
+    choice."""
+    assert not ipm.loop_layout(nU, mh, ms).resident
+    args = ipm.seeded_qp(nU, mh, ms, 5, dev)
+    assert not _prepare_vs_plain(dev, args, None, None)
+    moved, ws = _carried(args, 1e-3)
+    valid = torch.ones((), dtype=torch.bool, device=dev)
+    assert _prepare_vs_plain(dev, moved, ws, valid)
+
+
+@pytest.mark.parametrize("nU,mh,ms", WIDE)
+def test_ipm_wide_mehrotra_matches_plain(dev, nU, mh, ms):
+    """The wide loop kernel on the same prepared problem as the plain
+    loop, both held to the float64 solution."""
+    _mehrotra_vs_f64(dev, nU, mh, ms, resident=False)
+
+
+@pytest.mark.parametrize("nU,mh,ms", WIDE)
+def test_ipm_wide_solve_matches_plain(dev, nU, mh, ms):
+    """solve_qp_soft through the wide builds, cold and warm, as
+    test_ipm_hard_only_solve_matches_plain."""
+    _solve_vs_plain(dev, nU, mh, ms)
+
+
+def test_ipm_refuses_past_the_wide_limit(dev):
+    """nU = 257 raises, naming the limit, before any launch."""
+    args = ipm.seeded_qp(257, 600, 10, 5, dev)
+    before = dict(ipm.LAUNCHES)
+    with pytest.raises(ValueError, match="nU <= 256"):
+        qp_mod.solve_qp_soft(*args)
+    assert ipm.LAUNCHES == before
 
 
 def _close(got, ref, tol):

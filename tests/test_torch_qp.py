@@ -145,20 +145,23 @@ def test_plain_ipm_warm_start_matches_pallas_interpret(monkeypatch):
 
 def test_ipm_gate(monkeypatch):
     """The kernels' limits raise, naming the limit: float64, no hard rows
-    (the Pallas path cannot take m_h = 0 either) and nU > 128; the
+    (the Pallas path cannot take m_h = 0 either) and nU > 256; the
     flagship QP is inside them, and so are the hard-only QPs (m_s = 0) of
     the pendulum configs and the residual car, which pallas_ipm.fused_ok
     leaves to the XLA body and the kernels take in their hard-only
-    build."""
+    build, and the wide QPs (128 < nU <= 256: params_car_samples' nU =
+    200, the drone's optimistic nU = 240), which the wide builds take."""
     for args, limit in (((6, 10, 5, torch.float64), "float32"),
                         ((6, 10, 0, torch.float64), "float32"),
                         ((6, 0, 5, torch.float32), "m_h"),
                         ((6, 0, 0, torch.float32), "m_h"),
-                        ((200, 10, 5, torch.float32), "nU"),
-                        ((129, 10, 0, torch.float32), "nU")):
+                        ((257, 10, 5, torch.float32), "nU"),
+                        ((257, 10, 0, torch.float32), "nU")):
         with pytest.raises(ValueError, match=limit):
             ipm.check_supported(*args)
     ipm.check_supported(17, 7174, 70, torch.float32)
+    for nU, m_s in ((129, 0), (200, 5010), (240, 0), (256, 5)):
+        ipm.check_supported(nU, 400, m_s, torch.float32)
     monkeypatch.setattr(pallas_ipm, "_INTERPRET", True)   # the gate's shapes
     assert pallas_ipm.fused_ok(17, 7174, 70, jnp.float32)
     for nU, m_h in ((30, 2460), (1, 2002), (1, 202), (100, 800)):
