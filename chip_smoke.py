@@ -145,6 +145,24 @@ matrix in 32x32 tiles):
              the IPM checks on each planner's first QP; each planner's
              closed loop (ApproxMPC.run, counters zeroed before and read
              after) and its ms per step against dt = 100 ms;
+the debug path and the design tools:
+20. debug  — params_car at full width, its golden's first 3 steps teacher-
+             forced: sqp.solve and sqp.solve_recorded (counters zeroed
+             before and read after each) bit-identical in X, U, X_prev,
+             U_prev, SQP and QP iterations and status, with the same
+             launches of every loop kernel; the recorded solve's posterior
+             value moments (float32 on the card) against their float64
+             evaluation on the CPU on the same gp state; ms per step of
+             both routes;
+21. tools  — params_pendulum1D_samples' published settings, float64 on the
+             card against the CPU: the Adam fit (100 steps to 1e-8
+             relative; the published 300 within ten times the fit's own
+             float64 sensitivity; ms per step), the Lipschitz constant and both
+             terminal sets (1e-9 relative), the small-ball deviations on
+             20,000 injected CPU draws per grid size (1e-10), and
+             num_of_samples.run on each device's own 200,000 draws per grid
+             size (p_ball within 5 binomial standard deviations; draws per
+             second, p_ball and N(delta));
 then one JSON line listing the kernels, the card line, and the contract
 line {"ok": true, "device": {...}}.
 """
@@ -339,6 +357,37 @@ ENV_FACTOR = 2.0
 # optimistic (nU = 240, m_h = 840, m_s = 0: the wide hard-only build) steps
 # of tests/goldens/torch_oracle_drone.npz (tests/make_torch_drone_golden.py)
 # held to ENV_FACTOR times the JAX float32 path's envelope in the golden.
+# Phase debug: the recorded SQP solve (sqp.solve_recorded) against sqp.solve
+# on params_car's first DEBUG_STEPS golden steps.  Its posterior value
+# moments (plain torch, float32 on the card) are held to their float64
+# evaluation on the same gp state on the CPU, as a share of the tube width
+# beta (sigma + sigma_n) of that stage: DEBUG_MOMENT_TOL at iteration 0
+# (the empty buffer: 2.1e-4 measured on the CPU in float32, the JAX
+# package's own float32 evaluation 2.0e-4, 1.9e-4 on an H100),
+# DEBUG_HALL_MOMENT_TOL at iterations >= 1, where the hall rows'
+# conditioning leaves float32 1.04e-3 of the tube from float64 in the JAX
+# package's own evaluation, 1.7e-3 in the port's on the CPU and 1.214e-3
+# on an H100 (steps 0-2, the same states): about 2.4 times the largest of
+# those floors.  A probe that returned the prior reads O(1).
+DEBUG_STEPS = 3
+DEBUG_MOMENT_TOL, DEBUG_HALL_MOMENT_TOL = 1e-3, 4e-3
+# Phase tools at params_pendulum1D_samples' settings, float64 on the card
+# against the CPU: the Adam fit to TOOLS_FIT_RTOL after 100 steps (read
+# 1.99e-12 on an H100).  After the published 300 steps the fit is that
+# sensitive no more: its task noise runs down to the 1e-10 jitter, where
+# the NLL is flat (inputs moved by 1e-15 relative move the CPU fit 1e-13
+# after 50 steps, 1e-12 after 100, 1e-9 after 200 and 7.7e-8 after 300;
+# the JAX package's fit differs from the port's on the CPU by 9.9e-8, the
+# card's from the CPU's by 1.34e-7 on an H100), so there it is held to
+# TOOLS_FIT_LONG_RTOL, about seven times the largest of those.  The Lipschitz
+# constant and the terminal sets to 1e-9 relative, the small-ball
+# deviations on injected draws to 1e-10, and p_ball on each device's own
+# 200,000 draws within 5 binomial standard deviations.
+TOOLS_CONFIG = "params_pendulum1D_samples"
+TOOLS_FIT_SHORT, TOOLS_FIT_ITERS = 100, 300
+TOOLS_FIT_RTOL, TOOLS_FIT_LONG_RTOL = 1e-8, 1e-6
+TOOLS_RTOL, TOOLS_DEV_TOL = 1e-9, 1e-10
+TOOLS_INJECTED, TOOLS_N_MC, TOOLS_SIGMAS = 20_000, 200_000, 5.0
 DRONE_CONFIG = os.path.join(HERE, "params",
                             "params_drone_obstacles_approx.yaml")
 DRONE_GOLDEN = os.path.join(HERE, "tests", "goldens", "torch_oracle_drone.npz")
@@ -1894,6 +1943,257 @@ def drone_phase(dev, checks):
     return res
 
 
+def debug_phase(dev):
+    """params_car at full width (ns=20, H=15, four SQP iterations, three
+    outputs), its golden's first DEBUG_STEPS steps teacher-forced on the
+    golden's draws: sqp.solve and sqp.solve_recorded on identical inputs
+    must give bit-identical X, U, X_prev, U_prev, iterations, status and
+    QP iterations, with the same launches of each loop kernel; the
+    recorded solve's posterior value moments (float32 on the card) against
+    their float64 evaluation on the CPU on the same gp state; ms per step
+    of both routes."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch.config import load_problem
+    from sampling_gpmpc_torch.envs import make_env
+    from sampling_gpmpc_torch.gp import exact
+    from sampling_gpmpc_torch.gp.exact import GPHyperArrays
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.ocp.spec import make_ocp_data
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    gc = np.load(CAR_GOLDEN)
+    params, spec, data = load_problem(
+        os.path.join(HERE, "params", CAR_CONFIG + ".yaml"))
+    env = make_env(spec, params)
+    ocp = make_ocp_data(spec, data, dev, f32)
+    hyp = GPHyperArrays.from_spec(spec.gp, dev, f32)
+    gp = agent.init_gp_state(spec, env, dev, f32, hyp=hyp)
+    hyp64 = GPHyperArrays.from_spec(spec.gp, cpu, f64)
+    gp64 = agent.init_gp_state(spec, env, cpu, f64, hyp=hyp64)
+    sig_n = torch.stack([torch.sqrt(NOISE_REL * exact.prior_task_variances(
+        hyp64.lengthscale[j], hyp64.outputscale[j], spec.Ty)[0])
+        for j in range(spec.g_ny)])[None, :, None]
+    T = lambda a: torch.as_tensor(a, dtype=f32, device=dev)
+    eps = T(gc["eps"])
+    cX, cU, cphys = (gc["plan_X_traj"], gc["plan_U_traj"],
+                     gc["physical_state_traj"])
+    keys = ("X", "U", "X_prev", "U_prev", "status", "qp_iters")
+    ms = {"solve": [], "solve_recorded": []}
+    launches = {"solve": [], "solve_recorded": []}
+    worst = {0: 0.0, 1: 0.0}          # moments: iteration 0, iterations >= 1
+    its = []
+    for m in range(DEBUG_STEPS):
+        if m == 0:
+            Xs, Us = sqp.init_iterate(spec, dev, f32, data.start)
+        else:                                   # shift_soln: False
+            Xs, Us = T(cX[m - 1]), T(cU[m - 1])
+        args = (spec, env, hyp, ocp, T(cphys[m]), Xs, Us, gp, eps[m])
+        probes = []
+
+        def probe(g, Xt):
+            mv = agent.posterior_value_moments(spec, hyp, g, Xt)
+            probes.append((g, Xt, mv))
+            return mv
+
+        out = {}
+        for route in ("solve", "solve_recorded"):
+            zero_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if route == "solve":
+                st = sqp.solve(*args)
+            else:
+                st, recs = sqp.solve_recorded(*args, probe_fn=probe)
+            int(st.status)
+            torch.cuda.synchronize()
+            ms[route].append(1e3 * (time.perf_counter() - t0))
+            launches[route].append(launch_counts())
+            out[route] = st
+        a, b = out["solve"], out["solve_recorded"]
+        its.append(a.it)
+        if a.it != b.it or len(recs) != b.it:
+            fail(f"debug step {m}: SQP iterations {a.it} (solve) against "
+                 f"{b.it} (solve_recorded, {len(recs)} records)")
+        for k in keys:
+            if not torch.equal(getattr(a, k), getattr(b, k)):
+                fail(f"debug step {m}: {k} of solve_recorded differs from "
+                     f"solve's (max |d| "
+                     f"{float((getattr(a, k) - getattr(b, k)).abs().max())})")
+        if launches["solve"][-1] != launches["solve_recorded"][-1]:
+            fail(f"debug step {m}: launches {launches['solve'][-1]} (solve) "
+                 f"against {launches['solve_recorded'][-1]} (recorded)")
+        if min(launches["solve"][-1].values()) <= 0:
+            fail(f"debug step {m}: a loop kernel was not launched: "
+                 f"{launches['solve'][-1]}")
+        for it, (g, Xt, (mu, sd)) in enumerate(probes):
+            g64 = gp64._replace(hall_Z=g.hall_Z.to(cpu, f64),
+                                hall_Y=g.hall_Y.to(cpu, f64),
+                                hall_n=g.hall_n)
+            mu64, sd64 = agent.posterior_value_moments(spec, hyp64, g64,
+                                                       Xt.to(cpu, f64))
+            tube = spec.gp.beta * (sd64 + sig_n)    # as tube_width
+            e = max(float(((mu.to(cpu, f64) - mu64).abs() / tube).max()),
+                    float(((sd.to(cpu, f64) - sd64).abs() / tube).max()))
+            worst[min(it, 1)] = max(worst[min(it, 1)], e)
+    print(f"[debug] params_car steps 0-{DEBUG_STEPS - 1} teacher-forced (ns="
+          f"{spec.ns}, H={spec.H}, {spec.max_sqp_iter} SQP iterations, "
+          f"{spec.g_ny} outputs): solve_recorded bit-identical to solve in "
+          f"{', '.join(keys)} and SQP iterations ({its}); launches per step "
+          f"equal on both routes: {launches['solve']}", flush=True)
+    print(f"[debug] posterior_value_moments float32 on the card vs float64 "
+          f"on the CPU, same gp state, max |d| / tube width: iteration 0 "
+          f"{worst[0]:.3e} (tol {DEBUG_MOMENT_TOL}), iterations >= 1 "
+          f"{worst[1]:.3e} (tol {DEBUG_HALL_MOMENT_TOL})", flush=True)
+    print(f"[debug] ms per step: solve {[round(v, 3) for v in ms['solve']]},"
+          f" solve_recorded {[round(v, 3) for v in ms['solve_recorded']]}"
+          f" (steps 1-{DEBUG_STEPS - 1} mean: solve "
+          f"{statistics.mean(ms['solve'][1:])}, solve_recorded "
+          f"{statistics.mean(ms['solve_recorded'][1:])})", flush=True)
+    if worst[0] > DEBUG_MOMENT_TOL or worst[1] > DEBUG_HALL_MOMENT_TOL:
+        fail("posterior_value_moments on the card disagrees with float64")
+    total = {k: sum(c[k] for c in launches["solve_recorded"])
+             for k in launches["solve_recorded"][0]}
+    return dict(ms=ms, launches=total, moments=worst)
+
+
+def tools_phase(dev):
+    """The design tools at params_pendulum1D_samples' settings, float64 on
+    the card against the CPU: the Adam fit (TOOLS_FIT_ITERS steps, ms per
+    step), the Lipschitz constant, both terminal-set syntheses, the
+    small-ball deviations on TOOLS_INJECTED injected CPU draws per grid
+    size and num_of_samples.run on each device's own TOOLS_N_MC draws per
+    grid size (p_ball within TOOLS_SIGMAS binomial standard deviations;
+    draws per second, p_ball and N(delta))."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch.config import load_problem
+    from sampling_gpmpc_torch.envs import make_env
+    from sampling_gpmpc_torch.tools import lipschitz, mle, num_of_samples
+    from sampling_gpmpc_torch.tools import sample_complexity as sc
+    from sampling_gpmpc_torch.tools import terminal_set
+    cpu = torch.device("cpu")
+    params, spec, data = load_problem(
+        os.path.join(HERE, "params", TOOLS_CONFIG + ".yaml"))
+    env = make_env(spec, params)
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+    # the Adam fit of output 0's hyperparameters: TOOLS_FIT_SHORT steps to
+    # TOOLS_FIT_RTOL, TOOLS_FIT_ITERS steps to TOOLS_FIT_LONG_RTOL
+    X, Y = env.training_grid()
+    fits, wall = {}, {}
+    for d in (dev, cpu):
+        for iters in (TOOLS_FIT_SHORT, TOOLS_FIT_ITERS):
+            t0 = time.perf_counter()
+            fits[d.type, iters] = mle.fit_gp_hyperparameters(
+                X, Y[0], iters=iters, device=d)
+            wall[d.type, iters] = time.perf_counter() - t0
+    hp = ("lengthscale", "outputscale", "task_noises")
+    fit_rel = lambda a, b: max(rel(a[k], b[k]) for k in hp)
+    e_short = fit_rel(fits["cuda", TOOLS_FIT_SHORT],
+                      fits["cpu", TOOLS_FIT_SHORT])
+    e_fit = fit_rel(fits["cuda", TOOLS_FIT_ITERS],
+                    fits["cpu", TOOLS_FIT_ITERS])
+    f300 = fits["cuda", TOOLS_FIT_ITERS]
+    ms_step = 1e3 * wall["cuda", TOOLS_FIT_ITERS] / TOOLS_FIT_ITERS
+    print(f"[tools] fit_gp_hyperparameters, float64 (M={X.shape[0]}, with "
+          f"gradient tasks), max rel. diff card/CPU: {TOOLS_FIT_SHORT} Adam "
+          f"steps {e_short:.3e} (tol {TOOLS_FIT_RTOL}), {TOOLS_FIT_ITERS} "
+          f"steps {e_fit:.3e} (tol {TOOLS_FIT_LONG_RTOL}); {ms_step:.3f} "
+          f"ms per Adam step on "
+          f"the card ("
+          f"{1e3 * wall['cpu', TOOLS_FIT_ITERS] / TOOLS_FIT_ITERS:.3f} on "
+          f"the CPU); lengthscale {f300['lengthscale']}, outputscale "
+          f"{f300['outputscale']}, task noises {f300['task_noises']}, nll "
+          f"{f300['nll']}", flush=True)
+    if not (e_short <= TOOLS_FIT_RTOL and e_fit <= TOOLS_FIT_LONG_RTOL):
+        fail("the Adam fit on the card disagrees with the CPU")
+
+    # Lipschitz constant and terminal sets
+    grid = lipschitz.grid_around([2.1, -2.5, -5.0], [3.6, 2.5, 5.0], 7)
+    lip = {d.type: lipschitz.estimate_lipschitz(
+        env, data.P_term, data.K_fb, grid[:, :2], grid[:, 2:], device=d)
+        for d in (dev, cpu)}
+    x_eq, u_eq = data.goal, np.zeros(spec.nu)
+    pts = (np.concatenate([x_eq, u_eq])[None] + 0.1 * np.random.default_rng(
+        0).normal(size=(12, spec.nx + spec.nu)))
+    box = (data.x_min, data.x_max, data.u_min, data.u_max)
+    ric, lmi = {}, {}
+    for d in (dev, cpu):
+        ric[d.type] = terminal_set.synthesize(
+            env, x_eq, u_eq, np.diag([10.0, 15.0]), np.diag([0.9]), *box,
+            vertices=pts, device=d)
+        lmi[d.type] = terminal_set.synthesize_lmi(
+            env, x_eq, u_eq, 0.995, *box, vertices=pts, device=d)
+    e_term = {"lipschitz": rel(lip["cuda"], lip["cpu"])}
+    for name, ts in (("synthesize", ric), ("synthesize_lmi", lmi)):
+        for k in ("P", "K", "rho"):
+            e_term[f"{name} {k}"] = rel(getattr(ts["cuda"], k),
+                                        getattr(ts["cpu"], k))
+    print(f"[tools] Lipschitz constant {lip['cuda']} ({grid.shape[0]} grid "
+          f"points), Riccati rho {ric['cuda'].rho}, LMI rho "
+          f"{lmi['cuda'].rho}; max rel. diff card/CPU "
+          f"{ {k: float(f'{v:.3e}') for k, v in e_term.items()} } "
+          f"(tol {TOOLS_RTOL})", flush=True)
+    if not max(e_term.values()) <= TOOLS_RTOL:
+        fail("a Lipschitz or terminal-set result on the card disagrees "
+             "with the CPU")
+
+    # the small-ball deviations on injected draws, every grid size
+    hyp = spec.gp
+    Z, y = num_of_samples._train_values(params, spec, 0)
+    ls, os_, lam = np.asarray(hyp.lengthscale[0]), hyp.outputscale[0], \
+        hyp.noise
+    gen = torch.Generator().manual_seed(11)
+    e_dev, n_draws = 0.0, 0
+    for n in range(1, 9):
+        g = sc.gp_input_grid(spec, data, n)
+        eps = torch.randn((TOOLS_INJECTED, g.shape[0]), generator=gen,
+                          dtype=torch.float64)
+        dk = sc.max_deviation_samples_chunked(Z, y, g, ls, os_, lam,
+                                              TOOLS_INJECTED, eps=eps,
+                                              device=dev)
+        dc = sc.max_deviation_samples_chunked(Z, y, g, ls, os_, lam,
+                                              TOOLS_INJECTED, eps=eps,
+                                              device=cpu)
+        e_dev = max(e_dev, float(np.max(np.abs(dk - dc))))
+        n_draws += TOOLS_INJECTED
+    print(f"[tools] small-ball deviations on {TOOLS_INJECTED} injected CPU "
+          f"draws per grid size (n_grid 1-8): max |d| card/CPU {e_dev:.3e} "
+          f"(tol {TOOLS_DEV_TOL})", flush=True)
+    if not e_dev <= TOOLS_DEV_TOL:
+        fail("small-ball deviations on the card disagree with the CPU")
+
+    # num_of_samples.run on each device's own draws
+    res, wall = {}, {}
+    for d in (dev, cpu):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[d.type] = num_of_samples.run(params, spec, data,
+                                         n_mc=TOOLS_N_MC, device=d)
+        wall[d.type] = time.perf_counter() - t0
+    pk, pc = res["cuda"]["p_ball"], res["cpu"]["p_ball"]
+    sd = np.sqrt((pk * (1 - pk) + pc * (1 - pc)) / TOOLS_N_MC)
+    n_grids = len(res["cuda"]["grids"])
+    rate = n_grids * TOOLS_N_MC / wall["cuda"]
+    print(f"[tools] num_of_samples.run, {n_grids} grid sizes x "
+          f"{TOOLS_N_MC} draws, float64: card {wall['cuda']:.3f} s "
+          f"({rate:.0f} draws/s, the set-up included), CPU "
+          f"{wall['cpu']:.3f} s; p_ball card {pk} CPU {pc} (|d| "
+          f"{abs(pk - pc) / max(sd, 1e-300):.2f} binomial sd, tol "
+          f"{TOOLS_SIGMAS}); C_D {res['cuda']['Cd']['Cd']}; N(delta="
+          f"{res['cuda']['delta']}) card {res['cuda']['num_samples']} CPU "
+          f"{res['cpu']['num_samples']}", flush=True)
+    if not abs(pk - pc) <= TOOLS_SIGMAS * sd:
+        fail("p_ball on the card is not within the binomial spread of the "
+             "CPU's")
+    return dict(fit_ms_per_step=ms_step, draws_per_s=rate, p_ball=pk,
+                num_samples=res["cuda"]["num_samples"])
+
+
 def main():
     try:
         import torch
@@ -2387,6 +2687,12 @@ def main():
     # ---- 19. the approximate drone MPC ----------------------------------
     phase("drone")
     drone = drone_phase(dev, checks)
+    # ---- 20. the recorded (debug) SQP solve -----------------------------
+    phase("debug")
+    debug = debug_phase(dev)
+    # ---- 21. the design tools in float64 --------------------------------
+    phase("tools")
+    tools_phase(dev)
     results["gp_sample"]["car_samples"] = car_s["timing"]["gp_sample"]
     results["gp_hall"]["car_samples_by_fill"] = car_s["timing"]["gp_hall"]
     results["ipm_prepare"]["drone_pessimistic"] = \
@@ -2443,6 +2749,7 @@ def main():
                 drone["pessimistic"]["launches"][name],
             "launches_drone_optimistic":
                 drone["optimistic"]["launches"][name],
+            "launches_debug_recorded": debug["launches"][name],
             **{k: r[k] for k in keys},
             **{k: v for k, v in r.items() if k not in keys}})
     # the IPM kernels' wide builds: launches of the car_samples step (its

@@ -374,6 +374,29 @@ def append_hall(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState, Xt, dg,
     return append_hall_raw(gp, newZ, newY)
 
 
+def posterior_value_moments(spec: ProblemSpec, hyp: GPHyperArrays,
+                            gp: GPState, Xt: torch.Tensor):
+    """Posterior VALUE mean and standard deviation along an iterate, for
+    the per-SQP-iterate debug plots (ref: src/solver.py:247-287 plots
+    mean +/- 2 sqrt(var) of each sample's conditioned model).  Runs on the
+    gp state as it ENTERS the iteration, the model each function sample is
+    drawn from; an empty buffer (iteration 0) conditions on the real data
+    alone through the same block update.
+
+    Args:
+        Xt: (ns, H, D) GP inputs along the current iterate.
+    Returns:
+        mean, std: (ns, g_ny, H) value-column posterior moments.
+    """
+    mean, cov = _batched_posterior_incremental(spec, hyp, gp, Xt)
+    H, Ty = Xt.shape[1], spec.Ty
+    var = torch.diagonal(cov, dim1=-2, dim2=-1)
+    mean_v = mean.reshape(spec.ns, spec.g_ny, H, Ty)[..., 0]
+    std_v = torch.sqrt(torch.clamp(
+        var.reshape(spec.ns, spec.g_ny, H, Ty)[..., 0], min=0.0))
+    return mean_v, std_v
+
+
 def dyn_linearization(spec: ProblemSpec, env: Env, xu: torch.Tensor,
                       dg: torch.Tensor, K_fb):
     """Per-sample per-stage (value, A, B) from sampled dynamics, with the

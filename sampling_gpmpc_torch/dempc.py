@@ -8,6 +8,7 @@ QP warm start carries across MPC steps.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -41,13 +42,23 @@ class DEMPC:
         epistemic: optional (num_mpc_iter, max_sqp_iter, ns, g_ny, H, Ty)
             base draws; drawn from a generator seeded with the config's
             seed when absent.
+        debug_sqp_dir: record every SQP iterate (``sqp.solve_recorded``)
+            and render one frame per iterate into this directory
+            (ref: src/solver.py:153-154, 194-352); ``sqp_records`` lists
+            the frames.
+        live: optional in-loop frame grabber (``visu.LiveRenderer``): one
+            frame per MPC step while the loop runs (ref: src/DEMPC.py:60-66).
     """
 
     def __init__(self, params: dict, spec: ProblemSpec, data: ProblemData,
                  env: Env, device=None, dtype=None, recorder=None,
-                 verbose=False, epistemic=None):
+                 verbose=False, epistemic=None,
+                 debug_sqp_dir: Optional[str] = None, live=None):
         self.device, self.dtype = setup.resolve(device, dtype)
         self.verbose = verbose
+        self.debug_sqp_dir = debug_sqp_dir
+        self.sqp_records = []
+        self.live = live
         self.spec, self.data, self.env = spec, data, env
         self.ocp = make_ocp_data(spec, data, self.device, self.dtype)
         self.hyp = GPHyperArrays.from_spec(spec.gp, self.device, self.dtype)
@@ -103,6 +114,22 @@ class DEMPC:
         return (torch.stack(true_traj).cpu().numpy(),
                 torch.stack(mean_traj).cpu().numpy())
 
+    def _render_sqp_records(self, mpc_iter: int, recs):
+        """One debug frame per SQP iterate (ref: src/solver.py:194-352)."""
+        from sampling_gpmpc_torch import visu
+
+        host = lambda a: None if a is None else a.cpu().numpy()
+        bounds = np.stack([self.data.x_min, self.data.x_max])
+        for it, r in enumerate(recs):
+            out = os.path.join(self.debug_sqp_dir,
+                               f"sqp_m{mpc_iter:03d}_i{it:02d}.png")
+            visu.plot_sqp_iterate(out, host(r["X"]), host(r["U"]),
+                                  dg=host(r["dg"]), mean=host(r["mean"]),
+                                  std=host(r["std"]), x_bounds=bounds)
+            self.sqp_records.append({
+                "mpc_iter": mpc_iter, "sqp_iter": it, "frame": out,
+                "x_diff": r["x_diff"], "u_diff": r["u_diff"]})
+
     def run(self, x0: Optional[np.ndarray] = None):
         """Full closed loop (ref: src/DEMPC.py:39-80). Returns trajectories."""
         spec = self.spec
@@ -114,8 +141,15 @@ class DEMPC:
         qp_iters, statuses, gaps = [], [], []
         for m in range(spec.num_mpc_iter):
             t0 = time.perf_counter()
-            st = sqp.solve(spec, self.env, self.hyp, self.ocp, x_curr, X, U,
-                           self.gp_state, self.epistemic[m], qp_ws, qp_valid)
+            if self.debug_sqp_dir is None:
+                st = sqp.solve(spec, self.env, self.hyp, self.ocp, x_curr, X,
+                               U, self.gp_state, self.epistemic[m], qp_ws,
+                               qp_valid)
+            else:
+                st, recs = sqp.solve_recorded(
+                    spec, self.env, self.hyp, self.ocp, x_curr, X, U,
+                    self.gp_state, self.epistemic[m], qp_ws, qp_valid)
+                self._render_sqp_records(m, recs)
             status = int(st.status)          # waits for the device
             dt_solve = time.perf_counter() - t0
             qp_ws, qp_valid = st.qp_ws, st.qp_valid
@@ -139,6 +173,8 @@ class DEMPC:
             if self.recorder is not None:
                 self.recorder.record(phys[-1], plans[-1], inputs[-1],
                                      dt_solve, self)
+            if self.live is not None:
+                self.live.grab(phys[-1], plans[-1])
             x_curr = x_next.reshape(-1)
             if spec.dynamics_rejection:
                 self.gp_state, n_alive = reject_and_resample(

@@ -3,7 +3,7 @@
 Usage:
     python -m sampling_gpmpc_torch.main -param params_pendulum1D_samples -i 42
     python -m sampling_gpmpc_torch.main -param params_pendulum1D_samples \
-        --device cpu --dtype float64
+        --device cpu --dtype float64 [--debug-sqp] [--live]
 
 Loads the reference-format YAML config, builds the environment and GP
 state, runs the closed-loop MPC on the chosen device (CUDA by default) and
@@ -28,6 +28,14 @@ def main(argv=None):
                         help="float32|float64 (default: float32 on CUDA, "
                              "float64 on the CPU, or env SGPMPC_DTYPE)")
     parser.add_argument("-q", "--quiet", action="store_true")
+    parser.add_argument("--debug-sqp", action="store_true",
+                        help="record every SQP iterate: per-iterate debug "
+                             "frames + video_sqp.gif in the artifact dir "
+                             "(ref: src/solver.py:194-352)")
+    parser.add_argument("--live", action="store_true",
+                        help="grab a video frame per MPC step WHILE the "
+                             "loop runs (ref: src/DEMPC.py:60-66 in-loop "
+                             "plotting) -> video_live.{mp4,gif}")
     args = parser.parse_args(argv)
 
     import torch
@@ -60,10 +68,27 @@ def main(argv=None):
     if spec.use_tightening:
         rec.tilde_eps_list = data.tilde_eps
         rec.ci_list = data.ci
+    live = None
+    if args.live:
+        from sampling_gpmpc_torch import visu
+        live = visu.LiveRenderer(
+            params, save_path,
+            tilde_eps=data.tilde_eps if spec.use_tightening else None,
+            P=data.P_term if spec.use_tightening else None)
     mpc = DEMPC(params, spec, data, env, device=device, dtype=dtype,
-                recorder=rec, verbose=not args.quiet)
+                recorder=rec, verbose=not args.quiet,
+                debug_sqp_dir=save_path if args.debug_sqp else None,
+                live=live)
     out = mpc.run()
+    if live is not None:
+        print(f"live video: {live.close()} ({live.frames} frames)")
     artifact = rec.save_data()
+    if args.debug_sqp and mpc.sqp_records:
+        from sampling_gpmpc_torch import visu
+        vid = visu.render_frames_video(
+            [r["frame"] for r in mpc.sqp_records],
+            os.path.join(save_path, "video_sqp.gif"))
+        print(f"sqp debug video: {vid} ({len(mpc.sqp_records)} iterates)")
     times = out["solver_time"]
     steady = times[1:] if len(times) > 1 else times
     print(f"saved {artifact}")

@@ -12,6 +12,9 @@ and of the JAX package's ``ocp/sqp.py``.  Each iteration:
 
 Iteration 0 is peeled (its GP stage runs on an empty buffer).  With
 ``max_sqp_iter == 1`` (SQP-RTI) the solve is that one iteration.
+``solve_recorded`` is the debug twin of ``solve``: the same iterations,
+step by step, with every iterate, its GP samples, the posterior moments
+they were drawn from and the assembled QP kept.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from sampling_gpmpc_torch.ocp.spec import OCPData
 class SolveState(NamedTuple):
     X: torch.Tensor        # (H+1, ns, nx) current iterate
     U: torch.Tensor        # (H, nu)
+    X_prev: torch.Tensor   # the iterate entering the last iteration
+    U_prev: torch.Tensor
     gp: GPState
     it: int                # sqp iteration counter
     status: torch.Tensor   # 0 ok
@@ -139,6 +144,12 @@ def assemble_qp(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
     Returns (qp, T, Gamma, gp): ``qp`` the argument tuple of
     ``solve_qp_soft`` (H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu).
     """
+    return _assemble(spec, env, hyp, ocp, st_curr, X, U, gp, eps,
+                     hall_empty)[:4]
+
+
+def _assemble(spec, env, hyp, ocp, st_curr, X, U, gp, eps, hall_empty):
+    """:func:`assemble_qp` and the GP rows ``dg`` and inputs ``Xt``."""
     ns, nx = spec.ns, spec.nx
     xu = _linearization_inputs(spec, ocp, X, U)
     Xt = xu[..., list(spec.g_idx_inputs)]                    # (ns, H, D)
@@ -154,21 +165,73 @@ def assemble_qp(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
     soft, (zl, zu, Zl, Zu) = build_soft_rows(spec, ocp, T, Gamma, X)
     C_h, d_h = boxes_to_rows(hard.G, hard.lo, hard.hi)
     qp = (H_U, g_U, C_h, d_h, soft.G, soft.lo, soft.hi, zl, zu, Zl, Zu)
-    return qp, T, Gamma, gp
+    return qp, T, Gamma, gp, dg, Xt
+
+
+QP_KEYS = ("H", "g", "C_h", "d_h", "G_s", "lo_s", "hi_s", "zl", "zu",
+           "Zl", "Zu")
 
 
 def sqp_iteration(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
                   ocp: OCPData, st_curr, X, U, gp: GPState, eps,
-                  qp_ws=None, qp_valid=None, hall_empty: bool = False):
-    """One SQP-RTI iteration; returns (X_new, U_new, gp, QPSolution)."""
+                  qp_ws=None, qp_valid=None, return_debug: bool = False,
+                  hall_empty: bool = False):
+    """One SQP-RTI iteration; returns (X_new, U_new, gp, QPSolution), and
+    with ``return_debug`` also {"dg", "Xt", "qp"}: the sampled GP rows,
+    the GP inputs and the assembled QP (``QP_KEYS``)."""
     H, nu = spec.H, spec.nu
-    qp, T, Gamma, gp = assemble_qp(spec, env, hyp, ocp, st_curr, X, U, gp,
-                                   eps, hall_empty=hall_empty)
+    qp, T, Gamma, gp, dg, Xt = _assemble(spec, env, hyp, ocp, st_curr, X, U,
+                                         gp, eps, hall_empty)
     sol = solve_qp_soft(*qp, tol=(spec.qp_tol if spec.qp_tol > 0 else None),
                         ws=qp_ws, ws_valid=qp_valid)
     dU = sol.z[:H * nu]
     dX = T + torch.einsum("ikau,u->ika", Gamma, dU)          # (ns, H+1, nx)
-    return X + dX.transpose(0, 1), U + dU.reshape(H, nu), gp, sol
+    X_new, U_new = X + dX.transpose(0, 1), U + dU.reshape(H, nu)
+    if return_debug:
+        return X_new, U_new, gp, sol, {"dg": dg, "Xt": Xt,
+                                       "qp": dict(zip(QP_KEYS, qp))}
+    return X_new, U_new, gp, sol
+
+
+def _initial_state(spec: ProblemSpec, X0, U0, gp0: GPState, qp_ws,
+                   qp_valid) -> SolveState:
+    """The state entering iteration 0: the hallucination buffer reset, the
+    placeholder warm start unless one is given."""
+    dtype, dev = X0.dtype, X0.device
+    if qp_ws is None:
+        qp_ws = init_qp_ws(spec, dev, dtype)
+        qp_valid = torch.zeros((), dtype=torch.bool, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return SolveState(
+        X=X0, U=U0, X_prev=X0, U_prev=U0, gp=agent_mod.reset_hall(gp0), it=0,
+        status=zero, done=torch.zeros((), dtype=torch.bool, device=dev),
+        qp_ws=qp_ws, qp_valid=qp_valid, qp_iters=zero,
+        qp_gap=torch.tensor(float("inf"), dtype=dtype, device=dev),
+        best_step=torch.tensor(float("inf"), dtype=dtype, device=dev),
+        stall_count=zero, mono_count=zero,
+        alpha=torch.ones((), dtype=dtype, device=dev))
+
+
+def _advance(spec: ProblemSpec, s: SolveState, X_cand, U_cand, gp, sol):
+    """The state after one iteration from its candidate step: the one
+    update of ``solve`` and ``solve_recorded``.  Returns (SolveState,
+    x_diff, u_diff)."""
+    ok = sol.status == 0
+    (X, U, x_diff, u_diff, done, best_step, stall_count, mono_count,
+     alpha) = consume_step(spec, s.X, s.U, X_cand, U_cand, ok, s.best_step,
+                           s.stall_count, s.mono_count, s.alpha)
+    return SolveState(X=X, U=U, X_prev=s.X, U_prev=s.U, gp=gp, it=s.it + 1,
+                      status=sol.status, done=done, qp_ws=sol.state,
+                      qp_valid=ok, qp_iters=s.qp_iters + sol.iters,
+                      qp_gap=sol.gap, best_step=best_step,
+                      stall_count=stall_count, mono_count=mono_count,
+                      alpha=alpha), x_diff, u_diff
+
+
+def _go_on(spec: ProblemSpec, s: SolveState) -> bool:
+    """Whether another iteration runs (syncs on the device)."""
+    return (s.it < spec.max_sqp_iter and not bool(s.done)
+            and int(s.status) == 0)
 
 
 def solve(spec: ProblemSpec, env: Env, hyp: GPHyperArrays, ocp: OCPData,
@@ -182,38 +245,60 @@ def solve(spec: ProblemSpec, env: Env, hyp: GPHyperArrays, ocp: OCPData,
         eps_iters: (max_sqp_iter, ns, g_ny, H, Ty) epistemic draws.
         qp_ws, qp_valid: QP warm start from the previous MPC step.
     """
-    gp0 = agent_mod.reset_hall(gp0)
-    dtype, dev = X0.dtype, X0.device
+    s = _initial_state(spec, X0, U0, gp0, qp_ws, qp_valid)
+    while True:
+        out = sqp_iteration(spec, env, hyp, ocp, st_curr, s.X, s.U, s.gp,
+                            eps_iters[s.it], qp_ws=s.qp_ws,
+                            qp_valid=s.qp_valid, hall_empty=s.it == 0)
+        s = _advance(spec, s, *out)[0]
+        if not _go_on(spec, s):
+            return s
 
-    def body(s: SolveState, hall_empty: bool = False) -> SolveState:
-        X_cand, U_cand, gp, sol = sqp_iteration(
+
+def solve_recorded(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
+                   ocp: OCPData, st_curr, X0, U0, gp0: GPState, eps_iters,
+                   qp_ws=None, qp_valid=None, probe_fn=None):
+    """Debug twin of :func:`solve` that records every SQP iterate.
+
+    The same iterations and stopping rule as ``solve`` (the same kernels
+    on CUDA), plus, before each iteration, the posterior value moments of
+    the model its samples are drawn from (ref: src/solver.py:153-154,
+    194-352).  Every record syncs the device.
+
+    Args:
+        probe_fn: optional replacement for the moment probe,
+            ``probe_fn(gp, Xt) -> (mean, std)``.
+    Returns:
+        (SolveState, records): one dict per iteration with X, U (after
+        the step), dg, mean, std (None where no GP sample is drawn),
+        x_diff, u_diff, qp_iters, qp_gap, qp_status and qp.
+    """
+    if probe_fn is None:
+        probe_fn = lambda gp, Xt: agent_mod.posterior_value_moments(
+            spec, hyp, gp, Xt)
+    # agent.sample_dynamics's predicate: the probe is skipped only when no
+    # live GP sample is drawn at all
+    oracle_only = (
+        (spec.true_dyn_as_sample or spec.mean_as_dyn_sample) and spec.ns == 1
+    ) or (spec.true_dyn_as_sample and spec.mean_as_dyn_sample
+          and spec.ns == 2)
+    s = _initial_state(spec, X0, U0, gp0, qp_ws, qp_valid)
+    records = []
+    while True:
+        mean = std = None
+        if not oracle_only:
+            Xt = _linearization_inputs(spec, ocp, s.X, s.U)[
+                ..., list(spec.g_idx_inputs)]
+            mean, std = probe_fn(s.gp, Xt)
+        X_cand, U_cand, gp, sol, dbg = sqp_iteration(
             spec, env, hyp, ocp, st_curr, s.X, s.U, s.gp, eps_iters[s.it],
-            qp_ws=s.qp_ws, qp_valid=s.qp_valid, hall_empty=hall_empty)
-        ok = sol.status == 0
-        (X, U, _, _, done, best_step, stall_count, mono_count,
-         alpha) = consume_step(spec, s.X, s.U, X_cand, U_cand, ok,
-                               s.best_step, s.stall_count, s.mono_count,
-                               s.alpha)
-        return SolveState(X=X, U=U, gp=gp,
-                          it=s.it + 1, status=sol.status, done=done,
-                          qp_ws=sol.state, qp_valid=ok,
-                          qp_iters=s.qp_iters + sol.iters, qp_gap=sol.gap,
-                          best_step=best_step, stall_count=stall_count,
-                          mono_count=mono_count, alpha=alpha)
-
-    if qp_ws is None:
-        qp_ws = init_qp_ws(spec, dev, dtype)
-        qp_valid = torch.zeros((), dtype=torch.bool, device=dev)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    s = SolveState(
-        X=X0, U=U0, gp=gp0, it=0, status=zero,
-        done=torch.zeros((), dtype=torch.bool, device=dev), qp_ws=qp_ws,
-        qp_valid=qp_valid, qp_iters=zero,
-        qp_gap=torch.tensor(float("inf"), dtype=dtype, device=dev),
-        best_step=torch.tensor(float("inf"), dtype=dtype, device=dev),
-        stall_count=zero, mono_count=zero,
-        alpha=torch.ones((), dtype=dtype, device=dev))
-    s = body(s, hall_empty=True)
-    while s.it < spec.max_sqp_iter and not bool(s.done) and int(s.status) == 0:
-        s = body(s)
-    return s
+            qp_ws=s.qp_ws, qp_valid=s.qp_valid, return_debug=True,
+            hall_empty=s.it == 0)
+        s, x_diff, u_diff = _advance(spec, s, X_cand, U_cand, gp, sol)
+        records.append({
+            "X": s.X, "U": s.U, "dg": dbg["dg"], "mean": mean, "std": std,
+            "x_diff": float(x_diff), "u_diff": float(u_diff),
+            "qp_iters": int(sol.iters), "qp_gap": float(sol.gap),
+            "qp_status": int(sol.status), "qp": dbg["qp"]})
+        if not _go_on(spec, s):
+            return s, records

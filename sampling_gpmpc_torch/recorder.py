@@ -83,3 +83,10 @@ class Recorder:
         with open(os.path.join(path, "data.pkl"), "wb") as f:
             pickle.dump(data_dict, f)
         return os.path.join(path, "data.pkl")
+
+    @staticmethod
+    def load(path: str) -> dict:
+        """The artifact dict of a data.pkl written by ``save_data`` (the
+        JAX package's ``Recorder`` writes the same keys)."""
+        with open(path, "rb") as f:
+            return pickle.load(f)

@@ -603,3 +603,76 @@ def test_chol_kernels_nan_pattern_n180(dev, j0):
         assert bool(torch.isnan(got[:, j0, j0]).all())
         fin = torch.isfinite(ref)
         _close(got[fin], ref[fin], 2e-4)
+
+
+def test_solve_recorded_matches_solve_bitwise(dev):
+    """params_car's first step (ns=20, H=15, four SQP iterations) on the
+    draws of tests/goldens/torch_oracle_car.npz, float32 through the
+    kernels: the recorded solve is the solve, bit for bit, and launches
+    each loop kernel as often."""
+    import os
+
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch.config import load_problem
+    from sampling_gpmpc_torch.envs import make_env
+    from sampling_gpmpc_torch.gp.exact import GPHyperArrays
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.ocp.spec import make_ocp_data
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    g = np.load(os.path.join(root, "tests", "goldens",
+                             "torch_oracle_car.npz"))
+    params, spec, data = load_problem(os.path.join(root, "params",
+                                                   "params_car.yaml"))
+    env = make_env(spec, params)
+    f32 = torch.float32
+    hyp = GPHyperArrays.from_spec(spec.gp, dev, f32)
+    args = (spec, env, hyp, make_ocp_data(spec, data, dev, f32),
+            torch.as_tensor(g["physical_state_traj"][0], dtype=f32,
+                            device=dev),
+            *sqp.init_iterate(spec, dev, f32, data.start),
+            agent.init_gp_state(spec, env, dev, f32, hyp=hyp),
+            torch.as_tensor(g["eps"][0], dtype=f32, device=dev))
+    counts = []
+    out = []
+    for recorded in (False, True):
+        for d in (gp_sample.LAUNCHES, gp_hall.LAUNCHES, ipm.LAUNCHES):
+            for k in d:
+                d[k] = 0
+        st = (sqp.solve_recorded(*args)[0] if recorded
+              else sqp.solve(*args))
+        torch.cuda.synchronize()
+        counts.append({**gp_sample.LAUNCHES, **gp_hall.LAUNCHES,
+                       **ipm.LAUNCHES})
+        out.append(st)
+    a, b = out
+    assert a.it == b.it == spec.max_sqp_iter
+    for k in ("X", "U", "X_prev", "U_prev", "status", "qp_iters", "qp_gap"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert counts[0] == counts[1] and min(counts[0].values()) > 0
+
+
+def test_sample_complexity_matches_cpu(dev):
+    """The small-ball calculators in float64 on the card against the CPU:
+    deviations on injected draws to 1e-10, the closed forms to 1e-10
+    relative, p_ball on each device's own draws within 5 binomial
+    standard deviations."""
+    from sampling_gpmpc_torch.tools import sample_complexity as sc
+    rng = np.random.default_rng(0)
+    Z = rng.uniform(-1, 1, size=(20, 2))
+    y = np.sin(Z[:, 0]) * np.cos(Z[:, 1])
+    grid = rng.uniform(-1, 1, size=(30, 2))
+    p = (Z, y, grid, np.array([0.7, 0.7]), 0.5, 1e-4)
+    cpu = torch.device("cpu")
+    eps = rng.normal(size=(20000, grid.shape[0]))
+    dk = sc.max_deviation_samples_chunked(*p, 20000, eps=eps, device=dev)
+    dc = sc.max_deviation_samples_chunked(*p, 20000, eps=eps, device=cpu)
+    np.testing.assert_allclose(dk, dc, rtol=0, atol=1e-10)
+    for fn in (sc.rkhs_norm, sc.info_beta):
+        a = (Z, y) + p[3:] if fn is sc.rkhs_norm else (Z,) + p[3:]
+        assert fn(*a, device=dev) == pytest.approx(fn(*a, device=cpu),
+                                                   rel=1e-10)
+    n = 200_000
+    pk = sc.small_ball_probability(*p, 0.05, n, device=dev)
+    pc = sc.small_ball_probability(*p, 0.05, n, device=cpu)
+    sd = np.sqrt((pk * (1 - pk) + pc * (1 - pc)) / n)
+    assert 0.0 < pk < 1.0 and abs(pk - pc) <= 5 * sd
