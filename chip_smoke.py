@@ -163,6 +163,26 @@ the debug path and the design tools:
              num_of_samples.run on each device's own 200,000 draws per grid
              size (p_ball within 5 binomial standard deviations; draws per
              second, p_ball and N(delta));
+the sample-sharded solve (sampling_gpmpc_torch/parallel/):
+22. shard  — float32 on the card, SHARD_BLOCKS blocks of one process (one
+             thread and CUDA stream each, ordered sums): params_pendulum1D_
+             samples at ns = 64 (the JAX dry run's flagship shape), one RTI
+             iteration and three forced ones (hall fill 51), against the
+             one-device kernel solve and the float64 CPU solve on the same
+             draws (pendulum caps); params_car over 4 blocks of 5 on its
+             golden's first 3 teacher-forced steps against the one-device
+             solve and the golden (car caps); a 3-step sharded closed loop
+             against the one-device loop; forward sampling at 4000 x 50
+             over 4 blocks against the one-device rollout on the same draws
+             (the fs criteria); the train-axis posterior in float64 (1024
+             points, D = 2, with gradients) against the dense Cholesky
+             posterior at 1e-8; 4 worker processes
+             (sampling_gpmpc_torch.parallel.worker) over gloo sharing the
+             card against the blocked solve (and an NCCL group where there
+             are two cards or more); per block and step the gp_sample and
+             gp_hall launches and the QP routes (the IPM kernels stay off
+             under the group, as the JAX gate has it), ms per solve of
+             every route;
 then one JSON line listing the kernels, the card line, and the contract
 line {"ok": true, "device": {...}}.
 """
@@ -388,6 +408,21 @@ TOOLS_FIT_SHORT, TOOLS_FIT_ITERS = 100, 300
 TOOLS_FIT_RTOL, TOOLS_FIT_LONG_RTOL = 1e-8, 1e-6
 TOOLS_RTOL, TOOLS_DEV_TOL = 1e-9, 1e-10
 TOOLS_INJECTED, TOOLS_N_MC, TOOLS_SIGMAS = 20_000, 200_000, 5.0
+# Phase shard, the sample-sharded solve on one card.  The flagship shape of
+# the JAX package's multichip dry run (__graft_entry__.py:158): the 1D
+# pendulum at ns = 64 over 4 blocks of 16, one RTI iteration and three
+# forced SQP iterations (hall fill 3 H = 51); params_car over 4 blocks of 5
+# on its golden's first SHARD_CAR_STEPS teacher-forced steps; a
+# SHARD_LOOP_STEPS-step closed loop; forward sampling over 4 blocks; the
+# train-axis posterior in float64 (1024 points, D = 2, with gradients:
+# 3072 rows; CG capped at the row count, CG's exact-arithmetic bound) at
+# the JAX test's 1e-8; and SHARD_PROCS worker processes over gloo.  Bars:
+# the loops' float32 caps (TF_TOL_X/_U, TF_CAR_TOL_X/_U) and the fs
+# criteria.
+SHARD_NS, SHARD_BLOCKS, SHARD_ITERS = 64, 4, 3
+SHARD_CAR_STEPS, SHARD_LOOP_STEPS = 3, 3
+SHARD_POST_PTS, SHARD_POST_D, SHARD_POST_M, SHARD_POST_TOL = 1024, 2, 5, 1e-8
+SHARD_PROCS, SHARD_REPEATS, SHARD_PROC_TIMEOUT = 4, 2, 300
 DRONE_CONFIG = os.path.join(HERE, "params",
                             "params_drone_obstacles_approx.yaml")
 DRONE_GOLDEN = os.path.join(HERE, "tests", "goldens", "torch_oracle_drone.npz")
@@ -2194,6 +2229,342 @@ def tools_phase(dev):
                 num_samples=res["cuda"]["num_samples"])
 
 
+def shard_phase(dev):
+    """The sample-sharded solve (sampling_gpmpc_torch/parallel/) on the
+    card, float32, at full width; see the SHARD_* constants.  The blocked
+    route runs SHARD_BLOCKS threads of one process, each on its own CUDA
+    stream, with the ordered sums; its GP stages go through gp_sample and
+    gp_hall per block on the local ns, its QPs through the plain body
+    under the group (the JAX gate keeps the IPM kernels off under a sample
+    axis).  Returns the blocked flagship's launches per kernel."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch.config import load_problem
+    from sampling_gpmpc_torch.dempc import shift_solution
+    from sampling_gpmpc_torch.envs import make_env
+    from sampling_gpmpc_torch.gp.exact import GPHyperArrays
+    from sampling_gpmpc_torch.gp.kernel import kernel_matrix
+    from sampling_gpmpc_torch.gp.train_sharded import sharded_posterior_fn
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.ocp.spec import make_ocp_data
+    from sampling_gpmpc_torch.parallel import sharded
+    from sampling_gpmpc_torch.parallel.collectives import BlockGroup, split
+    from sampling_gpmpc_torch.parallel.worker import COUNTERS, problem
+    from sampling_gpmpc_torch.reachability import forward_sample_rollout
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    nb = SHARD_BLOCKS
+    card = gpu_line()
+    keys = ("gp_sample", "gp_hall", "ipm_prepare", "ipm_mehrotra", "group",
+            "run_full")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def blocks(group):
+        return [{k: d.get(k, 0) for k in keys} for d in group.launches]
+
+    def check_blocks(tag, per_block, hall):
+        if any(b["gp_sample"] < 1 or (hall and b["gp_hall"] < 1)
+               or b["ipm_prepare"] or b["ipm_mehrotra"] or b["run_full"]
+               or b["group"] < 1 for b in per_block):
+            fail(f"shard {tag}: a block's launches or QP routes are not "
+                 f"those of the sharded path: {per_block}")
+        if launch_counts()["ipm_prepare"] or launch_counts()["ipm_mehrotra"]:
+            fail(f"shard {tag}: an IPM kernel ran under the group")
+
+    def errs(a, b):
+        return (float((a.X.to(f64).cpu() - b.X.to(f64).cpu()).abs().max()),
+                float((a.U.to(f64).cpu() - b.U.to(f64).cpu()).abs().max()))
+
+    # ---- the flagship: one RTI iteration, then three forced ------------
+    flag = {}
+    for iters in (1, SHARD_ITERS):
+        spec, env, hyp, ocp, gp, X0, U0, st, eps = problem(
+            CONFIG, SHARD_NS, iters, dev, f32)
+        args = (st, X0, U0, gp, eps)
+        blocked = sharded.make_blocked_solve(spec, env, hyp, ocp, nb)
+        ref, ms_one = timed(lambda: sqp.solve(spec, env, hyp, ocp, *args))
+        ref, ms_one = timed(lambda: sqp.solve(spec, env, hyp, ocp, *args))
+        zero_launch_counts()
+        out, ms_blk = timed(lambda: blocked(*args))
+        per_block = blocks(blocked.group)
+        check_blocks(f"flagship {iters} iterations", per_block, iters > 1)
+        (spec64, env64, hyp64, ocp64, gp64, X64, U64, st64,
+         eps64) = problem(CONFIG, SHARD_NS, iters, cpu, f64)
+        ref64 = sqp.solve(spec64, env64, hyp64, ocp64, st64, X64, U64, gp64,
+                          eps64)
+        ok = (int(ref.status) == int(out.status) == 0 and out.it == ref.it
+              == iters and (iters == 1 or out.gp.hall_n == iters * spec.H)
+              and bool(torch.isfinite(out.X).all())
+              and bool(torch.isfinite(out.U).all()))
+        e_kb, e_b64, e_k64 = errs(out, ref), errs(out, ref64), \
+            errs(ref, ref64)
+        print(f"[shard] {CONFIG} ns={spec.ns} H={spec.H} over {nb} blocks "
+              f"of {spec.ns // nb}, {iters} SQP iteration(s)"
+              f"{' (tol_nlp = 0)' if iters > 1 else ''}: status blocked "
+              f"{int(out.status)}, one-device {int(ref.status)}, float64 "
+              f"CPU {int(ref64.status)}; iterations {out.it}/{ref.it}; hall "
+              f"fill {out.gp.hall_n}; blocked vs one-device card max|dX| "
+              f"{e_kb[0]:.3e} max|dU| {e_kb[1]:.3e}; blocked vs float64 "
+              f"CPU {e_b64[0]:.3e} / {e_b64[1]:.3e}; one-device vs float64 "
+              f"{e_k64[0]:.3e} / {e_k64[1]:.3e} (caps {TF_TOL_X} / "
+              f"{TF_TOL_U})", flush=True)
+        print(f"[shard] flagship {iters} iteration(s): launches per block "
+              f"(gp kernels and QP routes) {per_block}; ms per solve: "
+              f"one-device kernel route {ms_one:.3f}, blocked {ms_blk:.3f} "
+              f"({card})", flush=True)
+        if not ok or max(e_kb[0], e_b64[0], e_k64[0]) > TF_TOL_X or max(
+                e_kb[1], e_b64[1], e_k64[1]) > TF_TOL_U:
+            fail(f"shard flagship at {iters} SQP iteration(s)")
+        flag[iters] = dict(out=out, per_block=per_block, args=args,
+                           ms=(ms_one, ms_blk))
+    launches = {k: sum(b[k] for b in flag[SHARD_ITERS]["per_block"])
+                for k in ("gp_sample", "gp_hall", "ipm_prepare",
+                          "ipm_mehrotra")}
+
+    # ---- params_car over 4 blocks of 5, teacher-forced -----------------
+    gc = np.load(CAR_GOLDEN)
+    params_c, spec_c, data_c = load_problem(
+        os.path.join(HERE, "params", CAR_CONFIG + ".yaml"))
+    env_c = make_env(spec_c, params_c)
+    ocp_c = make_ocp_data(spec_c, data_c, dev, f32)
+    hyp_c = GPHyperArrays.from_spec(spec_c.gp, dev, f32)
+    gp_c = agent.init_gp_state(spec_c, env_c, dev, f32, hyp=hyp_c)
+    Tc = lambda a: torch.as_tensor(a, dtype=f32, device=dev)  # noqa: E731
+    eps_c = Tc(gc["eps"])
+    blocked_c = sharded.make_blocked_solve(spec_c, env_c, hyp_c, ocp_c, nb)
+    rows, car_blocks, car_ms = [], [], []
+    for m in range(SHARD_CAR_STEPS):
+        if m == 0:
+            Xs, Us = sqp.init_iterate(spec_c, dev, f32, data_c.start)
+        else:                                   # shift_soln: False
+            Xs, Us = Tc(gc["plan_X_traj"][m - 1]), Tc(gc["plan_U_traj"][m - 1])
+        a = (Tc(gc["physical_state_traj"][m]), Xs, Us, gp_c, eps_c[m])
+        ref, ms_one = timed(lambda: sqp.solve(spec_c, env_c, hyp_c, ocp_c,
+                                              *a))
+        zero_launch_counts()
+        out, ms_blk = timed(lambda: blocked_c(*a))
+        car_blocks.append(blocks(blocked_c.group))
+        check_blocks(f"car step {m}", car_blocks[-1], True)
+        car_ms.append((ms_one, ms_blk))
+        gX, gU = gc["tf_X_traj"][m], gc["tf_U_traj"][m]
+        rows.append((int(out.status), int(ref.status), out.it, ref.it,
+                     errs(out, ref), plan_err(out.X, out.U, gX, gU),
+                     plan_err(ref.X, ref.U, gX, gU)))
+    print(f"[shard] {CAR_CONFIG} ns={spec_c.ns} over {nb} blocks of "
+          f"{spec_c.ns // nb}, {spec_c.max_sqp_iter} SQP iterations, golden "
+          f"steps 0-{SHARD_CAR_STEPS - 1} teacher-forced: (status blocked, "
+          f"one-device, iterations blocked, one-device, blocked vs "
+          f"one-device (dX, dU), blocked vs golden, one-device vs golden) "
+          f"{rows} (caps {TF_CAR_TOL_X} / {TF_CAR_TOL_U})", flush=True)
+    print(f"[shard] car launches per block and step {car_blocks}; ms per "
+          f"step (one-device, blocked) "
+          f"{[(round(a, 3), round(b, 3)) for a, b in car_ms]} ({card})",
+          flush=True)
+    for r in rows:
+        if r[0] != 0 or r[1] != 0 or max(r[4][0], r[5][0], r[6][0]) > \
+                TF_CAR_TOL_X or max(r[4][1], r[5][1], r[6][1]) > TF_CAR_TOL_U:
+            fail("shard car teacher-forced steps")
+
+    # ---- a 3-step sharded closed loop on the flagship ------------------
+    spec, env, hyp, ocp, gp, X0, U0, st, _ = problem(CONFIG, SHARD_NS, 1,
+                                                     dev, f32)
+    spec = dataclasses.replace(spec, num_mpc_iter=SHARD_LOOP_STEPS)
+    eps_w = agent.make_epistemic(spec, None, dev, f32)
+    grp = BlockGroup(nb)
+    loop = sharded.make_sharded_closed_loop(spec, env, hyp, ocp, grp,
+                                            ordered=True)
+    outs, ms_loop = timed(lambda: grp.run(loop, st, X0, U0, gp, eps_w))
+    x_w, U_w = outs[0][0], outs[0][2]
+    X_w = torch.cat([o[1] for o in outs], dim=1)
+
+    def one_device_loop():
+        x, X, U, g = st, X0, U0, gp
+        ws, wv = sqp.init_qp_ws(spec, dev, f32), torch.zeros(
+            (), dtype=torch.bool, device=dev)
+        for k in range(SHARD_LOOP_STEPS):
+            s = sqp.solve(spec, env, hyp, ocp, x, X, U, g, eps_w[k], ws, wv)
+            if int(s.status) != 0:
+                fail(f"shard closed loop: one-device step {k} status "
+                     f"{int(s.status)}")
+            X, U, g, ws, wv = s.X, s.U, s.gp, s.qp_ws, s.qp_valid
+            u0 = U[0]
+            if spec.use_feedback:
+                u0 = u0 - (ocp.x_eq - X[0, 0]) @ ocp.K_fb.T
+            x = env.discrete_dyn(X[0, 0], u0).reshape(-1)
+            if spec.shift_soln:
+                X, U = shift_solution(X, U)
+        return x, X, U
+
+    (x_r, X_r, U_r), ms_loop1 = timed(one_device_loop)
+    ex = float((x_w - x_r).abs().max())
+    eX, eU = float((X_w - X_r).abs().max()), float((U_w - U_r).abs().max())
+    print(f"[shard] {SHARD_LOOP_STEPS}-step sharded closed loop ({CONFIG} "
+          f"ns={spec.ns} over {nb} blocks, ordered) vs the one-device card "
+          f"loop: max|dx| {ex:.3e}, plan max|dX| {eX:.3e} (cap {TF_TOL_X}), "
+          f"max|dU| {eU:.3e} (cap {TF_TOL_U}); final x {x_w.tolist()}; ms "
+          f"per step: blocked {ms_loop / SHARD_LOOP_STEPS:.3f}, one-device "
+          f"{ms_loop1 / SHARD_LOOP_STEPS:.3f} ({card})", flush=True)
+    if (not bool(torch.isfinite(X_w).all()) or max(ex, eX) > TF_TOL_X
+            or eU > TF_TOL_U or outs[0][3].hall_n != spec.H):
+        fail("shard closed loop")
+
+    # ---- forward sampling over 4 blocks --------------------------------
+    params_f, spec_f, data_f = load_problem(
+        os.path.join(HERE, "params", FS_CONFIG + ".yaml"))
+    env_f = make_env(spec_f, params_f)
+    Tf = spec_f.num_mpc_iter
+    hyp_f = GPHyperArrays.from_spec(spec_f.gp, dev, f32)
+    gp_f = agent.init_gp_state(spec_f, env_f, dev, f32, capacity=Tf,
+                               hyp=hyp_f)
+    fb = {"K": data_f.K_fb, "x_eq": data_f.goal}
+    eps_f = agent.truncated_normal((Tf, spec_f.ns, spec_f.g_ny, 1, spec_f.Ty),
+                                   spec_f.gp.beta,
+                                   torch.Generator().manual_seed(spec_f.seed),
+                                   dev, f32)
+    U_f = np.load(FS_GOLDEN)["last_plan_U"][:Tf]
+    grp_f = BlockGroup(nb)
+    roll = sharded.make_sharded_rollout(spec_f, env_f, hyp_f, grp_f,
+                                        use_feedback=fb)
+    outs_f, ms_roll = timed(lambda: grp_f.run(roll, gp_f, data_f.start, U_f,
+                                              None, eps_f))
+    X_b = torch.cat([o[0] for o in outs_f], dim=1).double().cpu().numpy()
+    X_1, ms_roll1 = timed(lambda: forward_sample_rollout(
+        spec_f, env_f, hyp_f, gp_f, data_f.start, U_f, use_feedback=fb,
+        eps=eps_f)[0])
+    X_1 = X_1.double().cpu().numpy()
+    alive_b = np.isfinite(X_b).all(axis=(0, 2))
+    alive = alive_b & np.isfinite(X_1).all(axis=(0, 2))
+
+    def env_err(keep):
+        e_b = np.stack([X_b[:, keep].min(1), X_b[:, keep].max(1)])
+        e_1 = np.stack([X_1[:, keep].min(1), X_1[:, keep].max(1)])
+        return float(np.abs(e_b - e_1).max())
+
+    per_real = float(np.abs(X_b[:, alive] - X_1[:, alive]).max())
+    env_head = env_err(alive & (np.arange(spec_f.ns) < FS_ENV_NS))
+    env_all = env_err(alive)
+    env_bar = FS_JAX_ENV_FACTOR * FS_JAX_ENV["replay of the golden plan"]
+    print(f"[shard] {FS_CONFIG} ns={spec_f.ns} x T={Tf} over {nb} blocks vs "
+          f"the one-device rollout on the same draws (float32): non-finite "
+          f"realizations {int((~alive_b).sum())} (bar 1); per-realization "
+          f"max|d| {per_real:.4e} (bar {FS_REAL_TOL}); envelope over the "
+          f"first {FS_ENV_NS} {env_head:.4e} (bar {FS_ENV_TOL}), over all "
+          f"{env_all:.4e} (bar {env_bar:.4f}); ms per rollout: blocked "
+          f"{ms_roll:.3f}, one-device {ms_roll1:.3f} ({card})", flush=True)
+    if (int((~alive_b).sum()) > 1 or per_real > FS_REAL_TOL
+            or env_head > FS_ENV_TOL or env_all > env_bar):
+        fail("shard rollout")
+
+    # ---- the train-axis-sharded posterior in float64 -------------------
+    rng = np.random.default_rng(0)
+    n, D, M = SHARD_POST_PTS, SHARD_POST_D, SHARD_POST_M
+    T64 = lambda a: torch.as_tensor(a, dtype=f64, device=dev)  # noqa: E731
+    Z, Xq = T64(rng.uniform(-2, 2, (n, D))), T64(rng.uniform(-2, 2, (M, D)))
+    y = T64(rng.normal(size=n * (1 + D)))
+    noise = T64(rng.uniform(1e-3, 1e-2, n * (1 + D)))
+    ls, os_ = np.full(D, 0.9), 0.7
+    grp_p = BlockGroup(nb)
+    post = sharded_posterior_fn(grp_p, ls, os_, True,
+                                max_iter=n * (1 + D))
+    outs_p, ms_post = timed(lambda: grp_p.run(lambda: post(
+        split(Z, grp_p, 0), split(y, grp_p, 0), split(noise, grp_p, 0), Xq)))
+    K = kernel_matrix(Z, Z, ls, os_, True) + torch.diag(noise)
+    L = torch.linalg.cholesky(K)
+    Kxz = kernel_matrix(Xq, Z, ls, os_, True)
+    mean_d = Kxz @ torch.cholesky_solve(y[:, None], L)[:, 0]
+    cov_d = kernel_matrix(Xq, Xq, ls, os_, True) - Kxz @ torch.cholesky_solve(
+        Kxz.T, L)
+    cov_d = 0.5 * (cov_d + cov_d.T)
+    em = float((outs_p[0][0] - mean_d).abs().max())
+    ec = float((outs_p[0][1] - cov_d).abs().max())
+    print(f"[shard] train-axis posterior, float64 on the card over {nb} "
+          f"blocks ({n} points, D={D}, with gradients: {n * (1 + D)} rows, "
+          f"{M} query points) vs the dense Cholesky posterior: max|d mean| "
+          f"{em:.3e}, max|d cov| {ec:.3e} (tol {SHARD_POST_TOL}); "
+          f"{ms_post:.1f} ms ({card})", flush=True)
+    if max(em, ec) > SHARD_POST_TOL:
+        fail("shard train-axis posterior")
+
+    # ---- SHARD_PROCS worker processes on this card over gloo -----------
+    def workers(world, backend, out):
+        port = free_port()
+        env_w = {**os.environ, "PYTHONPATH": HERE}
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "sampling_gpmpc_torch.parallel.worker",
+             "--rank", str(r), "--world", str(world), "--port", str(port),
+             "--out", out, "--device", "cuda", "--backend", backend,
+             "--ns", str(SHARD_NS), "--max-sqp", str(SHARD_ITERS),
+             "--ordered", "--repeats", str(SHARD_REPEATS)], cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env_w) for r in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=SHARD_PROC_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"shard worker rank {r} ({backend}) exited "
+                     f"{p.returncode}:\n{log[-3000:]}")
+        return np.load(out)
+
+    ref3 = flag[SHARD_ITERS]["out"]
+    out_dir = os.path.join(HERE, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    runs = [("gloo", SHARD_PROCS)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl", min(SHARD_PROCS, torch.cuda.device_count())))
+    for backend, world in runs:
+        got, ms_all = timed(lambda: workers(
+            world, backend, os.path.join(out_dir, f"shard_{backend}.npz")))
+        d = {k: float(np.nanmax(np.abs(got[k] - v.cpu().numpy())))
+             for k, v in (("U", ref3.U), ("X", ref3.X),
+                          ("hall_Y", ref3.gp.hall_Y))}
+        same = all(np.array_equal(got[k], v.cpu().numpy(), equal_nan=True)
+                   for k, v in (("U", ref3.U), ("X", ref3.X),
+                                ("hall_Y", ref3.gp.hall_Y)))
+        per_rank = [dict(zip(COUNTERS, map(int, r))) for r in got["launches"]]
+        print(f"[shard] {world} worker processes ({backend}, one card "
+              f"{'shared' if world > torch.cuda.device_count() else 'each'}"
+              f", ordered, {SHARD_ITERS} SQP iterations, ns={SHARD_NS}) vs "
+              f"the in-process blocked solve: bit-identical {same}; max|d| "
+              f"U {d['U']:.3e}, X {d['X']:.3e}, hall_Y {d['hall_Y']:.3e} "
+              f"(caps {TF_TOL_X} / {TF_TOL_U}); status {int(got['status'])},"
+              f" iterations {int(got['it'])}; launches per rank {per_rank}; "
+              f"ms per solve {[round(float(v), 3) for v in got['ms']]} "
+              f"(first includes the ranks' warm-up; in-process blocked "
+              f"{flag[SHARD_ITERS]['ms'][1]:.3f}, one-device "
+              f"{flag[SHARD_ITERS]['ms'][0]:.3f}); {ms_all / 1e3:.1f} s with "
+              f"start-up ({card})", flush=True)
+        if (int(got["status"]) != 0 or int(got["it"]) != SHARD_ITERS
+                or max(d["X"], d["hall_Y"]) > TF_TOL_X or d["U"] > TF_TOL_U
+                or any(r["gp_sample"] < 1 or r["gp_hall"] < 1
+                       or r["ipm_prepare"] or r["ipm_mehrotra"]
+                       or r["qp_group"] != SHARD_ITERS for r in per_rank)):
+            fail(f"shard worker processes ({backend})")
+    if len(runs) == 1:
+        print(f"[shard] NCCL group not run: {torch.cuda.device_count()} "
+              f"card(s); NCCL takes one rank per card", flush=True)
+    return launches
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main():
     try:
         import torch
@@ -2693,6 +3064,9 @@ def main():
     # ---- 21. the design tools in float64 --------------------------------
     phase("tools")
     tools_phase(dev)
+    # ---- 22. the sample-sharded solve ------------------------------------
+    phase("shard")
+    launches_shard = shard_phase(dev)
     results["gp_sample"]["car_samples"] = car_s["timing"]["gp_sample"]
     results["gp_hall"]["car_samples_by_fill"] = car_s["timing"]["gp_hall"]
     results["ipm_prepare"]["drone_pessimistic"] = \
@@ -2750,6 +3124,9 @@ def main():
             "launches_drone_optimistic":
                 drone["optimistic"]["launches"][name],
             "launches_debug_recorded": debug["launches"][name],
+            # the blocked flagship at 3 SQP iterations, all blocks: the
+            # sharded route (IPM kernels off under the group, as in JAX)
+            "launches_shard_blocked": launches_shard[name],
             **{k: r[k] for k in keys},
             **{k: v for k, v in r.items() if k not in keys}})
     # the IPM kernels' wide builds: launches of the car_samples step (its

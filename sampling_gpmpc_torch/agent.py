@@ -22,6 +22,7 @@ from sampling_gpmpc_torch.gp import exact
 from sampling_gpmpc_torch.gp.exact import GPHyperArrays
 from sampling_gpmpc_torch.gp.kernel import kernel_matrix
 from sampling_gpmpc_torch.ops import gp_hall, gp_sample
+from sampling_gpmpc_torch.parallel.collectives import sample_offset
 
 FAR = 1.0e5   # input coordinate of empty hallucination slots
 
@@ -261,7 +262,8 @@ def _batched_posterior_real(spec: ProblemSpec, hyp: GPHyperArrays,
 
 def sample_dynamics(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
                     gp: GPState, Xt: torch.Tensor, eps: torch.Tensor,
-                    hall_empty: bool = False) -> Tuple[torch.Tensor, GPState]:
+                    hall_empty: bool = False,
+                    group=None) -> Tuple[torch.Tensor, GPState]:
     """One SQP iteration's GP function-sample draw + hallucination append.
 
     Mirrors get_batch_gp_sensitivities (ref: src/agent.py:566-627).
@@ -271,6 +273,8 @@ def sample_dynamics(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
         eps: (ns, g_ny, H, Ty) epistemic base draws for this iteration.
         hall_empty: SQP iteration 0, whose buffer is empty: condition on the
             real factor alone; otherwise on each sample's filled buffer too.
+        group: sample-axis group; ``spec.ns`` is then this shard's count,
+            and the debug overrides address global sample indices.
     Returns:
         dg: (ns, g_ny, H, Ty) sampled values(+gradients); updated GPState.
     """
@@ -329,8 +333,11 @@ def sample_dynamics(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
             Xb, Z, Y, mean, cov, eps.reshape(ns, spec.g_ny, H * Ty), hyp, Ty,
             prior_var=pv, dist=dist)
 
+    # the overrides address GLOBAL samples 0 (and 1): under a group they
+    # live on the first shard(s) (JAX agent.py:378-379)
     idx = 0
-    gidx = torch.arange(ns, device=Xt.device)[:, None, None, None]
+    gidx = (sample_offset(group, ns)
+            + torch.arange(ns, device=Xt.device))[:, None, None, None]
     if spec.true_dyn_as_sample:
         dg = torch.where(gidx == idx, true_rows(Xt[0])[None], dg)
         idx += 1

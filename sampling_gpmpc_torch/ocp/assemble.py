@@ -18,6 +18,7 @@ import torch
 
 from sampling_gpmpc_torch.config import ProblemSpec
 from sampling_gpmpc_torch.ocp.spec import OCPData
+from sampling_gpmpc_torch.parallel.collectives import make_reducers
 
 
 class Rows(NamedTuple):
@@ -44,13 +45,18 @@ def row_counts(spec: ProblemSpec):
     return 2 * n_hard, m_s
 
 
-def build_cost(spec: ProblemSpec, ocp: OCPData, T, Gamma, Xbar, Ubar):
+def build_cost(spec: ProblemSpec, ocp: OCPData, T, Gamma, Xbar, Ubar,
+               group=None, ordered: bool = False):
     """Condensed Hessian/gradient of the (expected) tracking cost + LM.
 
     Per stage k and sample i the x-block Hessian is 2 w_i Q_k + lm I and the
     gradient 2 w_i Q_k (x̄+T-xref) + lm T, both pulled through Gamma; the LM
     term regularizes the QP variable dx = T + Gamma dU toward zero like
     acados adds lm*I to every stage Hessian (ref: src/utils/ocp.py:303-306).
+
+    Under a sample-axis ``group`` the per-sample x-contributions are summed
+    over the shards (one tuple-psum) before the replicated input blocks are
+    added once.
     """
     H, nx, nu = spec.H, spec.nx, spec.nu
     nU = H * nu
@@ -63,6 +69,7 @@ def build_cost(spec: ProblemSpec, ocp: OCPData, T, Gamma, Xbar, Ubar):
               * torch.einsum("kab,ikb->ika", Qk, xerr) + ocp.lm * T)
     H_U = torch.einsum("ikau,ikab,ikbv->uv", Gamma, Hx, Gamma)
     g_U = torch.einsum("ikau,ika->u", Gamma, grad_x)
+    H_U, g_U = make_reducers(group, ordered)[0]((H_U, g_U))
     Hu = 2.0 * ocp.Qu + ocp.lm * torch.eye(nu, dtype=dtype, device=dev)
     H_U = H_U + torch.kron(torch.eye(H, dtype=dtype, device=dev), Hu)
     g_U = g_U + (2.0 * Ubar @ ocp.Qu).reshape(nU)

@@ -6,6 +6,13 @@ start at the dual scale, a duals-only warm start, best-KKT tracking and a
 Jacobi-preconditioned Cholesky — all load-bearing (see the JAX package's
 ``ocp/qp.py``).  The algorithm lives in ``ops/ipm.py``: two CUDA kernels for
 problems on the GPU (float32 only), its plain torch version on the CPU.
+
+Under a sample-axis group (``group``: this shard's rows of a sharded QP)
+the solve runs the plain body with the group's reducers on whatever device
+its tensors are on: the counterpart of the JAX package's gate, which turns
+its Pallas IPM off under ``axis_name`` and runs its XLA body
+(``sampling_gpmpc_tpu/ocp/qp.py:273``).  ``ROUTES`` counts the solves of
+each route.
 """
 
 from __future__ import annotations
@@ -14,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from sampling_gpmpc_torch.ops import ipm
+from sampling_gpmpc_torch.ops import build, ipm
 
 # stop after this many iterations without a >= 1 % best-KKT improvement,
 # counted only once complementarity is nearly exhausted (mu < MU_GRIND mu0);
@@ -26,6 +33,9 @@ MU_GRIND = 1e-6
 STATUS_RTOL = 1e3
 # warm-start per-pair complementarity band, multiples of mu_ws
 WS_BAND = (1e-8, 1e12)
+# solves by route: "run_full" (ops/ipm.run_full: kernels 1-2 on CUDA, the
+# plain version on the CPU) and "group" (the plain body under a group)
+ROUTES = {"run_full": 0, "group": 0}
 
 
 class QPSolution(NamedTuple):
@@ -40,7 +50,8 @@ class QPSolution(NamedTuple):
 
 def solve_qp_soft(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
                   tol: float = None, max_iter: int = 150, ws: tuple = None,
-                  ws_valid=None) -> QPSolution:
+                  ws_valid=None, group=None,
+                  ordered: bool = False) -> QPSolution:
     """Solve   min_u  0.5 u'Hu + g'u + sum_j [zl sl + 0.5 Zl sl^2
                                               + zu su + 0.5 Zu su^2]
                s.t.   G_h u <= d_h,   lo_j - sl_j <= G_s u <= hi_j + su_j,
@@ -49,6 +60,10 @@ def solve_qp_soft(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
     ``ws`` is the ``state`` tuple of a previous solve with the same row
     structure and ``ws_valid`` a bool tensor that enables it (HPIPM's
     ``qp_solver_warm_start`` analog, ref: src/utils/ocp.py:310).
+
+    ``group``: the rows (G_h, d_h, the soft rows and their penalties, the
+    warm start's row slots) are this shard's; H, g and u are replicated.
+    ``ordered`` selects the order-defined sums (parallel/collectives.py).
     """
     dtype = g.dtype
     if tol is None:
@@ -58,6 +73,15 @@ def solve_qp_soft(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
                                           zl, zu, Zl, Zu))
     if ws is not None:
         ws = tuple(a.contiguous() for a in ws)
+    if group is not None:
+        # the JAX gate (qp.py:273): no fused IPM under a sample axis
+        build.count(ROUTES, "group")
+        p = ipm.prepare_plain(*args, ws, ws_valid, WS_BAND, group, ordered)
+        best, best_res, it = ipm.mehrotra_plain(
+            p, tol, reg, max_iter, STALL_ITERS, STALL_RTOL, MU_GRIND, group,
+            ordered)
+        return _finish(best, best_res, it, p.scale_h, p.scale_s, tol)
+    build.count(ROUTES, "run_full")
     # CPU tensors take the plain solver; CUDA ones the kernels, or raise
     best, best_res, it, scale_h, scale_s = ipm.run_full(
         *args, ws, ws_valid, tol, reg, max_iter, STALL_ITERS, STALL_RTOL,

@@ -15,6 +15,13 @@ Iteration 0 is peeled (its GP stage runs on an empty buffer).  With
 ``solve_recorded`` is the debug twin of ``solve``: the same iterations,
 step by step, with every iterate, its GP samples, the posterior moments
 they were drawn from and the assembled QP kept.
+
+Under a sample-axis ``group`` (parallel/collectives.py) the same body runs
+shard-local on ``spec.ns`` local samples: the GP stage, linearization,
+condensing and rows stay local; the condensed cost, the QP's row
+reductions and the convergence norms cross shards.  Every host-side branch
+(the iteration test, the IPM's exits) reads a reduced value, so all ranks
+stay in lockstep.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from sampling_gpmpc_torch.ocp.assemble import (build_cost, build_hard_rows,
 from sampling_gpmpc_torch.ocp.condense import condense_parallel as condense
 from sampling_gpmpc_torch.ocp.qp import boxes_to_rows, solve_qp_soft
 from sampling_gpmpc_torch.ocp.spec import OCPData
+from sampling_gpmpc_torch.parallel.collectives import make_reducers
 
 
 class SolveState(NamedTuple):
@@ -63,7 +71,8 @@ MIN_ALPHA = 1.0 / 16.0
 
 
 def consume_step(spec: ProblemSpec, X_it, U_it, X_cand, U_cand, ok,
-                 best_step, stall_count, mono_count, alpha):
+                 best_step, stall_count, mono_count, alpha, group=None,
+                 ordered: bool = False):
     """Post-QP step consumption.
 
     * a failed QP's step is not consumed (ref: src/solver.py:146-151);
@@ -72,15 +81,20 @@ def consume_step(spec: ProblemSpec, X_it, U_it, X_cand, U_cand, ok,
       (floor MIN_ALPHA); RECOVER_WINDOW strict new minima double it back
       toward 1, where the update is the candidate itself;
     * the relative-change convergence test on the raw step
-      (ref: src/solver.py:66-81).
+      (ref: src/solver.py:66-81); under a group the X norms are
+      sqrt(psum(sum(a * a))) over the shards' samples.
 
     Returns (X, U, x_diff, u_diff, done, best_step, stall_count,
     mono_count, alpha).
     """
     dX = X_cand - X_it
     dU = U_cand - U_it
-    x_diff = torch.linalg.norm(dX[:spec.H]) / (
-        torch.linalg.norm(X_it[:spec.H]) + 1e-6)
+    if group is None:
+        norm = torch.linalg.norm
+    else:
+        psum = make_reducers(group, ordered)[0]
+        norm = lambda a: torch.sqrt(psum(torch.sum(a * a)))  # noqa: E731
+    x_diff = norm(dX[:spec.H]) / (norm(X_it[:spec.H]) + 1e-6)
     u_diff = torch.linalg.norm(dU) / (torch.linalg.norm(U_it) + 1e-6)
     sn = x_diff + u_diff
     improved = sn < STALL_SHRINK * best_step
@@ -137,7 +151,7 @@ def _linearization_inputs(spec: ProblemSpec, ocp: OCPData, X, U):
 
 def assemble_qp(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
                 ocp: OCPData, st_curr, X, U, gp: GPState, eps,
-                hall_empty: bool = False):
+                hall_empty: bool = False, group=None, ordered: bool = False):
     """GP sample stage, linearization, condensing and QP assembly of one
     SQP iteration.
 
@@ -145,22 +159,23 @@ def assemble_qp(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
     ``solve_qp_soft`` (H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu).
     """
     return _assemble(spec, env, hyp, ocp, st_curr, X, U, gp, eps,
-                     hall_empty)[:4]
+                     hall_empty, group, ordered)[:4]
 
 
-def _assemble(spec, env, hyp, ocp, st_curr, X, U, gp, eps, hall_empty):
+def _assemble(spec, env, hyp, ocp, st_curr, X, U, gp, eps, hall_empty,
+              group=None, ordered=False):
     """:func:`assemble_qp` and the GP rows ``dg`` and inputs ``Xt``."""
     ns, nx = spec.ns, spec.nx
     xu = _linearization_inputs(spec, ocp, X, U)
     Xt = xu[..., list(spec.g_idx_inputs)]                    # (ns, H, D)
     dg, gp = agent_mod.sample_dynamics(spec, env, hyp, gp, Xt, eps,
-                                       hall_empty=hall_empty)
+                                       hall_empty=hall_empty, group=group)
     val, A, B = agent_mod.dyn_linearization(spec, env, xu, dg, ocp.K_fb)
     # delta dynamics dx_{k+1} = A dx_k + B du_k + r_k, r = f_lin - x̄_{k+1}
     r = val - X[1:].transpose(0, 1)
     dx0 = st_curr[None].expand(ns, nx) - X[0]
     T, Gamma = condense(A, B, r, dx0)
-    H_U, g_U = build_cost(spec, ocp, T, Gamma, X, U)
+    H_U, g_U = build_cost(spec, ocp, T, Gamma, X, U, group, ordered)
     hard = build_hard_rows(spec, ocp, T, Gamma, X, U)
     soft, (zl, zu, Zl, Zu) = build_soft_rows(spec, ocp, T, Gamma, X)
     C_h, d_h = boxes_to_rows(hard.G, hard.lo, hard.hi)
@@ -175,15 +190,17 @@ QP_KEYS = ("H", "g", "C_h", "d_h", "G_s", "lo_s", "hi_s", "zl", "zu",
 def sqp_iteration(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
                   ocp: OCPData, st_curr, X, U, gp: GPState, eps,
                   qp_ws=None, qp_valid=None, return_debug: bool = False,
-                  hall_empty: bool = False):
+                  hall_empty: bool = False, group=None,
+                  ordered: bool = False):
     """One SQP-RTI iteration; returns (X_new, U_new, gp, QPSolution), and
     with ``return_debug`` also {"dg", "Xt", "qp"}: the sampled GP rows,
     the GP inputs and the assembled QP (``QP_KEYS``)."""
     H, nu = spec.H, spec.nu
     qp, T, Gamma, gp, dg, Xt = _assemble(spec, env, hyp, ocp, st_curr, X, U,
-                                         gp, eps, hall_empty)
+                                         gp, eps, hall_empty, group, ordered)
     sol = solve_qp_soft(*qp, tol=(spec.qp_tol if spec.qp_tol > 0 else None),
-                        ws=qp_ws, ws_valid=qp_valid)
+                        ws=qp_ws, ws_valid=qp_valid, group=group,
+                        ordered=ordered)
     dU = sol.z[:H * nu]
     dX = T + torch.einsum("ikau,u->ika", Gamma, dU)          # (ns, H+1, nx)
     X_new, U_new = X + dX.transpose(0, 1), U + dU.reshape(H, nu)
@@ -212,14 +229,16 @@ def _initial_state(spec: ProblemSpec, X0, U0, gp0: GPState, qp_ws,
         alpha=torch.ones((), dtype=dtype, device=dev))
 
 
-def _advance(spec: ProblemSpec, s: SolveState, X_cand, U_cand, gp, sol):
+def _advance(spec: ProblemSpec, s: SolveState, X_cand, U_cand, gp, sol,
+             group=None, ordered=False):
     """The state after one iteration from its candidate step: the one
     update of ``solve`` and ``solve_recorded``.  Returns (SolveState,
     x_diff, u_diff)."""
     ok = sol.status == 0
     (X, U, x_diff, u_diff, done, best_step, stall_count, mono_count,
      alpha) = consume_step(spec, s.X, s.U, X_cand, U_cand, ok, s.best_step,
-                           s.stall_count, s.mono_count, s.alpha)
+                           s.stall_count, s.mono_count, s.alpha, group,
+                           ordered)
     return SolveState(X=X, U=U, X_prev=s.X, U_prev=s.U, gp=gp, it=s.it + 1,
                       status=sol.status, done=done, qp_ws=sol.state,
                       qp_valid=ok, qp_iters=s.qp_iters + sol.iters,
@@ -229,14 +248,16 @@ def _advance(spec: ProblemSpec, s: SolveState, X_cand, U_cand, gp, sol):
 
 
 def _go_on(spec: ProblemSpec, s: SolveState) -> bool:
-    """Whether another iteration runs (syncs on the device)."""
+    """Whether another iteration runs (syncs on the device).  ``done`` and
+    ``status`` are replicated under a group (reduced norms, the QP's
+    reduced residual), so every rank takes the same branch."""
     return (s.it < spec.max_sqp_iter and not bool(s.done)
             and int(s.status) == 0)
 
 
 def solve(spec: ProblemSpec, env: Env, hyp: GPHyperArrays, ocp: OCPData,
           st_curr, X0, U0, gp0: GPState, eps_iters, qp_ws=None,
-          qp_valid=None) -> SolveState:
+          qp_valid=None, group=None, ordered: bool = False) -> SolveState:
     """Full SQP solve for one MPC step.
 
     Args:
@@ -244,20 +265,25 @@ def solve(spec: ProblemSpec, env: Env, hyp: GPHyperArrays, ocp: OCPData,
         X0, U0: warm-start iterate.
         eps_iters: (max_sqp_iter, ns, g_ny, H, Ty) epistemic draws.
         qp_ws, qp_valid: QP warm start from the previous MPC step.
+        group, ordered: sample-axis group and sum mode (module docstring);
+            X0, gp0's hall buffers, eps_iters, ocp.w_cost and qp_ws[1:]
+            are then this shard's.
     """
     s = _initial_state(spec, X0, U0, gp0, qp_ws, qp_valid)
     while True:
         out = sqp_iteration(spec, env, hyp, ocp, st_curr, s.X, s.U, s.gp,
                             eps_iters[s.it], qp_ws=s.qp_ws,
-                            qp_valid=s.qp_valid, hall_empty=s.it == 0)
-        s = _advance(spec, s, *out)[0]
+                            qp_valid=s.qp_valid, hall_empty=s.it == 0,
+                            group=group, ordered=ordered)
+        s = _advance(spec, s, *out, group=group, ordered=ordered)[0]
         if not _go_on(spec, s):
             return s
 
 
 def solve_recorded(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
                    ocp: OCPData, st_curr, X0, U0, gp0: GPState, eps_iters,
-                   qp_ws=None, qp_valid=None, probe_fn=None):
+                   qp_ws=None, qp_valid=None, probe_fn=None, group=None,
+                   ordered: bool = False):
     """Debug twin of :func:`solve` that records every SQP iterate.
 
     The same iterations and stopping rule as ``solve`` (the same kernels
@@ -268,6 +294,8 @@ def solve_recorded(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
     Args:
         probe_fn: optional replacement for the moment probe,
             ``probe_fn(gp, Xt) -> (mean, std)``.
+        group, ordered: as for :func:`solve`; the records hold this
+            shard's samples.
     Returns:
         (SolveState, records): one dict per iteration with X, U (after
         the step), dg, mean, std (None where no GP sample is drawn),
@@ -293,8 +321,9 @@ def solve_recorded(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
         X_cand, U_cand, gp, sol, dbg = sqp_iteration(
             spec, env, hyp, ocp, st_curr, s.X, s.U, s.gp, eps_iters[s.it],
             qp_ws=s.qp_ws, qp_valid=s.qp_valid, return_debug=True,
-            hall_empty=s.it == 0)
-        s, x_diff, u_diff = _advance(spec, s, X_cand, U_cand, gp, sol)
+            hall_empty=s.it == 0, group=group, ordered=ordered)
+        s, x_diff, u_diff = _advance(spec, s, X_cand, U_cand, gp, sol,
+                                     group, ordered)
         records.append({
             "X": s.X, "U": s.U, "dg": dbg["dg"], "mean": mean, "std": std,
             "x_diff": float(x_diff), "u_diff": float(u_diff),

@@ -173,7 +173,7 @@ def _chol_launch(A3: torch.Tensor) -> torch.Tensor:
         rc = fn(A3.data_ptr(), out.data_ptr(), B, n, chol_smem_bytes(n),
                 torch.cuda.current_stream(A3.device).cuda_stream)
     build.check(rc, "batch_chol launch")
-    LAUNCHES["chol"] += 1
+    build.count(LAUNCHES, "chol")
     return out
 
 
@@ -194,7 +194,7 @@ def _tri_launch(L3, R3, lower: bool) -> torch.Tensor:
                 int(lower), nt, int(warp_diag), tri_smem_bytes(n, m),
                 torch.cuda.current_stream(R3.device).cuda_stream)
     build.check(rc, "batch_tri_solve launch")
-    LAUNCHES["tri_solve"] += 1
+    build.count(LAUNCHES, "tri_solve")
     return out
 
 

@@ -74,5 +74,5 @@ def batched_cholesky(A: torch.Tensor, jitter: float = 0.0,
         rc = fn(A3.data_ptr(), out.data_ptr(), B, n, float(jitter),
                 smem_bytes(n), torch.cuda.current_stream(A.device).cuda_stream)
     build.check(rc, "batched_chol launch")
-    LAUNCHES["batched_chol"] += 1
+    build.count(LAUNCHES, "batched_chol")
     return out.reshape(A.shape)

@@ -252,5 +252,5 @@ def sample_hall(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
                 float(var_zero), float(rel_floor), smem, int(glob),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "gp_hall_sample launch")
-    LAUNCHES["gp_hall"] += 1
+    build.count(LAUNCHES, "gp_hall")
     return dg

@@ -252,5 +252,5 @@ def sample_empty(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
                 float(var_zero), float(rel_floor), *map(int, glob), stride,
                 smem, torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "gp_sample_empty launch")
-    LAUNCHES["gp_sample"] += 1
+    build.count(LAUNCHES, "gp_sample")
     return dg

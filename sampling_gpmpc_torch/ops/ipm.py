@@ -45,6 +45,8 @@ from typing import NamedTuple
 import torch
 
 from sampling_gpmpc_torch.ops import build
+from sampling_gpmpc_torch.parallel.collectives import (group_size,
+                                                       make_reducers)
 
 LAUNCHES = {"ipm_prepare": 0, "ipm_mehrotra": 0}
 # the launches of LAUNCHES that went to the wide builds (nU > NU_NARROW)
@@ -114,41 +116,69 @@ class Prepared(NamedTuple):
     warm: torch.Tensor = None  # bool: st0 is the warm start (None: no carried duals)
 
 
-def _compl_sum(st):
+# the reducers without a group (make_reducers(None)): identities
+_NO_GROUP = make_reducers(None)
+
+
+def _compl_local(st):
     _, sl, su, th, lh_, tU, lU, tL, lL, nl, nu_ = st
     return (torch.dot(th, lh_) + torch.dot(tU, lU) + torch.dot(tL, lL)
             + torch.dot(sl, nl) + torch.dot(su, nu_))
 
 
-def _m_total(p: Prepared) -> int:
-    return p.d_h.shape[0] + 4 * p.lo_s.shape[0]
+def _compl_sum(st, psum=_NO_GROUP[0]):
+    return psum(_compl_local(st))
 
 
-def _stationarity(p: Prepared, st):
-    u, lh_, lU, lL = st[0], st[4], st[6], st[8]
-    return p.H @ u + p.g + (p.G_h.T @ lh_ + p.G_s.T @ (lU - lL))
+def _m_total(p: Prepared, world: int = 1) -> int:
+    """Complementarity pairs over every shard (equal row counts each)."""
+    return (p.d_h.shape[0] + 4 * p.lo_s.shape[0]) * world
 
 
-def _kkt_residual(p: Prepared, st):
+def _dual_rows(p: Prepared, st):
+    """The row part of the stationarity residual, G_h' lh + G_s' (lU - lL)
+    (a shard's partial under a group)."""
+    lh_, lU, lL = st[4], st[6], st[8]
+    return p.G_h.T @ lh_ + p.G_s.T @ (lU - lL)
+
+
+def _stationarity(p: Prepared, st, psum=_NO_GROUP[0]):
+    return p.H @ st[0] + p.g + psum(_dual_rows(p, st))
+
+
+def _kkt_residual(p: Prepared, st, red=_NO_GROUP, world: int = 1):
     """Relative KKT residual: stationarity in units of qscale, primal rows
-    relative to their bound magnitude, complementarity per row."""
+    relative to their bound magnitude, complementarity per row.  Under a
+    group the dual rows and the complementarity ride one tuple-psum and the
+    primal rows' maximum a pmax (JAX ``ocp/qp.py::kkt_parts``)."""
+    psum, _, pmax = red
     u, sl, su, th, lh_, tU, lU, tL, lL, nl, nu_ = st
-    r_stat = torch.max(torch.abs(_stationarity(p, st))) / p.qscale
+    r1_s, compl = psum((_dual_rows(p, st), _compl_local(st)))
+    r_stat = torch.max(torch.abs(p.H @ u + p.g + r1_s)) / p.qscale
     rp = [(p.G_h @ u + th - p.d_h) * (1.0 / (1.0 + torch.abs(p.d_h)))]
     if p.lo_s.shape[0]:
         rp += [(p.G_s @ u - su + tU - p.hi_s)
                * (1.0 / (1.0 + torch.abs(p.hi_s))),
                (-(p.G_s @ u) - sl + tL + p.lo_s)
                * (1.0 / (1.0 + torch.abs(p.lo_s)))]
-    r_prim = torch.max(torch.abs(torch.cat(rp)))
+    r_prim = pmax(torch.max(torch.abs(torch.cat(rp))))
     return torch.maximum(torch.maximum(r_stat, r_prim),
-                         _compl_sum(st) / (_m_total(p) * p.qscale))
+                         compl / (_m_total(p, world) * p.qscale))
 
 
 def prepare_plain(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
-                  ws, ws_valid, ws_band) -> Prepared:
+                  ws, ws_valid, ws_band, group=None,
+                  ordered: bool = False) -> Prepared:
     """Plain version of the prepare kernel: row equilibration, qscale, the
-    cold start and the duals-only warm start with its acceptance test."""
+    cold start and the duals-only warm start with its acceptance test.
+
+    ``group``: the rows are this shard's of a sample-sharded QP (H, g and
+    the warm start's u replicated); qscale is pmax-ed, the warm start's
+    dual residual psum-ed and the acceptance residuals reduced, at the
+    places of the JAX package's XLA body (``ocp/qp.py:318``, ``:410``)."""
+    red = make_reducers(group, ordered)
+    psum, _, pmax = red
+    world = group_size(group)
     nU = g.shape[0]
     dtype, dev = g.dtype, g.device
     m_s = lo_s.shape[0]
@@ -164,7 +194,9 @@ def prepare_plain(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
     lo_s, hi_s = lo_s / scale_s, hi_s / scale_s
     zl, zu = zl * scale_s, zu * scale_s
     Zl, Zu = Zl * scale_s * scale_s, Zu * scale_s * scale_s
-    qscale = 1.0 + torch.max(torch.abs(g)) + torch.clamp(_amax(zl), min=0.0)
+    # zl is scaled by shard-local row norms: qscale must agree across shards
+    qscale = pmax(1.0 + torch.max(torch.abs(g))
+                  + torch.clamp(_amax(zl), min=0.0))
 
     # central-path cold start at the dual scale: s * lam = mu0 per pair
     mu0 = qscale
@@ -189,8 +221,9 @@ def prepare_plain(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
     nl_w, nu_w = nl_w * scale_s, nu_w * scale_s
     # staleness of the carried pair under the current data sets the warm
     # complementarity target
-    rq = torch.max(torch.abs(_stationarity(
-        p, (u_w, None, None, None, lh_w, None, lU_w, None, lL_w)))) / qscale
+    rq = pmax(torch.max(torch.abs(_stationarity(
+        p, (u_w, None, None, None, lh_w, None, lU_w, None, lL_w),
+        psum)))) / qscale
     tau = torch.clamp(rq, 1e-4, 1.0)
     mu_ws = mu0 * tau
     lo_b, hi_b = ws_band[0] * mu_ws, ws_band[1] * mu_ws
@@ -208,23 +241,36 @@ def prepare_plain(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
     st_w = (u0, sl_w, su_w, th_w, lh_w, tU_w, lU_w, tL_w, lL_w, nl_w, nu_w)
     valid = torch.ones((), dtype=torch.bool, device=dev) \
         if ws_valid is None else torch.as_tensor(ws_valid, device=dev)
-    valid = valid & (rq < 1e-2) & (_kkt_residual(p, st_w)
-                                   <= _kkt_residual(p, st0))
+    valid = valid & (rq < 1e-2) & (_kkt_residual(p, st_w, red, world)
+                                   <= _kkt_residual(p, st0, red, world))
     return p._replace(st0=tuple(torch.where(valid, w, c)
                                 for w, c in zip(st_w, st0)), warm=valid)
 
 
 def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
-                   stall_iters: int, stall_rtol: float, mu_grind: float):
+                   stall_iters: int, stall_rtol: float, mu_grind: float,
+                   group=None, ordered: bool = False):
     """Plain version of the Mehrotra loop kernel.
+
+    ``group``: the rows of ``p`` are this shard's of a sample-sharded QP.
+    The reducers sit where the JAX package's XLA body has them
+    (``ocp/qp.py:304-553``): one tuple-psum of the dual residual and both
+    Schur contributions, one of the two right-hand-side parts, psums of the
+    complementarity, pmin of the step ratios and of the finiteness flag,
+    pmax of the primal residual; the complementarity pairs count every
+    shard's rows.  Every host-side branch reads a reduced value, so every
+    rank issues the same collectives in the same order.
 
     Returns ``(best_state_11tuple, best_res, iters)``.
     """
+    red = make_reducers(group, ordered)
+    psum, pmin, _ = red
     H, g, G_h, d_h, G_s = p.H, p.g, p.G_h, p.d_h, p.G_s
     lo_s, hi_s, zl, zu, Zl, Zu = p.lo_s, p.hi_s, p.zl, p.zu, p.Zl, p.Zu
     dtype, dev = g.dtype, g.device
     m_s = lo_s.shape[0]
-    m_total = _m_total(p)
+    world = group_size(group)
+    m_total = _m_total(p, world)
     mu0 = p.qscale
 
     def max_step(st, d):
@@ -234,14 +280,13 @@ def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
                 ratio = torch.where(dv < 0, -v / torch.where(dv < 0, dv, -1.0),
                                     torch.full_like(v, float("inf")))
                 a = torch.minimum(a, torch.min(ratio))
-        return 0.99 * a
+        return 0.99 * pmin(a)
 
     def factorize(st):
         u, sl, su, th, lh_, tU, lU, tL, lL, nl, nu_ = st
         w_h = lh_ / th
         rp_h = G_h @ u + th - d_h
-        r1 = _stationarity(p, st)
-        M = H + (G_h.T * w_h) @ G_h
+        Mh = (G_h.T * w_h) @ G_h
         soft = None
         if m_s:
             w_U, w_L = lU / tU, lL / tL
@@ -253,8 +298,15 @@ def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
             Dl = Zl + w_L + w_Pl
             Du = Zu + w_U + w_Pu
             w_eff = w_U + w_L - w_U * w_U / Du - w_L * w_L / Dl
-            M = M + (G_s.T * w_eff) @ G_s
             soft = (w_U, w_L, w_Pl, w_Pu, rp_U, rp_L, r2, r3, Dl, Du)
+            # one round trip: dual residual and both Schur contributions
+            r1_s, Mh, Ms = psum((_dual_rows(p, st), Mh,
+                                 (G_s.T * w_eff) @ G_s))
+            M = H + Mh + Ms
+        else:
+            r1_s, Mh = psum((_dual_rows(p, st), Mh))
+            M = H + Mh
+        r1 = H @ u + g + r1_s
         inv_s, L = _precond_factor(M, reg)
         return w_h, rp_h, r1, soft, inv_s, L
 
@@ -263,7 +315,7 @@ def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
         w_h, rp_h, r1, soft, inv_s, L = aux
         ch, cU, cL, cPl, cPu = corr if corr is not None else (0.,) * 5
         b_h = (lh_ * th - sig_mu + ch) / th
-        rhs = -r1 + G_h.T @ (b_h - w_h * rp_h)
+        rhs_h = G_h.T @ (b_h - w_h * rp_h)
         if m_s:
             (w_U, w_L, w_Pl, w_Pu, rp_U, rp_L, r2, r3, Dl, Du) = soft
             b_U = (lU * tU - sig_mu + cU) / tU
@@ -274,7 +326,10 @@ def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
             cu = -r3 - b_U - b_Pu + w_U * rp_U
             const_s = (-b_U + b_L + w_U * rp_U - w_L * rp_L
                        - w_U * cu / Du + w_L * cl / Dl)
-            rhs = rhs - G_s.T @ const_s
+            rhs_h, rhs_s = psum((rhs_h, G_s.T @ const_s))
+            rhs = -r1 + rhs_h - rhs_s
+        else:
+            rhs = -r1 + psum(rhs_h)
         du = _precond_solve(inv_s, L, rhs)
         dth = -(G_h @ du) - rp_h
         dlh = -b_h - w_h * dth
@@ -296,29 +351,30 @@ def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
     best_res = torch.tensor(float("inf"), dtype=dtype, device=dev)
     it, since = 0, 0
     while it < max_iter:
-        mu = _compl_sum(st) / m_total
+        mu = _compl_sum(st, psum) / m_total
         aux = factorize(st)
         d_aff = direction(st, aux, 0.0, None)
         a_aff = max_step(st, d_aff)
-        mu_aff = _compl_sum(tuple(v + a_aff * dv
-                                  for v, dv in zip(st, d_aff))) / m_total
+        st_aff = tuple(v + a_aff * dv for v, dv in zip(st, d_aff))
+        mu_aff = _compl_sum(st_aff, psum) / m_total
         sigma = torch.clamp((mu_aff / mu) ** 3, 0.0, 1.0)
         corr = (d_aff[4] * d_aff[3], d_aff[6] * d_aff[5], d_aff[8] * d_aff[7],
                 d_aff[9] * d_aff[1], d_aff[10] * d_aff[2])
         d = direction(st, aux, sigma * mu, corr)
         alpha = max_step(st, d)
         st_n = tuple(v + alpha * dv for v, dv in zip(st, d))
-        ok = all(bool(torch.isfinite(v).all()) for v in st_n)
+        ok = bool(pmin(torch.stack([torch.isfinite(v).all() for v in st_n])
+                       .all().to(torch.int32)) > 0)
         it += 1
         if ok:
             st = st_n
-        res = (_kkt_residual(p, st) if ok
+        res = (_kkt_residual(p, st, red, world) if ok
                else torch.full_like(best_res, float("inf")))
         if bool(res < best_res):
             best = st
         meaningful = bool(res < best_res * (1.0 - stall_rtol))
         best_res = torch.minimum(res, best_res)
-        mu_new = _compl_sum(st) / m_total
+        mu_new = _compl_sum(st, psum) / m_total
         grinding = bool(mu_new < mu_grind * mu0)
         since = 0 if (meaningful or not grinding) else since + 1
         live = ok and bool(mu_new > 1e-14 * mu0)
@@ -591,9 +647,9 @@ def prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws, ws_valid,
                   lay.chunk, int(lay.resident), lay.smem,
                   torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "ipm_prepare launch")
-    LAUNCHES["ipm_prepare"] += 1
+    build.count(LAUNCHES, "ipm_prepare")
     if nU > NU_NARROW:
-        LAUNCHES_WIDE["ipm_prepare"] += 1
+        build.count(LAUNCHES_WIDE, "ipm_prepare", tally=False)
     return Device(H=H, g=g, Gth=buf["Gth"].view(nU, m_h),
                   Gts=buf["Gts"].view(nU, m_s), dh=buf["dh"].view(2, m_h),
                   sd=buf["sd"].view(8, m_s), h0=buf["h0"].view(2, m_h),
@@ -652,9 +708,9 @@ def mehrotra(d: Device, tol: float, reg: float, max_iter: int,
                   lay.chunk, int(lay.resident), lay.group, lay.smem,
                   torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "ipm_mehrotra launch")
-    LAUNCHES["ipm_mehrotra"] += 1
+    build.count(LAUNCHES, "ipm_mehrotra")
     if nU > NU_NARROW:
-        LAUNCHES_WIDE["ipm_mehrotra"] += 1
+        build.count(LAUNCHES_WIDE, "ipm_mehrotra", tally=False)
     best = (bu, bs[2], bs[3], bh[0], bh[1], bs[0], bs[4], bs[1], bs[5],
             bs[6], bs[7])
     return best, bres[0], bit[0]

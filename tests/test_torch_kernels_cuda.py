@@ -676,3 +676,30 @@ def test_sample_complexity_matches_cpu(dev):
     pc = sc.small_ball_probability(*p, 0.05, n, device=cpu)
     sd = np.sqrt((pk * (1 - pk) + pc * (1 - pc)) / n)
     assert 0.0 < pk < 1.0 and abs(pk - pc) <= 5 * sd
+
+
+def test_blocked_solve_matches_one_device_flagship(dev):
+    """The in-process blocked solve (4 blocks of 16, ordered sums, one
+    CUDA stream per block) at the flagship shape, params_pendulum1D_
+    samples at ns = 64, one RTI iteration: status 0 like the one-device
+    kernel solve and within the pendulum's float32 caps of it (0.5 in X,
+    5.0 in U); every block ran gp_sample and took the group QP route, and
+    no IPM kernel ran (the JAX gate keeps it off under a sample axis)."""
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.parallel.sharded import make_blocked_solve
+    from sampling_gpmpc_torch.parallel.worker import problem
+    spec, env, hyp, ocp, gp, X0, U0, st, eps = problem(
+        "params_pendulum1D_samples", 64, 1, dev, torch.float32)
+    ref = sqp.solve(spec, env, hyp, ocp, st, X0, U0, gp, eps)
+    before = dict(ipm.LAUNCHES)
+    blocked = make_blocked_solve(spec, env, hyp, ocp, 4)
+    out = blocked(st, X0, U0, gp, eps)
+    torch.cuda.synchronize()
+    assert ipm.LAUNCHES == before
+    assert int(out.status) == int(ref.status) == 0 and out.it == 1
+    assert bool(torch.isfinite(out.X).all())
+    assert float((out.X - ref.X).abs().max()) <= 0.5
+    assert float((out.U - ref.U).abs().max()) <= 5.0
+    for b in blocked.group.launches:
+        assert b.get("gp_sample") == 1 and b.get("group") == 1, b
+        assert not b.get("ipm_prepare") and not b.get("run_full"), b
