@@ -183,6 +183,36 @@ the sample-sharded solve (sampling_gpmpc_torch/parallel/):
              gp_hall launches and the QP routes (the IPM kernels stay off
              under the group, as the JAX gate has it), ms per solve of
              every route;
+the evaluation side:
+23. gt     — the Monte-Carlo ground truth (sampling_gpmpc_torch.
+             simulate_true_reachable_set) of params_pendulum1D_samples'
+             step-0 plan: 1000 repeats x 70 realizations x 17 steps in one
+             float32 rollout, its sampled steps/s and peak device memory;
+             the first 256 realizations against float64 on the same draws
+             (the fs bars); the plan's coverage and hull-volume ratio per
+             stage, and on the first 100 repeats against float64 on the
+             CPU on the same draws;
+24. baselines — B5 (linearization_baseline) and B6 (robust_tube_baseline)
+             on params_car_residual over 30 steps, float64 on the card
+             against the CPU to 1e-9 and float32 within twice the JAX
+             package's own float32 envelope; E7 and E10 (examples/) on the
+             card against the CPU;
+25. band   — the float32 status band (status_band) of params_pendulum1D_
+             samples (55 steps), params_pendulum (40) and params_car (50 of
+             its 130, as the JAX table) through sqp.solve_recorded: each config's band table, every QP through
+             the IPM kernels and every GP stage through gp_sample/gp_hall
+             (launches per config, the QP routes);
+26. mean   — params_car with mean_as_dyn_sample: its GP stage on the card
+             (the reference body, the JAX gate's rule) against float64 on
+             the CPU by the tube criterion, and one solve with no GP kernel
+             and both IPM kernels launched;
+27. xqp    — the generic solve_qp on qp_car_h100.npz's canonical form
+             (assemble_canonical) in float64 on the card against the
+             float64 optimum, and the kernel route of solve_qp_soft
+             against it;
+28. traffic — collective_traffic: the blocked route and 4 processes over
+             gloo count the same collective rounds and bytes, by reducer
+             and scope, with the one-device compute per SQP iteration;
 then one JSON line listing the kernels, the card line, and the contract
 line {"ok": true, "device": {...}}.
 """
@@ -426,6 +456,92 @@ SHARD_PROCS, SHARD_REPEATS, SHARD_PROC_TIMEOUT = 4, 2, 300
 DRONE_CONFIG = os.path.join(HERE, "params",
                             "params_drone_obstacles_approx.yaml")
 DRONE_GOLDEN = os.path.join(HERE, "tests", "goldens", "torch_oracle_drone.npz")
+# The evaluation side (phases gt, baselines, band, mean, xqp, traffic).
+# Phase gt: the Monte-Carlo ground truth (B1) of params_pendulum1D_samples'
+# step-0 plan (tests/goldens/oracle_pendulum1d_flagship.npz: plan_U_traj[0]
+# from physical_state_traj[0]), GT_REPEATS repeats of its ns = 70
+# realizations over H = 17 steps in one rollout, float32, on chunk 0's
+# draws.  Its first GT_F64_NS realizations are held against float64 on the
+# card on the same draws by the forward-sampling bars (FS_REAL_TOL,
+# FS_ENV_TOL, at most one non-finite realization in 4000).  The plan's
+# coverage of the truth and its hull-volume ratio are printed per stage,
+# and on the first GT_CPU_REPEATS repeats held against float64 on the CPU
+# on the same draws: on the stages whose truth hull has a volume, coverage
+# within GT_COV_TOL and the volume ratio within GT_VOL_RTOL relative.  The
+# CPU's float32 against its float64 reads 0 and 6.0e-4 there
+# (tests/test_torch_reach_gt.py::test_f32_coverage_bar, 7000 truth points
+# a stage), so the bars are 35 of 7000 points and about 17 times the
+# ratio's reading.  A degenerate truth (stage 1: the shared start moves
+# deterministically) scores by the bounding interval, whose 1e-9 pad lies
+# below float32's resolution: it reads 0 in float32 against 1 in float64,
+# and is printed, not held.
+GT_CONFIG = "params_pendulum1D_samples"
+GT_REPEATS, GT_F64_NS, GT_CPU_REPEATS = 1000, 256, 100
+GT_COV_TOL, GT_VOL_RTOL = 0.005, 0.01
+# Phase baselines: B5 and B6 on params_car_residual over BASE_STEPS steps
+# of the golden plan's inputs (tests/goldens/params_car_residual.npz),
+# float32 and float64 on the card against float64 on the CPU.  In float64
+# the card holds to BASE_F64_RTOL relative, and the tube's shapes (up to
+# the freeze) to BASE_TUBE_RTOL: the recursion grows them by 1e3-1e5 a
+# step, so the shapes of the CPU's own float64 tube move 3.38e-8 relative
+# when the start moves by 1e-15 relative (tests/test_torch_baselines.py::
+# test_tube_float64_floor); the bar is about ten times that floor.  Float32 is the reference's own
+# weak point: the JAX package's float32 path leaves its float64 path by
+# 6.12e-2 (B5 means), 1.31e-1 (B5 covariances), 8.61e-2 (l_mu), 1.79e-1
+# (l_sigma) and 1.68e-1 (tube centers), relative to each quantity's
+# largest magnitude, and its tube overflows float32 and freezes at step 7
+# where float64's freezes at step 10 (tests/test_torch_baselines.py::
+# test_f32_envelope_vs_jax, on the CPU).  The card's float32 is held to
+# ENV_FACTOR times those readings; its tube's shapes only to be finite
+# and frozen.  E7 and E10 run on the card in float64: E7's draws at the
+# points to 1e-10 and on the grid to E7_GRID_TOL against the CPU's (the
+# grid draws' own float64 floor is 4.9e-9, tests/test_torch_examples.py),
+# E10's two assertions and its gain to 1e-10 relative.
+BASE_CONFIG, BASE_STEPS, BASE_F64_RTOL = "params_car_residual", 30, 1e-9
+BASE_TUBE_RTOL = 3e-7
+BASE_JAX_F32 = {"means": 6.12e-2, "covs": 1.31e-1, "l_mu": 8.61e-2,
+                "l_sig": 1.79e-1, "centers": 1.68e-1}
+E7_GRID_TOL = 5e-8
+# Phase mean: params_car (ns = 20) with mean_as_dyn_sample, golden step
+# CAR_STEP's iterate and draws: the GP stage on the card (the reference
+# body, float32) against the same stage in float64 on the CPU, SQP
+# iteration 0 and iteration 1 (the card's hall rows): the mean sample
+# within DEBUG_MOMENT_TOL / DEBUG_HALL_MOMENT_TOL of the tube width from
+# the float64 posterior mean (the CPU's float32 reads 4.4e-5 and 6.7e-5),
+# no draw outside the tube, and every draw within MEAN_REL_TOL of the tube
+# width from its float64 evaluation: the float32 draws pass through the
+# Cholesky factor of the float32 posterior covariance, which leaves them
+# 0.280 and 0.303 of the tube from float64 on the CPU (tests/
+# test_torch_mean_route.py::test_f32_mean_route_bar; phase pend2d reads
+# 0.35-0.59 for its own stages), so the bar is one tube width, whose
+# sigma_n covers that floor.  Then one solve with the counters zeroed: no
+# GP kernel, both IPM kernels.
+MEAN_REL_TOL = 1.0
+# Phase xqp: the generic solve_qp (ocp/qp.py, plain torch) on the card on
+# tests/goldens/qp_car_h100.npz's canonical form (assemble_canonical:
+# nz = 10220, 20440 rows), float64, XQP_ITERS iterations: its objective
+# within XQP_OBJ_RTOL of the stored float64 optimum's, no hard row
+# violated.  Its status is printed, not held: the generic IPM (the JAX
+# package's algorithm, which returns its last iterate and has no
+# best-iterate tracking) reaches the optimum's objective on this 1e6-penalty
+# QP but its KKT measure wanders above the 1e-8 exit (the JAX package's own
+# solve_qp reads status 4 after 150 iterations on the golden's first 300
+# and 1200 soft rows, 2.4e-10 from the port's, on the CPU).  On all 5010
+# rows this phase read on an H100, with XQP_ITERS at 70, 100 and 150, an
+# objective 3.4e-2 above the stored optimum's (not yet there, status 4),
+# 1.9e-7 below it (status 0) and 1.9e-7 below it (status 4): XQP_ITERS is
+# 100, about 15 s.  Against it, the kernel route of solve_qp_soft
+# (float32): its objective excess within XQP_KERNEL_EXCESS, ten times the
+# 2.0e-4 that the JAX package's float32 solve and the plain version read
+# (phase qp_car_h100).
+XQP_ITERS, XQP_OBJ_RTOL, XQP_KERNEL_EXCESS = 100, 1e-6, 2e-3
+# Phase band: the status band's closed loops, each its config's whole loop
+# but params_car's, cut to the 50 steps of the JAX package's own table
+# (BENCH_NOTES.md, "f32 status-0 acceptance band").
+BAND_STEPS = {"params_car": 50}
+# Phase traffic: collective_traffic's table on the card: the blocked route
+# (SHARD_BLOCKS blocks) and SHARD_PROCS processes over gloo at ns =
+# SHARD_NS, 3 forced SQP iterations, counting the same rounds and bytes.
 
 
 def fail(msg):
@@ -2558,6 +2674,456 @@ def shard_phase(dev):
     return launches
 
 
+def gt_draws(spec, T, repeats):
+    """Chunk 0's draws of the ground truth CLI, float64 on the CPU."""
+    import torch
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch.simulate_true_reachable_set import \
+        chunk_generator
+    return agent.truncated_normal(
+        (T, repeats * spec.ns, spec.g_ny, 1, spec.Ty), spec.gp.beta,
+        chunk_generator(spec.seed, 0), torch.device("cpu"), torch.float64)
+
+
+def gt_rollout(spec, env, data, U, x0, eps, repeats, dev, dtype):
+    """The ground truth's batched rollout: (repeats, T+1, ns, nx)."""
+    import dataclasses as dc
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch import simulate_true_reachable_set as gt
+    from sampling_gpmpc_torch.gp.exact import GPHyperArrays
+    hyp = GPHyperArrays.from_spec(spec.gp, dev, dtype)
+    gp0 = agent.init_gp_state(dc.replace(spec, ns=repeats * spec.ns), env,
+                              dev, dtype, capacity=len(U), hyp=hyp)
+    return gt.batch_rollout(spec, env, hyp, gp0, x0, U, repeats,
+                            use_feedback=gt.feedback(spec, data),
+                            eps=eps.to(dev, dtype))
+
+
+def gt_coverage_compare(pred, X_a, X_b, nx):
+    """Coverage tables of the plan ``pred`` (T+1, ns, nx) against two
+    ground truths (repeats, T+1, ns, nx) and their largest differences on
+    the stages whose truth hull has a volume: (rows_a, rows_b, d_cov,
+    d_vol_rel, degenerate stages)."""
+    import numpy as np
+    from sampling_gpmpc_torch.reachable_set_coverage import coverage_table
+    st = lambda X: np.transpose(X, (1, 0, 2, 3)).reshape(  # noqa: E731
+        X.shape[1], -1, nx)
+    ra, rb = coverage_table(pred, st(X_a)), coverage_table(pred, st(X_b))
+    d_cov = d_vol = 0.0
+    degenerate = []
+    for a, b in zip(ra, rb):
+        if a["vol_ratio"] is None or b["vol_ratio"] is None:
+            degenerate.append(a["stage"])
+            continue
+        d_cov = max(d_cov, abs(a["coverage"] - b["coverage"]))
+        d_vol = max(d_vol, abs(a["vol_ratio"] - b["vol_ratio"])
+                    / b["vol_ratio"])
+    return ra, rb, d_cov, d_vol, degenerate
+
+
+def gt_phase(dev):
+    """The Monte-Carlo ground truth (B1) at full width on the card."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch.config import load_problem
+    from sampling_gpmpc_torch.envs import make_env
+    from sampling_gpmpc_torch.reachability import forward_sample_rollout
+    from sampling_gpmpc_torch.gp.exact import GPHyperArrays
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch import simulate_true_reachable_set as gtm
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    g = np.load(GOLDEN)
+    params, spec, data = load_problem(
+        os.path.join(HERE, "params", GT_CONFIG + ".yaml"))
+    env = make_env(spec, params)
+    U, x0, pred = g["plan_U_traj"][0], g["physical_state_traj"][0], \
+        g["plan_X_traj"][0]
+    T, R, ns = len(U), GT_REPEATS, spec.ns
+    eps = gt_draws(spec, T, R)
+    walls = []
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(2):                      # the second run warm
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        X32 = gt_rollout(spec, env, data, U, x0, eps, R, dev, f32)
+        X32 = X32.cpu().numpy()              # waits for the device
+        walls.append(time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    rate = R * ns * T / walls[1]
+    # the first GT_F64_NS realizations in float64 on the card, same draws
+    spec64 = dataclasses.replace(spec, ns=GT_F64_NS)
+    hyp64 = GPHyperArrays.from_spec(spec.gp, dev, f64)
+    gp64 = agent.init_gp_state(spec64, env, dev, f64, capacity=T, hyp=hyp64)
+    X64, _ = forward_sample_rollout(
+        spec64, env, hyp64, gp64, x0, U, use_feedback=gtm.feedback(spec,
+                                                                    data),
+        eps=eps[:, :GT_F64_NS].to(dev))
+    X64 = X64.cpu().numpy()
+    flat = np.transpose(X32, (1, 0, 2, 3)).reshape(T + 1, R * ns, spec.nx)
+    head = flat[:, :GT_F64_NS]
+    ok = np.isfinite(head).all(axis=(0, 2))
+    per_real = float(np.max(np.abs(head[:, ok] - X64[:, ok])))
+    env_err = float(max(np.max(np.abs(head[:, ok].max(1) - X64.max(1))),
+                        np.max(np.abs(head[:, ok].min(1) - X64.min(1)))))
+    nonfinite = int((~np.isfinite(flat).all(axis=(0, 2))).sum())
+    print(f"[gt] {GT_CONFIG} step-0 plan: {R} repeats x {ns} realizations x "
+          f"{T} steps in one rollout, float32: {walls[1]:.3f} s warm "
+          f"({walls[0]:.3f} s first), {rate:.0f} sampled steps/s, peak "
+          f"device memory {peak:.3f} GiB above the phase's start, "
+          f"non-finite realizations "
+          f"{nonfinite} of {R * ns}", flush=True)
+    print(f"[gt] first {GT_F64_NS} realizations vs float64 on the card, same "
+          f"draws: {per_real:.3e} per realization (tol {FS_REAL_TOL}), "
+          f"envelope {env_err:.3e} (tol {FS_ENV_TOL})", flush=True)
+    if (nonfinite > R * ns // 4000 or per_real > FS_REAL_TOL
+            or env_err > FS_ENV_TOL):
+        fail("gt: the float32 ground truth leaves float64")
+    # coverage of the plan: the card's whole truth, and its first
+    # GT_CPU_REPEATS repeats against float64 on the CPU on the same draws
+    t0 = time.perf_counter()
+    Xc = gt_rollout(spec, env, data, U, x0, eps[:, :GT_CPU_REPEATS * ns],
+                    GT_CPU_REPEATS, cpu, f64).numpy()
+    cpu_s = time.perf_counter() - t0
+    full = gt_coverage_compare(pred, X32, X32, spec.nx)[0]
+    ra, rb, d_cov, d_vol, degen = gt_coverage_compare(
+        pred, X32[:GT_CPU_REPEATS], Xc, spec.nx)
+    fmt = lambda v: "-" if v is None else f"{v:.4f}"  # noqa: E731
+    print("[gt] stage: coverage / volume ratio of the plan, card float32 "
+          f"{R} repeats | card float32 {GT_CPU_REPEATS} repeats | CPU "
+          f"float64 {GT_CPU_REPEATS} repeats ({cpu_s:.1f} s)", flush=True)
+    for f, a, b in zip(full, ra, rb):
+        print(f"[gt]   {f['stage']:2d}: {f['coverage']:.4f} / "
+              f"{fmt(f['vol_ratio'])} | {a['coverage']:.4f} / "
+              f"{fmt(a['vol_ratio'])} | {b['coverage']:.4f} / "
+              f"{fmt(b['vol_ratio'])}", flush=True)
+    print(f"[gt] card vs CPU on {GT_CPU_REPEATS} repeats, stages with a "
+          f"truth volume: coverage {d_cov:.4f} (tol {GT_COV_TOL}), volume "
+          f"ratio {d_vol:.3e} relative (tol {GT_VOL_RTOL}); degenerate "
+          f"stages {degen} printed, not held", flush=True)
+    if d_cov > GT_COV_TOL or d_vol > GT_VOL_RTOL:
+        fail("gt: the card's coverage disagrees with the CPU's float64")
+    return dict(rate=rate, wall=walls[1], peak=peak, coverage=full)
+
+
+def _rel(a, b):
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+def baseline_run(dev, dtype):
+    """B5 and B6 on BASE_CONFIG: {name: numpy float64 array}."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch import linearization_baseline as lin
+    from sampling_gpmpc_torch import robust_tube_baseline as rtb
+    _, spec, data, env, hyp, gp = lin.one_sample_problem(BASE_CONFIG, dev,
+                                                         dtype)
+    t_ = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,  # noqa: E731
+                                   device=dev)
+    U = t_(np.load(FS_GOLDEN)["last_plan_U"][:BASE_STEPS])
+    x0, goal, k = t_(data.start), t_(data.goal), np.asarray(data.K_fb)
+    mus, Ps = lin.propagate(spec, env, hyp, gp, x0, U)
+    X = rtb.true_rollout(env, x0, U, k, goal)
+    Z, Y = agent.full_train_set(spec, gp)
+    l_mu, l_sig = rtb.estimate_lipschitz_from_traj(spec, env, hyp, Z, Y, X,
+                                                   U)
+    cs, Qs, _ = rtb.propagate_tube(spec, env, hyp, gp, x0, U, k, goal, l_mu,
+                                   l_sig, spec.gp.beta)
+    out = dict(means=mus, covs=Ps, l_mu=l_mu, l_sig=l_sig, centers=cs,
+               shapes=Qs)
+    return {n: v.detach().cpu().double().numpy() for n, v in out.items()}
+
+
+def frozen_step(Qs):
+    """The first step whose tube repeats the previous one (0: none)."""
+    import numpy as np
+    tr = np.trace(Qs, axis1=1, axis2=2)
+    same = np.nonzero(tr[1:] == tr[:-1])[0]
+    return int(same[0]) + 1 if same.size else 0
+
+
+def baselines_phase(dev):
+    """B5 and B6 float32 and float64 on the card against float64 on the
+    CPU; E7 and E10 on the card."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch.examples import gp_conditioning_demo as e7
+    from sampling_gpmpc_torch.examples import lqr_sanity as e10
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    ref = baseline_run(cpu, f64)
+    t0 = time.perf_counter()
+    c64 = baseline_run(dev, f64)
+    ms64 = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    c32 = baseline_run(dev, f32)
+    ms32 = 1e3 * (time.perf_counter() - t0)
+    fz = frozen_step(ref["shapes"])
+    e64 = {n: _rel(c64[n][:fz] if n == "shapes" else c64[n],
+                   ref[n][:fz] if n == "shapes" else ref[n]) for n in ref}
+    e32 = {n: _rel(c32[n], ref[n]) for n in BASE_JAX_F32}
+    fz32 = frozen_step(c32["shapes"])
+    print(f"[baselines] {BASE_CONFIG}, {BASE_STEPS} steps: B5+B6 {ms64:.1f} "
+          f"ms float64, {ms32:.1f} ms float32 on the card", flush=True)
+    print("[baselines] card float64 vs CPU float64, relative: " + ", ".join(
+        f"{n} {v:.2e}" for n, v in e64.items())
+        + f" (tol {BASE_F64_RTOL}, shapes {BASE_TUBE_RTOL} up to the freeze "
+        f"at step {fz}, the card's at {frozen_step(c64['shapes'])})",
+        flush=True)
+    print("[baselines] card float32 vs CPU float64, relative: " + ", ".join(
+        f"{n} {v:.3e} (tol {ENV_FACTOR * BASE_JAX_F32[n]:.3e})"
+        for n, v in e32.items())
+        + f"; float32 tube frozen at step {fz32}, finite "
+        f"{bool(np.isfinite(c32['shapes']).all())}", flush=True)
+    if (max(v for n, v in e64.items() if n != "shapes") > BASE_F64_RTOL
+            or e64["shapes"] > BASE_TUBE_RTOL
+            or frozen_step(c64["shapes"]) != fz):
+        fail("baselines: the card's float64 disagrees with the CPU's")
+    if any(v > ENV_FACTOR * BASE_JAX_F32[n] for n, v in e32.items()):
+        fail("baselines: the card's float32 leaves the reference's envelope")
+    if not (np.isfinite(c32["shapes"]).all() and fz32 > 0):
+        fail("baselines: the float32 tube is not finite and frozen")
+    # E7 and E10 on the card, float64
+    eps_p, eps_g = e7.draws(torch.Generator().manual_seed(0))
+    r_card, r_cpu = e7.run(eps_p, eps_g, dev), e7.run(eps_p, eps_g, cpu)
+    d_pts = float(np.abs(r_card["samples"] - r_cpu["samples"]).max())
+    d_grid = float(np.abs(r_card["draws"] - r_cpu["draws"]).max())
+    ts, V = e10.run(dev)
+    ts_c, _ = e10.run(cpu)
+    e10.check(V)
+    d_gain = _rel(ts.K, ts_c.K)
+    print(f"[baselines] E7 on the card vs the CPU: draws at the points "
+          f"{d_pts:.2e} (tol 1e-10), on the grid {d_grid:.2e} (tol "
+          f"{E7_GRID_TOL}), pinned within {e7.pinning_error(r_card):.2e}; "
+          f"E10: V {V[0]:.4f} -> {V[-1]:.3e} in {len(V)} steps, decreasing, "
+          f"gain {d_gain:.1e} from the CPU's", flush=True)
+    if d_pts > 1e-10 or d_grid > E7_GRID_TOL or d_gain > 1e-10:
+        fail("baselines: E7 or E10 on the card disagrees with the CPU")
+    return dict(ms64=ms64, ms32=ms32, e64=e64, e32=e32)
+
+
+def band_phase(dev):
+    """The float32 status band of the three configs on the card."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch import status_band
+    from sampling_gpmpc_torch.ocp import qp as qp_mod
+    print(f"[band] float32 on the card: tol={qp_mod.TOL[torch.float32]:g}, "
+          f"STATUS_RTOL band (tol, {qp_mod.STATUS_RTOL:g}*tol]", flush=True)
+    total = {k: 0 for k in ("gp_sample", "gp_hall", "ipm_prepare",
+                            "ipm_mehrotra")}
+    rows = {}
+    for config in status_band.CONFIGS:
+        t0 = time.perf_counter()
+        r = status_band.run_config(config, BAND_STEPS.get(config), dev,
+                                   torch.float32)
+        wall = time.perf_counter() - t0
+        hist = status_band.report(config, r)
+        n_qp, steps = len(r["statuses"]), len(r["X"])
+        la = r["launches"]
+        print(f"[band] {config}: {steps} steps in {wall:.2f} s, {n_qp} QPs",
+              flush=True)
+        if (r["routes"]["run_full"] != n_qp or r["routes"]["group"]
+                or la["ipm_prepare"] != n_qp or la["ipm_mehrotra"] != n_qp
+                or la["gp_sample"] != steps
+                or la["gp_hall"] != n_qp - steps):
+            fail(f"band {config}: a QP or GP stage left the kernels: {la}, "
+                 f"{r['routes']}")
+        if not (np.isfinite(r["X"]).all() and np.isfinite(r["U"]).all()):
+            fail(f"band {config}: non-finite plan")
+        rows[config] = dict(hist=hist.tolist(), launches=la,
+                            consumed=int((r["statuses"] == 0).sum()),
+                            max_ratio=float(np.max(r["gaps"][
+                                r["statuses"] == 0] / r["tol"])))
+        for k in total:
+            total[k] += la[k]
+    if min(total.values()) <= 0:
+        fail(f"band: a kernel of the path was never launched: {total}")
+    print(f"[band] launches over the three loops: {total}", flush=True)
+    return dict(rows=rows, launches=total)
+
+
+def mean_problem(dev, dtype):
+    """params_car with mean_as_dyn_sample on ``dev``: (spec, env, hyp, gp,
+    ocp)."""
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch.config import load_problem
+    from sampling_gpmpc_torch.envs import make_env
+    from sampling_gpmpc_torch.gp.exact import GPHyperArrays
+    from sampling_gpmpc_torch.ocp.spec import make_ocp_data
+    params, spec, data = load_problem(
+        os.path.join(HERE, "params", CAR_CONFIG + ".yaml"))
+    spec = dataclasses.replace(spec, mean_as_dyn_sample=True)
+    env = make_env(spec, params)
+    hyp = GPHyperArrays.from_spec(spec.gp, dev, dtype)
+    return (spec, env, hyp, agent.init_gp_state(spec, env, dev, dtype,
+                                                hyp=hyp),
+            make_ocp_data(spec, data, dev, dtype))
+
+
+def mean_route_readings(dev, dtype):
+    """The GP stage of ``mean_problem`` on ``dev`` in ``dtype`` at golden
+    step CAR_STEP (its teacher-forced iterate and draws), SQP iterations 0
+    and 1, against the same stage in float64 on the CPU on the same inputs
+    (iteration 1 on the first's hall rows).  Returns per iteration the
+    mean sample's distance from the float64 posterior mean and every
+    draw's from its float64 evaluation, as shares of the tube width, the
+    draws' tube violations and finiteness."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch.gp import exact
+    from sampling_gpmpc_torch.ocp import sqp
+    f64, cpu = torch.float64, torch.device("cpu")
+    gc = np.load(CAR_GOLDEN)
+    spec, env, hyp, gp, ocp = mean_problem(dev, dtype)
+    _, _, hyp64, gp64, _ = mean_problem(cpu, f64)
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    m = CAR_STEP                               # shift_soln: False
+    Xt = sqp._linearization_inputs(
+        spec, ocp, T(gc["tf_X_traj"][m - 1]), T(gc["tf_U_traj"][m - 1]))[
+        ..., list(spec.g_idx_inputs)]
+    pv = torch.stack([exact.prior_task_variances(
+        hyp64.lengthscale[j], hyp64.outputscale[j], spec.Ty).repeat(spec.H)
+        for j in range(spec.g_ny)])
+    sh = (spec.ns, spec.g_ny, spec.H * spec.Ty)
+    out = []
+    for it in range(2):
+        eps = T(gc["eps"][m, it])
+        g64 = gp64._replace(hall_Z=gp.hall_Z.to(cpu, f64),
+                            hall_Y=gp.hall_Y.to(cpu, f64), hall_n=gp.hall_n)
+        dg, gp = agent.sample_dynamics(spec, env, hyp, gp, Xt, eps,
+                                       hall_empty=it == 0)
+        dg64, _ = agent.sample_dynamics(spec, env, hyp64, g64,
+                                        Xt.to(cpu, f64), eps.to(cpu, f64),
+                                        hall_empty=it == 0)
+        post = (agent._batched_posterior_real if it == 0 else
+                agent._batched_posterior_incremental)
+        mean64, cov64 = post(spec, hyp64, g64, Xt.to(cpu, f64))
+        tube = tube_width(spec, mean64, cov64, pv)      # (ns, g_ny, Ht)
+        dgc = dg.to(cpu, f64).reshape(sh)
+        out.append(dict(
+            mean=float(((dgc[0] - mean64[0]).abs() / tube[0]).max()),
+            draws=float(((dgc - dg64.reshape(sh)).abs() / tube).max()),
+            violations=int(((dgc - mean64).abs() > tube).sum()),
+            finite=bool(torch.isfinite(dgc).all())))
+    return out
+
+
+def mean_phase(dev):
+    """The mean route on the card (mean_as_dyn_sample): the reference body,
+    as JAX's gate has it, with the IPM kernels."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch.ocp import sqp
+    f32 = torch.float32
+    reads = mean_route_readings(dev, f32)
+    for it, r in enumerate(reads):
+        tol = DEBUG_MOMENT_TOL if it == 0 else DEBUG_HALL_MOMENT_TOL
+        print(f"[mean] params_car, mean_as_dyn_sample, golden step "
+              f"{CAR_STEP}, SQP iteration {it}: mean sample {r['mean']:.3e} "
+              f"of the tube from the float64 mean (tol {tol}), every draw "
+              f"{r['draws']:.3e} from its float64 evaluation (tol "
+              f"{MEAN_REL_TOL}), tube violations {r['violations']}, finite "
+              f"{r['finite']}", flush=True)
+        if (r["mean"] > tol or r["draws"] > MEAN_REL_TOL or r["violations"]
+                or not r["finite"]):
+            fail(f"mean: iteration {it} on the card disagrees with float64")
+    gc = np.load(CAR_GOLDEN)
+    spec, env, hyp, gp, ocp = mean_problem(dev, f32)
+    T = lambda a: torch.as_tensor(a, dtype=f32, device=dev)  # noqa: E731
+    m = CAR_STEP
+    zero_launch_counts()
+    st = sqp.solve(spec, env, hyp, ocp, T(gc["physical_state_traj"][m]),
+                   T(gc["tf_X_traj"][m - 1]), T(gc["tf_U_traj"][m - 1]), gp,
+                   T(gc["eps"][m]))
+    la = launch_counts()
+    print(f"[mean] its solve on the card: status {int(st.status)}, {st.it} "
+          f"SQP iterations, launches {la}", flush=True)
+    if (int(st.status) != 0 or la["gp_sample"] or la["gp_hall"]
+            or la["ipm_prepare"] != st.it or la["ipm_mehrotra"] != st.it):
+        fail("mean: the mean route's solve took a GP kernel or left the "
+             "IPM kernels")
+    return dict(reads=reads, launches=la)
+
+
+def xqp_phase(dev):
+    """The generic solve_qp on the card on qp_car_h100.npz's canonical
+    form in float64, against the stored float64 solution and the kernel
+    route of solve_qp_soft."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch.ocp import assemble
+    from sampling_gpmpc_torch.ocp import qp as qp_mod
+    f32, f64 = torch.float32, torch.float64
+    g = np.load(QP_CAR_GOLDEN)
+    names = ("H", "g", "Gh", "dh", "Gs", "lo", "hi", "zl", "zu", "Zl", "Zu")
+    qp64 = tuple(torch.as_tensor(g[k], dtype=f64, device=dev) for k in names)
+    H, gv, Gh, dh, Gs, lo, hi, zl, zu, Zl, Zu = qp64
+    nh, nU = Gh.shape[0] // 2, gv.shape[0]
+    if not torch.equal(Gh[:nh], -Gh[nh:]):
+        fail("xqp: the golden's hard rows are not a two-sided box")
+    canon = assemble.assemble_canonical(
+        H, gv, assemble.Rows(Gh[:nh], -dh[nh:], dh[:nh]),
+        assemble.Rows(Gs, lo, hi), (zl, zu, Zl, Zu))
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    sol = qp_mod.solve_qp(*canon, max_iter=XQP_ITERS)
+    status = int(sol.status)
+    wall = time.perf_counter() - t0
+    qp_cpu = tuple(a.cpu() for a in qp64)
+    u_ref = torch.as_tensor(g["u_ref"], dtype=f64)
+    u = sol.z[:nU].cpu()
+    f_ref, _ = qp_objective(qp_cpu, u_ref)
+    f_gen, viol = qp_objective(qp_cpu, u)
+    scale = max(1.0, float(u_ref.abs().max()))
+    dist = float((u - u_ref).abs().max())
+    zero_launch_counts()
+    ker = qp_mod.solve_qp_soft(*(a.to(f32) for a in qp64))
+    la = launch_counts()
+    f_k, _ = qp_objective(qp_cpu, ker.z.cpu())
+    gap = (f_gen - f_ref) / abs(f_ref)
+    print(f"[xqp] qp_car_h100 canonical (nz={canon[0].shape[0]}, "
+          f"{canon[2].shape[0]} rows) through solve_qp in float64 on the "
+          f"card: status {status}, {int(sol.iters)} iterations, KKT "
+          f"{float(sol.gap):.3e}, {wall:.2f} s; objective {gap:.3e} from "
+          f"the float64 optimum (relative, tol {XQP_OBJ_RTOL}), |u - "
+          f"u_f64|inf {dist:.3e} (scale {scale:.3f}), hard rows violated "
+          f"by {viol:.3e}", flush=True)
+    excess = (f_k - f_gen) / abs(f_gen)
+    print(f"[xqp] the kernel route of solve_qp_soft (float32, launches "
+          f"{la['ipm_prepare']} prepare, {la['ipm_mehrotra']} Mehrotra): "
+          f"status {int(ker.status)}, objective {excess:.3e} above "
+          f"solve_qp's (relative, tol {XQP_KERNEL_EXCESS}), |u_kernel - u|inf "
+          f"{float((ker.z.cpu().double() - u).abs().max()):.4f}",
+          flush=True)
+    if (abs(gap) > XQP_OBJ_RTOL or viol > 1e-9 * scale
+            or not bool(torch.isfinite(sol.z).all())):
+        fail("xqp: solve_qp on the card misses the float64 optimum")
+    if int(ker.status) != 0 or excess > XQP_KERNEL_EXCESS:
+        fail("xqp: the kernel route leaves solve_qp's optimum")
+    if not la["ipm_prepare"] or not la["ipm_mehrotra"]:
+        fail("xqp: the kernel route did not launch the IPM kernels")
+    return dict(status=status, iters=int(sol.iters), wall=wall, dist=dist,
+                kernel_excess=excess)
+
+
+def traffic_phase(dev):
+    """collective_traffic's table on the card: the blocked route and
+    SHARD_PROCS processes over gloo count the same rounds and bytes."""
+    import torch
+    from sampling_gpmpc_torch import collective_traffic as ct
+    print(f"[traffic] {ct.CONFIG} at ns={SHARD_NS}, 3 forced SQP "
+          f"iterations, float32 on the card", flush=True)
+    try:
+        return ct.traffic(SHARD_NS, SHARD_BLOCKS, SHARD_PROCS, dev,
+                          torch.float32)
+    except RuntimeError as e:
+        fail(f"traffic: {e}")
+
+
 def free_port():
     import socket
     with socket.socket() as s:
@@ -3067,6 +3633,19 @@ def main():
     # ---- 22. the sample-sharded solve ------------------------------------
     phase("shard")
     launches_shard = shard_phase(dev)
+    # ---- 23.-28. the evaluation side --------------------------------------
+    phase("gt")
+    gt_phase(dev)
+    phase("baselines")
+    baselines_phase(dev)
+    phase("band")
+    band = band_phase(dev)
+    phase("mean")
+    mean = mean_phase(dev)
+    phase("xqp")
+    xqp_phase(dev)
+    phase("traffic")
+    traffic_phase(dev)
     results["gp_sample"]["car_samples"] = car_s["timing"]["gp_sample"]
     results["gp_hall"]["car_samples_by_fill"] = car_s["timing"]["gp_hall"]
     results["ipm_prepare"]["drone_pessimistic"] = \
@@ -3127,6 +3706,10 @@ def main():
             # the blocked flagship at 3 SQP iterations, all blocks: the
             # sharded route (IPM kernels off under the group, as in JAX)
             "launches_shard_blocked": launches_shard[name],
+            # the float32 status band's three closed loops (phase band) and
+            # the mean route's solve (phase mean: no GP kernel, as in JAX)
+            "launches_status_band": band["launches"][name],
+            "launches_mean_route": mean["launches"][name],
             **{k: r[k] for k in keys},
             **{k: v for k, v in r.items() if k not in keys}})
     # the IPM kernels' wide builds: launches of the car_samples step (its

@@ -260,6 +260,48 @@ def _batched_posterior_real(spec: ProblemSpec, hyp: GPHyperArrays,
     return torch.stack(means, dim=1), torch.stack(covs, dim=1)
 
 
+def _batched_posterior(spec: ProblemSpec, hyp: GPHyperArrays, Z, Y, Xt):
+    """Condition and predict from scratch on a given training set, per
+    sample and output (``exact.factor_real``, ``exact.predict_real``).
+
+    Args:
+        Z: (ns, g_ny, M, D); Y: (ns, g_ny, M, Ty) (NaN = masked);
+        Xt: (ns, ..., H, D) test points, any batch dimensions after ns.
+    Returns:
+        fact (dict of (ns, g_ny, ...) factors), mean (ns, g_ny, ..., Ht),
+        cov (ns, g_ny, ..., Ht, Ht).
+    """
+    facts, means, covs = [], [], []
+    for s in range(Z.shape[0]):
+        for j in range(spec.g_ny):
+            ls, os_ = hyp.lengthscale[j], hyp.outputscale[j]
+            rf = exact.factor_real(Z[s, j], Y[s, j], ls, os_,
+                                   hyp.noise_diag, hyp.jitter,
+                                   spec.use_derivatives)
+            m, c = exact.predict_real(Xt[s], Z[s, j], rf, ls, os_,
+                                      spec.use_derivatives)
+            facts.append(rf)
+            means.append(m)
+            covs.append(c)
+    lead = (Z.shape[0], spec.g_ny)
+    stack = lambda ts: torch.stack(ts).reshape(lead + ts[0].shape)  # noqa
+    fact = {k: stack([f[k] for f in facts]) for k in facts[0]}
+    return fact, stack(means), stack(covs)
+
+
+def uses_gp_kernels(spec: ProblemSpec, device) -> bool:
+    """Whether a GP stage on ``device`` runs the CUDA kernels
+    (``ops/gp_sample.py``, ``ops/gp_hall.py``), which raise where they
+    cannot take it, or the reference body (``posterior`` +
+    ``exact.sample_with_overrides``).  CPU tensors take the reference
+    body.  So does ``mean_as_dyn_sample`` on every device: its override
+    needs the posterior mean, which the kernels do not return, and the
+    JAX package's own gate keeps that config off its Pallas kernel for the
+    same reason ("mean-as-sample needs the posterior mean returned — stays
+    XLA", ``sampling_gpmpc_tpu/ops/pallas_gp.py:97``)."""
+    return torch.device(device).type != "cpu" and not spec.mean_as_dyn_sample
+
+
 def sample_dynamics(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
                     gp: GPState, Xt: torch.Tensor, eps: torch.Tensor,
                     hall_empty: bool = False,
@@ -288,13 +330,9 @@ def sample_dynamics(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
 
     if oracle_only and not spec.mean_as_dyn_sample:
         return true_rows(Xt[0])[None], gp
-    # CPU tensors take the reference path; CUDA ones the kernel, or raise
-    use_fused = not oracle_only and Xt.device.type != "cpu"
-    if use_fused and spec.mean_as_dyn_sample:
-        raise ValueError("mean_as_dyn_sample: the CUDA GP stages "
-                         "(ops/gp_sample.py, ops/gp_hall.py) return samples, "
-                         "not the posterior mean; run this config with "
-                         "device='cpu'")
+    # the kernels, or the reference body by the JAX gate's rule
+    # (pallas_gp.py:97, see uses_gp_kernels)
+    use_fused = not oracle_only and uses_gp_kernels(spec, Xt.device)
     posterior = (_batched_posterior_real if hall_empty
                  else _batched_posterior_incremental)
 

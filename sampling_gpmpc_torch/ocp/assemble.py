@@ -157,3 +157,37 @@ def build_soft_rows(spec: ProblemSpec, ocp: OCPData, T, Gamma, Xbar):
 
     return (Rows(torch.cat(G_list), torch.cat(lo_list), torch.cat(hi_list)),
             (cat_pen(0), cat_pen(1), cat_pen(2), cat_pen(3)))
+
+
+def assemble_canonical(H_U, g_U, hard: Rows, soft: Rows, penalties):
+    """Canonical QP over z = [dU; s_l; s_u]:  min 0.5 z'Pz + q'z, Cz <= d,
+    the input of the generic ``qp.solve_qp`` (counterpart of the JAX
+    package's ``ocp/assemble.py::assemble_canonical``).
+
+    Soft row j relaxes to  lo_j - s_l <= G_j dU <= hi_j + s_u,  s >= 0,
+    with cost z's + 0.5 s'Z s (acados convention, ref: ocp.py:205-215).
+    """
+    zl, zu, Zl, Zu = penalties
+    nU = g_U.shape[0]
+    m_s = soft.G.shape[0]
+    dtype, dev = g_U.dtype, g_U.device
+    nz = nU + 2 * m_s
+    P = torch.zeros((nz, nz), dtype=dtype, device=dev)
+    P[:nU, :nU] = H_U
+    if m_s:
+        P[nU:, nU:] = torch.diag(torch.cat([Zl, Zu]))
+    q = torch.cat([g_U, zl, zu])
+    Zb = torch.zeros((hard.G.shape[0], m_s), dtype=dtype, device=dev)
+    eye = torch.eye(m_s, dtype=dtype, device=dev)
+    Z0 = torch.zeros((m_s, m_s), dtype=dtype, device=dev)
+    C = torch.cat([
+        torch.cat([hard.G, Zb, Zb], dim=1),
+        torch.cat([-hard.G, Zb, Zb], dim=1),
+        torch.cat([soft.G, Z0, -eye], dim=1),
+        torch.cat([-soft.G, -eye, Z0], dim=1),
+        torch.cat([torch.zeros((2 * m_s, nU), dtype=dtype, device=dev),
+                   -torch.eye(2 * m_s, dtype=dtype, device=dev)], dim=1),
+    ])
+    d = torch.cat([hard.hi, -hard.lo, soft.hi, -soft.lo,
+                   torch.zeros(2 * m_s, dtype=dtype, device=dev)])
+    return P, q, C, d

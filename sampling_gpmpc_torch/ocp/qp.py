@@ -21,7 +21,11 @@ from typing import NamedTuple
 
 import torch
 
+from sampling_gpmpc_torch import setup
 from sampling_gpmpc_torch.ops import build, ipm
+from sampling_gpmpc_torch.ops.ipm import _precond_factor, _precond_solve
+from sampling_gpmpc_torch.parallel.collectives import (group_size,
+                                                       make_reducers)
 
 # stop after this many iterations without a >= 1 % best-KKT improvement,
 # counted only once complementarity is nearly exhausted (mu < MU_GRIND mu0);
@@ -31,6 +35,8 @@ STALL_RTOL = 0.01
 MU_GRIND = 1e-6
 # status 0 iff best KKT residual <= STATUS_RTOL * tol
 STATUS_RTOL = 1e3
+# default exit tolerance (relative KKT residual) by dtype
+TOL = {torch.float64: 1e-8, torch.float32: 3e-5}
 # warm-start per-pair complementarity band, multiples of mu_ws
 WS_BAND = (1e-8, 1e12)
 # solves by route: "run_full" (ops/ipm.run_full: kernels 1-2 on CUDA, the
@@ -46,6 +52,106 @@ class QPSolution(NamedTuple):
     status: torch.Tensor      # 0 = converged, 4 = not within tolerance
     gap: torch.Tensor         # best relative KKT residual
     state: tuple = None       # unscaled primal-dual iterate (warm starts)
+
+
+def solve_qp(P, q, C, d, tol: float = None, max_iter: int = 50,
+             group=None, ordered: bool = False) -> QPSolution:
+    """Solve min 0.5 z'Pz + q'z s.t. Cz <= d: the generic Mehrotra
+    predictor-corrector IPM with slacks as variables, the cross-check
+    solver ``solve_qp_soft`` is held against (counterpart of the JAX
+    package's ``ocp/qp.py::solve_qp``; plain torch on whatever device its
+    tensors are on, as the JAX package has no kernel for it).
+
+    With ``group`` the rows (C, d) are this shard's of a sample-sharded QP
+    and (P, q, z) are replicated: every row reduction goes through the
+    group's reducers (``parallel/collectives.py``), where the JAX package
+    has its psum/pmin/pmax over ``axis_name``.
+
+    Args:
+        P: (nz, nz) PD Hessian; q: (nz,); C: (m_local, nz); d: (m_local,).
+    """
+    nz = q.shape[0]
+    dtype, dev = q.dtype, q.device
+    if dev.type == "cuda":
+        setup.full_precision()
+    if tol is None:
+        tol = TOL[dtype]
+    reg = 1e-13 if dtype == torch.float64 else 1e-7
+    psum, pmin, pmax = make_reducers(group, ordered)
+    m = d.shape[0] * group_size(group)
+
+    z = torch.zeros(nz, dtype=dtype, device=dev)
+    s = torch.clamp(d - C @ z, min=1.0)
+    # start on the central path (s_i lam_i = 1): pseudo-infinite rows
+    # (slack ~ BIG) carry a near-zero multiplier
+    lam = 1.0 / s
+    # scale-aware residuals: the dual residual in the units of q, the
+    # primal relative to 1 + |d|
+    qscale = 1.0 + torch.max(torch.abs(q))
+
+    def factorize(z, lam, s):
+        w = lam / s
+        rd_s, M_s = psum((C.T @ lam, (C.T * w) @ C))
+        inv_s, L = _precond_factor(P + M_s, reg)
+        return w, P @ z + q + rd_s, C @ z + s - d, inv_s, L
+
+    def direction(lam, s, aux, sigma_mu, corr):
+        w, r_dual, r_prim, inv_s, L = aux
+        r_cent = lam * s - sigma_mu + corr
+        rhs = -r_dual + psum(C.T @ (r_cent / s - w * r_prim))
+        dz = _precond_solve(inv_s, L, rhs)
+        ds = -r_prim - C @ dz
+        return dz, ds, -(r_cent + lam * ds) / s
+
+    def ratio(v, dv):
+        r = torch.where(dv < 0, -v / torch.where(dv < 0, dv, -1.0),
+                        torch.full_like(v, float("inf")))
+        return torch.min(r) if r.numel() else r.new_tensor(float("inf"))
+
+    def max_step2(v1, dv1, v2, dv2):
+        """Two step ratios through one stacked pmin."""
+        mn = pmin(torch.stack([ratio(v1, dv1), ratio(v2, dv2)]))
+        return (torch.clamp(0.99 * mn[0], max=1.0),
+                torch.clamp(0.99 * mn[1], max=1.0))
+
+    def residual_parts(z, lam, s):
+        rd_s, compl = psum((C.T @ lam, torch.dot(s, lam)))
+        r_dual = torch.max(torch.abs(P @ z + q + rd_s)) / qscale
+        rp = torch.abs(C @ z + s - d) / (1.0 + torch.abs(d))
+        r_prim = pmax(torch.max(rp) if rp.numel() else rp.new_zeros(()))
+        return torch.maximum(torch.maximum(r_dual, r_prim),
+                             compl / (m * qscale)), compl
+
+    it = 0
+    csum = psum(torch.dot(s, lam))
+    res = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    while it < max_iter and bool(res > tol):
+        mu = csum / m
+        aux = factorize(z, lam, s)
+        # predictor (affine) step
+        dz_a, ds_a, dlam_a = direction(lam, s, aux, 0.0, 0.0)
+        a_p, a_d = max_step2(s, ds_a, lam, dlam_a)
+        mu_aff = psum(torch.dot(s + a_p * ds_a, lam + a_d * dlam_a)) / m
+        sigma = torch.clamp((mu_aff / mu) ** 3, 0.0, 1.0)
+        # corrector
+        dz, ds, dlam = direction(lam, s, aux, sigma * mu, dlam_a * ds_a)
+        a_s, a_l = max_step2(s, ds, lam, dlam)
+        alpha = torch.minimum(a_s, a_l)
+        z_n, s_n, lam_n = z + alpha * dz, s + alpha * ds, lam + alpha * dlam
+        # freeze the iterate if the numerics break down (s -> 0 past
+        # convergence); the flag agrees across shards
+        fin = torch.stack([torch.isfinite(v).all() for v in (z_n, lam_n,
+                                                             s_n)]).all()
+        ok = bool(pmin(fin.to(torch.int32)) > 0)
+        it += 1
+        if not ok:
+            break
+        z, s, lam = z_n, s_n, lam_n
+        res, csum = residual_parts(z, lam, s)
+    res = residual_parts(z, lam, s)[0]
+    status = torch.where(res <= tol * STATUS_RTOL, 0, 4)
+    return QPSolution(z=z, lam=lam, s=s, iters=torch.tensor(it, device=dev),
+                      status=status, gap=res)
 
 
 def solve_qp_soft(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
@@ -67,7 +173,7 @@ def solve_qp_soft(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
     """
     dtype = g.dtype
     if tol is None:
-        tol = 1e-8 if dtype == torch.float64 else 3e-5
+        tol = TOL[dtype]
     reg = 1e-13 if dtype == torch.float64 else 1e-7
     args = tuple(a.contiguous() for a in (H, g, G_h, d_h, G_s, lo_s, hi_s,
                                           zl, zu, Zl, Zu))

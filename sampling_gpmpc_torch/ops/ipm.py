@@ -146,11 +146,13 @@ def _stationarity(p: Prepared, st, psum=_NO_GROUP[0]):
     return p.H @ st[0] + p.g + psum(_dual_rows(p, st))
 
 
-def _kkt_residual(p: Prepared, st, red=_NO_GROUP, world: int = 1):
+def _kkt_parts(p: Prepared, st, red=_NO_GROUP, world: int = 1):
     """Relative KKT residual: stationarity in units of qscale, primal rows
-    relative to their bound magnitude, complementarity per row.  Under a
-    group the dual rows and the complementarity ride one tuple-psum and the
-    primal rows' maximum a pmax (JAX ``ocp/qp.py::kkt_parts``)."""
+    relative to their bound magnitude, complementarity per row; and the
+    complementarity sum, which the loop reuses as the next iteration's mu
+    numerator.  Under a group the dual rows and the complementarity ride
+    one tuple-psum and the primal rows' maximum a pmax (JAX
+    ``ocp/qp.py::kkt_parts``)."""
     psum, _, pmax = red
     u, sl, su, th, lh_, tU, lU, tL, lL, nl, nu_ = st
     r1_s, compl = psum((_dual_rows(p, st), _compl_local(st)))
@@ -163,7 +165,11 @@ def _kkt_residual(p: Prepared, st, red=_NO_GROUP, world: int = 1):
                * (1.0 / (1.0 + torch.abs(p.lo_s)))]
     r_prim = pmax(torch.max(torch.abs(torch.cat(rp))))
     return torch.maximum(torch.maximum(r_stat, r_prim),
-                         compl / (_m_total(p, world) * p.qscale))
+                         compl / (_m_total(p, world) * p.qscale)), compl
+
+
+def _kkt_residual(p: Prepared, st, red=_NO_GROUP, world: int = 1):
+    return _kkt_parts(p, st, red, world)[0]
 
 
 def prepare_plain(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
@@ -176,7 +182,7 @@ def prepare_plain(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
     the warm start's u replicated); qscale is pmax-ed, the warm start's
     dual residual psum-ed and the acceptance residuals reduced, at the
     places of the JAX package's XLA body (``ocp/qp.py:318``, ``:410``)."""
-    red = make_reducers(group, ordered)
+    red = make_reducers(group, ordered, scope="qp prepare")
     psum, _, pmax = red
     world = group_size(group)
     nU = g.shape[0]
@@ -258,12 +264,16 @@ def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
     Schur contributions, one of the two right-hand-side parts, psums of the
     complementarity, pmin of the step ratios and of the finiteness flag,
     pmax of the primal residual; the complementarity pairs count every
-    shard's rows.  Every host-side branch reads a reduced value, so every
-    rank issues the same collectives in the same order.
+    shard's rows.  As there, the complementarity sum of the KKT residual
+    is carried into the next iteration's mu, so an iteration makes five
+    sum rounds, three min rounds and one max round (and the loop one sum
+    round before it, counted with the QP's pre-loop).  Every host-side
+    branch reads a reduced value, so every rank issues the same
+    collectives in the same order.
 
     Returns ``(best_state_11tuple, best_res, iters)``.
     """
-    red = make_reducers(group, ordered)
+    red = make_reducers(group, ordered, scope="mehrotra")
     psum, pmin, _ = red
     H, g, G_h, d_h, G_s = p.H, p.g, p.G_h, p.d_h, p.G_s
     lo_s, hi_s, zl, zu, Zl, Zu = p.lo_s, p.hi_s, p.zl, p.zu, p.Zl, p.Zu
@@ -350,8 +360,11 @@ def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
     st = best = p.st0
     best_res = torch.tensor(float("inf"), dtype=dtype, device=dev)
     it, since = 0, 0
+    # the loop's first mu numerator: a pre-loop round, as in JAX
+    pre_sum = make_reducers(group, ordered, scope="qp prepare")[0]
+    csum = _compl_sum(st, pre_sum)
     while it < max_iter:
-        mu = _compl_sum(st, psum) / m_total
+        mu = csum / m_total
         aux = factorize(st)
         d_aff = direction(st, aux, 0.0, None)
         a_aff = max_step(st, d_aff)
@@ -368,13 +381,14 @@ def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
         it += 1
         if ok:
             st = st_n
-        res = (_kkt_residual(p, st, red, world) if ok
-               else torch.full_like(best_res, float("inf")))
+        res, csum = _kkt_parts(p, st, red, world)
+        if not ok:
+            res = torch.full_like(best_res, float("inf"))
         if bool(res < best_res):
             best = st
         meaningful = bool(res < best_res * (1.0 - stall_rtol))
         best_res = torch.minimum(res, best_res)
-        mu_new = _compl_sum(st, psum) / m_total
+        mu_new = csum / m_total
         grinding = bool(mu_new < mu_grind * mu0)
         since = 0 if (meaningful or not grinding) else since + 1
         live = ok and bool(mu_new > 1e-14 * mu0)

@@ -32,6 +32,7 @@ fallback.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Callable, List
 
@@ -235,10 +236,57 @@ def _reduce_flat(flat: torch.Tensor, group, kind: str,
     return _native(flat, group, op)
 
 
-def _reducer(group, kind: str, ordered: bool):
+class TrafficCounter:
+    """Rounds and payload bytes of the reducers' collectives.
+
+    Each round is recorded under (rank, reducer kind, scope): ``kind`` is
+    "sum", "min" or "max"; ``scope`` is the label the reducers were made
+    with (:func:`make_reducers`): "sqp" by default (the SQP iteration's
+    body: the condensed cost, the convergence norms, the GP stage's
+    offsets), "qp prepare" and "mehrotra" where ``ops/ipm.py`` makes its
+    own.  The payload is this rank's flat buffer (what the JAX package's
+    HLO operand holds), whatever the group kind does with it.
+    Thread-safe: the blocks of a :class:`BlockGroup` record from their own
+    threads.
+    """
+
+    def __init__(self):
+        self.records: dict = {}
+        self._lock = threading.Lock()
+
+    def record(self, group, kind: str, scope: str, nbytes: int) -> None:
+        key = (group_rank(group), kind, scope)
+        with self._lock:
+            n, b = self.records.get(key, (0, 0))
+            self.records[key] = (n + 1, b + nbytes)
+
+    def table(self, rank: int = 0) -> dict:
+        """{(kind, scope): (rounds, bytes)} of one rank."""
+        return {k[1:]: v for k, v in sorted(self.records.items())
+                if k[0] == rank}
+
+
+_COUNTING: List[TrafficCounter] = []
+
+
+@contextlib.contextmanager
+def counting(counter: TrafficCounter):
+    """Give ``counter`` to the reducers that :func:`make_reducers` makes
+    meanwhile (in every thread)."""
+    _COUNTING.append(counter)
+    try:
+        yield counter
+    finally:
+        _COUNTING.remove(counter)
+
+
+def _reducer(group, kind: str, ordered: bool, scope: str, counter):
     def reduce(x):
         leaves = tuple(x) if isinstance(x, tuple) else (x,)
         flat = torch.cat([t.reshape(-1) for t in leaves])
+        if counter is not None:
+            counter.record(group, kind, scope,
+                           flat.numel() * flat.element_size())
         red = _reduce_flat(flat, group, kind, ordered)
         out, i = [], 0
         for t in leaves:
@@ -248,20 +296,23 @@ def _reducer(group, kind: str, ordered: bool):
     return reduce
 
 
-def make_reducers(group, ordered: bool = False):
+def make_reducers(group, ordered: bool = False, scope: str = "sqp"):
     """``(psum, pmin, pmax)`` for a maybe-sharded computation.
 
     ``group=None`` (single device): identities.  Otherwise collectives over
     ``group``: with ``ordered`` the sum is the gathered rank-order
     sequential sum (module docstring); a :class:`BlockGroup` always sums
     that way, being one program.  Each reducer takes a tensor or a tuple of
-    tensors of one dtype (one round trip for the tuple).
+    tensors of one dtype (one round trip for the tuple).  Under
+    :func:`counting` the reducers record each round under ``scope``;
+    otherwise they run the collectives alone.
     """
     if group is None:
         ident = lambda x: x  # noqa: E731
         return ident, ident, ident
-    return (_reducer(group, "sum", ordered), _reducer(group, "min", ordered),
-            _reducer(group, "max", ordered))
+    counter = _COUNTING[-1] if _COUNTING else None
+    return tuple(_reducer(group, kind, ordered, scope, counter)
+                 for kind in ("sum", "min", "max"))
 
 
 def sample_offset(group, ns_local: int) -> int:

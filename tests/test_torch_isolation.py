@@ -27,7 +27,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_IMPORTS = r"""
 import importlib, importlib.abc, pkgutil, sys
-BLOCK = ("jax", "jaxlib", "sampling_gpmpc_tpu")
+BLOCK = ("jax", "jaxlib", "sampling_gpmpc_tpu", "benchmarking", "profiling",
+         "examples")
 for k in list(sys.modules):
     if k.split(".")[0] in BLOCK:
         del sys.modules[k]
@@ -72,13 +73,31 @@ def test_no_jax_import_statements():
             elif isinstance(node, ast.ImportFrom) and node.module:
                 mods = [node.module]
             for m in mods:
-                assert m.split(".")[0] not in ("jax", "jaxlib",
-                                               "sampling_gpmpc_tpu"), (path, m)
+                assert m.split(".")[0] not in (
+                    "jax", "jaxlib", "sampling_gpmpc_tpu", "benchmarking",
+                    "profiling", "examples"), (path, m)
 
 
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_evaluation_entry_points_raise_without_cuda(no_cuda):
+    """The evaluation side's CLIs default to CUDA and raise without it."""
+    from sampling_gpmpc_torch import (collective_traffic,
+                                      linearization_baseline,
+                                      robust_tube_baseline,
+                                      simulate_true_reachable_set,
+                                      status_band)
+    from sampling_gpmpc_torch.examples import (gp_conditioning_demo,
+                                               lqr_sanity)
+    for main in (simulate_true_reachable_set.main,
+                 linearization_baseline.main, robust_tube_baseline.main,
+                 status_band.main, collective_traffic.main,
+                 gp_conditioning_demo.main, lqr_sanity.main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main([])
 
 
 def test_entry_points_raise_without_cuda(no_cuda):
@@ -283,14 +302,16 @@ def test_fused_gates_need_cuda_float32(monkeypatch):
     with pytest.raises(ValueError, match="not CUDA"):
         qp_mod.solve_qp_soft(meta(3, 3), meta(3), meta(4, 3), meta(4),
                              meta(0, 3), *[meta(0) for _ in range(6)])
-    # the posterior-mean sample has no kernel: raise before any tensor work
+    # off the CPU the GP stages take the kernels; the posterior-mean sample
+    # takes the reference body on every device, the JAX gate's own rule
+    # (pallas_gp.py:97: the kernels return no posterior mean)
     spec_m = dataclasses.replace(spec, mean_as_dyn_sample=True)
-    Xt = torch.empty(spec.ns, spec.H, spec.n_gp_inputs, device="meta")
-    with pytest.raises(ValueError, match="mean_as_dyn_sample"):
-        agent.sample_dynamics(spec_m, None, None, None, Xt, None,
-                              hall_empty=True)
-    with pytest.raises(ValueError, match="mean_as_dyn_sample"):
-        agent.sample_dynamics(spec_m, None, None, None, Xt, None)
+    for dev in ("cuda", "meta"):
+        assert agent.uses_gp_kernels(spec, dev)
+        assert not agent.uses_gp_kernels(spec_m, dev)
+    assert not agent.uses_gp_kernels(spec, "cpu")
+    src = inspect.getsource(agent.sample_dynamics)
+    assert "uses_gp_kernels(spec, Xt.device)" in src and "raise" not in src
     for fn in (qp_mod.solve_qp_soft, agent.sample_dynamics):
         assert "fused_ok" not in inspect.getsource(fn)
 

@@ -80,7 +80,7 @@ def test_plain_qp_on_hard_car_instance():
     """The hard long-horizon car QP: the port, JAX's XLA path and the
     native C++ solver all solve it; solutions agree to the instance's
     stored reference tolerance (test_qp.py: 1e-5 * scale)."""
-    from sampling_gpmpc_tpu.native import solve_qp_soft_native
+    from sampling_gpmpc_torch.native import solve_qp_soft_native
     d = np.load(GOLDEN)
     keys = ("H", "g", "Gh", "dh", "Gs", "lo", "hi", "zl", "zu", "Zl", "Zu")
     args = [d[k] for k in keys]
