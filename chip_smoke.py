@@ -213,6 +213,22 @@ the evaluation side:
 28. traffic — collective_traffic: the blocked route and 4 processes over
              gloo count the same collective rounds and bytes, by reducer
              and scope, with the one-device compute per SQP iteration;
+the port's bench (sampling_gpmpc_torch.bench):
+29. bench  — its rows at full width with short windows, without the CPU
+             baselines: params_pendulum1D_samples at ns = 64 and 512 (H =
+             20, one RTI iteration; QP nU = 20, m_h = 7,720 / 61,480, m_s =
+             64 / 512), 3 + 20 steps each, params_car 3 + 10, one forward-
+             sampling rollout at 4000 x 50; QP status 0 and finite states at
+             every step (the rows raise otherwise), 1 gp_sample, 1 prepare
+             and 1 Mehrotra launch a step at both widths, the car's
+             launches by its SQP iterations, the idle share of 5 traced
+             steps, its kernel-against-plain checks at the bars of phases
+             4 and 6; its JSON line as a [bench] line; the ns = 512 chain of
+             tests/goldens/torch_oracle_bench_ns512.npz teacher-forced
+             through the kernels and the plain versions within twice the
+             JAX float32 path's distance from it; the three IPM checks and
+             the timing of kernels 1-3 at ns = 64 (resident) and 512 (the
+             streamed branches), cold and warm;
 then one JSON line listing the kernels, the card line, and the contract
 line {"ok": true, "device": {...}}.
 """
@@ -542,35 +558,28 @@ BAND_STEPS = {"params_car": 50}
 # Phase traffic: collective_traffic's table on the card: the blocked route
 # (SHARD_BLOCKS blocks) and SHARD_PROCS processes over gloo at ns =
 # SHARD_NS, 3 forced SQP iterations, counting the same rounds and bytes.
+# Phase bench: the port's bench (sampling_gpmpc_torch.bench) at full width
+# with short windows (BENCH_SIZES: ns = 64 and ns = 512 3 + 20 steps, the
+# car 3 + 10, one forward-sampling rollout) and no CPU baseline; its rows
+# raise on a QP status other than 0 or a non-finite state.  Its three
+# kernel-against-plain checks are held to the bars above: the GP and IPM
+# swaps of the ns = 64 solve to TF_KP_TOL_X/_U, the hall stage to
+# GP_HALL_REL_TOL of the tube with no excursion past it.  Then the ns = 512
+# chain of tests/goldens/torch_oracle_bench_ns512.npz (written by
+# tests/make_torch_bench_golden.py: JAX float64 on the CPU), teacher-forced
+# through the kernels and through the plain versions, each within
+# ENV_FACTOR times the JAX float32 path's own teacher-forced distance from
+# it, stored in the golden (0.0345 in X, 0.813 in U over its 10 steps), and
+# against each other within the same bar.
+BENCH_SIZES = dict(loop=(3, 20), loop_large=(3, 20), car=(3, 10),
+                   fs_runs=(0, 1))
+BENCH_GOLDEN = os.path.join(HERE, "tests", "goldens",
+                            "torch_oracle_bench_ns512.npz")
 
 
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
-
-
-def gpu_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip()
-
-
-@contextlib.contextmanager
-def plain_route():
-    """Swap the kernel wrappers the main path calls for their plain torch
-    versions (same arguments, same results), to run a reference solve on
-    the same device; restored on exit."""
-    from sampling_gpmpc_torch.ops import gp_hall, gp_sample, ipm
-    saved = (gp_sample.sample_empty, gp_hall.sample_hall, ipm.run_full)
-    gp_sample.sample_empty = gp_sample.sample_empty_plain_stacked
-    gp_hall.sample_hall = gp_hall.sample_hall_plain_stacked
-    ipm.run_full = ipm.run_full_plain
-    try:
-        yield
-    finally:
-        (gp_sample.sample_empty, gp_hall.sample_hall,
-         ipm.run_full) = saved
 
 
 @contextlib.contextmanager
@@ -588,24 +597,6 @@ def sqp_iterations(sqp, out):
         yield
     finally:
         sqp.solve = solve
-
-
-def launch_counts():
-    from sampling_gpmpc_torch.ops import gp_hall, gp_sample, ipm
-    return {**gp_sample.LAUNCHES, **gp_hall.LAUNCHES, **ipm.LAUNCHES}
-
-
-def wide_launch_counts():
-    from sampling_gpmpc_torch.ops import ipm
-    return dict(ipm.LAUNCHES_WIDE)
-
-
-def zero_launch_counts():
-    from sampling_gpmpc_torch.ops import gp_hall, gp_sample, ipm
-    for k in (gp_sample.LAUNCHES, gp_hall.LAUNCHES, ipm.LAUNCHES,
-              ipm.LAUNCHES_WIDE):
-        for name in k:
-            k[name] = 0
 
 
 def kernel_name(mangled):
@@ -2355,7 +2346,7 @@ def shard_phase(dev):
     axis).  Returns the blocked flagship's launches per kernel."""
     import numpy as np
     import torch
-    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch import agent, setup
     from sampling_gpmpc_torch.config import load_problem
     from sampling_gpmpc_torch.dempc import shift_solution
     from sampling_gpmpc_torch.envs import make_env
@@ -2370,7 +2361,7 @@ def shard_phase(dev):
     from sampling_gpmpc_torch.reachability import forward_sample_rollout
     f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
     nb = SHARD_BLOCKS
-    card = gpu_line()
+    card = setup.card_line()
     keys = ("gp_sample", "gp_hall", "ipm_prepare", "ipm_mehrotra", "group",
             "run_full")
 
@@ -3124,6 +3115,174 @@ def traffic_phase(dev):
         fail(f"traffic: {e}")
 
 
+def bench_gp_stage(tag, spec, env, loop, dev, Xin, Uin, eps):
+    """The GP-sample kernel against its plain version and the float64
+    posterior's tube on one bench stage (iteration 0 at the iterate Xin,
+    Uin), and its timing beside the plain version and the bound."""
+    import torch
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch.gp.exact import GPHyperArrays
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.ops import gp_sample
+    f64 = torch.float64
+    xu = sqp._linearization_inputs(spec, loop.ocp, Xin, Uin)
+    Xt = xu[..., list(spec.g_idx_inputs)]
+    st = agent.empty_stage_inputs(spec, loop.hyp, agent.reset_hall(loop.gp),
+                                  Xt, eps, 0)
+    dk = gp_sample.sample_empty_one(**st)
+    dp = gp_sample.sample_empty_plain(**st)
+    hyp64 = GPHyperArrays.from_spec(spec.gp, dev, f64)
+    gp64 = agent.init_gp_state(spec, env, dev, f64, hyp=hyp64)
+    mean64, cov64 = agent._batched_posterior_real(spec, hyp64, gp64,
+                                                  Xt.to(f64))
+    Ht, R = st["Kxm"].shape[1:]
+    gp_report("bench", spec, f"{tag} gp_sample ns={spec.ns} Ht={Ht} R={R}",
+              dk, dp, tube_width(spec, mean64[:, 0], cov64[:, 0],
+                                 st["prior_var"]), mean64[:, 0], GP_REL_TOL)
+    stacked = {k: (v[None] if k in gp_sample.STACKED and v is not None
+                   else v) for k, v in st.items()}
+    return time_gp_sample(f"bench {tag}", stacked)
+
+
+def bench_phase(dev, checks, results):
+    """The port's bench at full width with short windows, its rows' checks
+    and launches per step; the ns = 512 chain teacher-forced on its golden
+    through the kernels and the plain versions; the IPM checks and the
+    timing of kernels 1-3 at ns = 64 and 512 (H = 20).  Returns the
+    launches per step of each row."""
+    import numpy as np
+    import torch
+    from sampling_gpmpc_torch import bench
+    from sampling_gpmpc_torch.dempc import shift_solution
+    try:
+        record, rows = bench.run(dev, sizes=bench.Sizes(**BENCH_SIZES),
+                                 baselines=False,
+                                 trace_dir=os.path.join(HERE, "build"))
+    except RuntimeError as e:
+        fail(f"bench: {e}")
+    print(f"[bench] line {json.dumps(record)}", flush=True)
+    for name in ("ns64", "ns512", "car"):
+        r = rows[name]
+        print(f"[bench] {name}: {r['value']:.3f} solves/s, ms per step mean "
+              f"{r['mean_ms']:.4f} median {r['median_ms']:.4f} p90 "
+              f"{r['p90_ms']:.4f} over {r['steps']} steps (cold step 0 "
+              f"{r['cold_ms']:.3f}); QP (nU, m_h, m_s) {r['qp_shape']}; "
+              f"Mehrotra iterations per step {r['qp_iters']}; SQP "
+              f"iterations {sorted(set(r['sqp_iters']))}; launches per step "
+              f"{r['launches_per_step']}", flush=True)
+    one = {"gp_sample": 1.0, "gp_hall": 0.0, "ipm_prepare": 1.0,
+           "ipm_mehrotra": 1.0}
+    for name in ("ns64", "ns512"):
+        if rows[name]["launches_per_step"] != one:
+            fail(f"bench {name}: launches per step "
+                 f"{rows[name]['launches_per_step']}, expected {one}")
+    car = rows["car"]
+    its = car["sqp_iters"][-car["steps"]:]
+    want = {"gp_sample": car["steps"], "gp_hall": sum(its) - len(its),
+            "ipm_prepare": sum(its), "ipm_mehrotra": sum(its)}
+    if car["launches"] != want:
+        fail(f"bench car: launches {car['launches']}, expected {want}")
+    print(f"[bench] idle share (ns=64, 5 traced steps): "
+          f"{record['idle_share']} ({record['idle_share_traced']} against "
+          f"the traced wall), {record['kernels_per_step']} kernels per step",
+          flush=True)
+    if record["idle_share"] is None:
+        fail("bench: no idle share")
+    (gx, gu), (ix, iu) = rows["equiv"]["gp"], rows["equiv"]["ipm"]
+    hall = rows["hall"]
+    print(f"[bench] kernels vs plain on the ns=64 solve: GP swap max|dX| "
+          f"{gx:.3e} max|dU| {gu:.3e}, IPM swap {ix:.3e} / {iu:.3e} (tol "
+          f"{TF_KP_TOL_X} / {TF_KP_TOL_U}); hall stage max|dg| "
+          f"{hall['dg']:.3e} = {hall['rel']:.3e} of the tube (tol "
+          f"{GP_HALL_REL_TOL}), tube violation {hall['viol']:.3e}; fs "
+          f"{rows['fs']['value']:.1f} sampled steps/s, non-finite "
+          f"realizations {rows['fs']['nonfinite_realizations']}", flush=True)
+    if max(gx, ix) > TF_KP_TOL_X or max(gu, iu) > TF_KP_TOL_U:
+        fail("bench: a kernel route disagrees with the plain route")
+    if hall["rel"] > GP_HALL_REL_TOL or hall["viol"] > 0.0:
+        fail("bench: the hall kernel against its plain version")
+    if rows["fs"]["nonfinite_realizations"] > 1:
+        fail("bench: forward sampling")
+
+    # the ns = 512 chain, teacher-forced on its golden
+    g = np.load(BENCH_GOLDEN)
+    n = int(g["steps"])
+    _, spec, data, env = bench.build(dict(ns=int(g["ns"]), H=int(g["H"])))
+    T = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    loops = {r: bench.ClosedLoop(spec, data, env, dev)
+             for r in ("kernels", "plain")}
+    X0, U0 = loops["kernels"].X, loops["kernels"].U
+    bar = (ENV_FACTOR * float(g["f32_dX"].max()),
+           ENV_FACTOR * float(g["f32_dU"].max()))
+    dev_err = {r: [] for r in loops}
+    kp, qps = [], []
+    for m in range(n):
+        Xin, Uin = (X0, U0) if m == 0 else shift_solution(
+            T(g["X"][m - 1]), T(g["U"][m - 1]))
+        sts = {}
+        for route, loop in loops.items():
+            loop.x, loop.X, loop.U = T(g["x"][m]), Xin, Uin
+            with (plain_route() if route == "plain" else
+                  captured_qps(qps)):
+                sts[route] = st = loop.step(T(g["eps"][m]))
+            try:
+                loop.check(st, f"bench ns=512 teacher-forced step {m} "
+                               f"({route})")
+            except RuntimeError as e:
+                fail(str(e))
+            dev_err[route].append(
+                (float(np.abs(st.X.cpu().numpy() - g["X"][m]).max()),
+                 float(np.abs(st.U.cpu().numpy() - g["U"][m]).max())))
+        kp.append((float(torch.max(torch.abs(sts["kernels"].X
+                                             - sts["plain"].X))),
+                   float(torch.max(torch.abs(sts["kernels"].U
+                                             - sts["plain"].U)))))
+    for route, e in dev_err.items():
+        print(f"[bench] ns=512 teacher-forced {n} steps ({route}) vs the "
+              f"float64 golden: max|dX| {max(v[0] for v in e):.4e} max|dU| "
+              f"{max(v[1] for v in e):.4e} (bars {bar[0]:.4f} / {bar[1]:.4f}"
+              f" = {ENV_FACTOR} x the JAX float32 path's); per step "
+              f"{[(f'{a:.1e}', f'{b:.1e}') for a, b in e]}", flush=True)
+    print(f"[bench] ns=512 teacher-forced, kernels vs plain: max|dX| "
+          f"{max(v[0] for v in kp):.4e} max|dU| {max(v[1] for v in kp):.4e}"
+          f"; per step {[(f'{a:.1e}', f'{b:.1e}') for a, b in kp]}",
+          flush=True)
+    for e in list(dev_err.values()) + [kp]:
+        if max(v[0] for v in e) > bar[0] or max(v[1] for v in e) > bar[1]:
+            fail("bench ns=512 teacher-forced chain outside its bar")
+
+    # the IPM checks and kernels 1-3 at ns = 64 and 512, cold and warm
+    _, spec64, data64, env64 = bench.build()
+    loop64 = bench.ClosedLoop(spec64, data64, env64, dev)
+    eps64 = bench.draws(spec64, 6, spec64.seed, dev)
+    qps64 = []
+    with captured_qps(qps64):
+        for m in range(6):
+            loop64.check(loop64.step(eps64[m]), f"bench ns=64 step {m}")
+    shapes = (("ns64", qps64, True), ("ns512", qps, False))
+    for tag, qs, resident in shapes:
+        for label, (qa, ws, wv) in (("cold, step 0", qs[0]),
+                                    ("warm, step 5", qs[5])):
+            p, d = checks.report(f"bench {tag} {label}", qa, ws, wv,
+                                 resident=resident)
+            results["ipm_prepare"]["max_abs_err"] = max(
+                results["ipm_prepare"]["max_abs_err"], p)
+            results["ipm_mehrotra"]["max_abs_err"] = max(
+                results["ipm_mehrotra"]["max_abs_err"], d)
+            prep_t, mehr_t = checks.timing(f"bench {tag} {label}", qa, ws,
+                                           wv)
+            key = f"bench_{tag}" + ("_warm" if label.startswith("w") else "")
+            results["ipm_prepare"][key] = prep_t
+            results["ipm_mehrotra"][key] = mehr_t
+    Xw, Uw = shift_solution(T(g["X"][4]), T(g["U"][4]))
+    results["gp_sample"]["bench_ns512"] = bench_gp_stage(
+        "ns512", spec, env, loops["kernels"], dev, Xw, Uw, T(g["eps"][5, 0]))
+    results["gp_sample"]["bench_ns64"] = bench_gp_stage(
+        "ns64", spec64, env64, loop64, dev, loop64.X, loop64.U, eps64[5, 0])
+    return {name: rows[name]["launches_per_step"]
+            for name in ("ns64", "ns512", "car")}
+
+
 def free_port():
     import socket
     with socket.socket() as s:
@@ -3148,6 +3307,11 @@ def main():
     sys.path.insert(0, HERE)
     import numpy as np
 
+    # the route swap and the launch counters the phases share with the bench
+    global plain_route, launch_counts, wide_launch_counts, zero_launch_counts
+    from sampling_gpmpc_torch.ops.routes import (launch_counts, plain_route,
+                                                 wide_launch_counts,
+                                                 zero_launch_counts)
     from sampling_gpmpc_torch import agent, setup
     from sampling_gpmpc_torch.config import load_problem
     from sampling_gpmpc_torch.dempc import DEMPC, shift_solution
@@ -3174,7 +3338,7 @@ def main():
     t0 = time.perf_counter()
     logs = build.build_all()
     build_s = time.perf_counter() - t0
-    card = gpu_line()
+    card = setup.card_line()
     print(f"[build] {len(logs)} sources ({', '.join(logs)}) in {build_s:.1f}"
           f" s (nvcc {' '.join(build.FLAGS)})", flush=True)
     for name, log in logs.items():
@@ -3646,6 +3810,9 @@ def main():
     xqp_phase(dev)
     phase("traffic")
     traffic_phase(dev)
+    # ---- 29. the port's bench --------------------------------------------
+    phase("bench")
+    bench_launches = bench_phase(dev, checks, results)
     results["gp_sample"]["car_samples"] = car_s["timing"]["gp_sample"]
     results["gp_hall"]["car_samples_by_fill"] = car_s["timing"]["gp_hall"]
     results["ipm_prepare"]["drone_pessimistic"] = \
@@ -3710,6 +3877,9 @@ def main():
             # the mean route's solve (phase mean: no GP kernel, as in JAX)
             "launches_status_band": band["launches"][name],
             "launches_mean_route": mean["launches"][name],
+            # the bench's rows (phase bench): launches per timed step
+            "launches_per_step_bench": {row: v[name] for row, v in
+                                        bench_launches.items()},
             **{k: r[k] for k in keys},
             **{k: v for k, v in r.items() if k not in keys}})
     # the IPM kernels' wide builds: launches of the car_samples step (its

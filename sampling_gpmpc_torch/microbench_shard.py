@@ -20,7 +20,6 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import time
 
 import torch
@@ -64,10 +63,7 @@ def main(argv=None) -> int:
     for n in (1, 2, 4):
         blocked = make_blocked_solve(spec, env, hyp, ocp, n)
         ms[f"blocked_{n}"] = _ms(lambda: blocked(*args), a.repeats)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    card = setup.card_line()
     print(json.dumps({"config": "params_pendulum1D_samples", "ns": a.ns,
                       "sqp_iterations": 1, "ms_per_solve": ms,
                       "card": card}), flush=True)

@@ -51,6 +51,29 @@ def _intervals_union_us(spans):
     return total
 
 
+def device_trace(prof, path):
+    """Write the device trace of a ``torch.profiler`` run (CUDA activity)
+    to ``path`` and read it back: the union of the card's kernel, copy and
+    fill intervals in ms (``None`` where the trace holds none), the number
+    of kernels, and per kernel name [ms, count]."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans, per_kernel = [], defaultdict(lambda: [0.0, 0])
+    n_kernels = 0
+    for e in events:
+        cat = e.get("cat", "")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e:
+            spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+            if cat == "kernel":
+                n_kernels += 1
+                k = per_kernel[e["name"][:80]]
+                k[0] += float(e["dur"]) / 1e3
+                k[1] += 1
+    busy_ms = _intervals_union_us(spans) / 1e3 if spans else None
+    return busy_ms, n_kernels, dict(per_kernel)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("-param", default="params_pendulum1D_samples")
@@ -132,22 +155,8 @@ def main(argv=None):
     os.makedirs(args.trace_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         traced_wall_ms, _ = run()
-    dev_trace = os.path.join(args.trace_dir, "trace_loop_device.json")
-    prof.export_chrome_trace(dev_trace)
-    with open(dev_trace) as f:
-        events = json.load(f)["traceEvents"]
-    spans, per_kernel = [], defaultdict(lambda: [0.0, 0])
-    n_kernels = 0
-    for e in events:
-        cat = e.get("cat", "")
-        if cat in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e:
-            spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
-            if cat == "kernel":
-                n_kernels += 1
-                k = per_kernel[e["name"][:80]]
-                k[0] += float(e["dur"]) / 1e3
-                k[1] += 1
-    busy_ms = _intervals_union_us(spans) / 1e3
+    busy_ms, n_kernels, per_kernel = device_trace(
+        prof, os.path.join(args.trace_dir, "trace_loop_device.json"))
     top_k = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]
 
     with profile(activities=[ProfilerActivity.CPU]) as prof_cpu:
@@ -167,9 +176,9 @@ def main(argv=None):
         "wall_ms": wall_ms, **loop,
         "traced_wall_ms": traced_wall_ms,
         "device_busy_ms": busy_ms,
-        "idle_share": (1.0 - busy_ms / wall_ms) if spans else None,
-        "idle_share_traced": (1.0 - busy_ms / traced_wall_ms)
-        if spans else None,
+        "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+        "idle_share_traced": None if busy_ms is None
+        else 1.0 - busy_ms / traced_wall_ms,
         "kernels_per_step": n_kernels / steps,
         "top_kernels": [{"name": n, "ms": v[0], "count": v[1]}
                         for n, v in top_k],

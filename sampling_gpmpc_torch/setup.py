@@ -9,6 +9,7 @@ of the tests); ``SGPMPC_DTYPE`` overrides both.
 from __future__ import annotations
 
 import os
+import subprocess
 
 import torch
 
@@ -46,6 +47,16 @@ def default_dtype(device: torch.device) -> torch.dtype:
             raise ValueError(f"SGPMPC_DTYPE={name!r}; use float32 or float64")
         return _DTYPES[name]
     return torch.float32 if device.type == "cuda" else torch.float64
+
+
+def card_line() -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them, the
+    line every reading of the card is written beside."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def resolve(device=None, dtype=None):

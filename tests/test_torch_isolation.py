@@ -43,6 +43,9 @@ names = [m.name for m in pkgutil.walk_packages(
     sampling_gpmpc_torch.__path__, "sampling_gpmpc_torch.")]
 for n in names:
     importlib.import_module(n)
+# the entry points without a JAX twin of their own name
+for n in ("bench", "fs_refit_baseline", "ops.routes"):
+    assert "sampling_gpmpc_torch." + n in names, n
 import chip_smoke
 print(len(names))
 """
@@ -105,7 +108,7 @@ def test_entry_points_raise_without_cuda(no_cuda):
     from sampling_gpmpc_torch.config import load_problem
     from sampling_gpmpc_torch.dempc import DEMPC
     from sampling_gpmpc_torch.envs import make_env
-    from sampling_gpmpc_torch import profile_loop
+    from sampling_gpmpc_torch import bench, profile_loop
     from sampling_gpmpc_torch.main import main
     from sampling_gpmpc_torch.ocp import sqp
     from sampling_gpmpc_torch.ocp.spec import make_ocp_data
@@ -122,7 +125,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
                  lambda: sqp.init_iterate(spec),
                  lambda: sqp.init_qp_ws(spec),
                  lambda: main(["-param", "params_pendulum1D_samples"]),
-                 lambda: profile_loop.main([])):
+                 lambda: profile_loop.main([]),
+                 lambda: bench.main([])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     # an explicit CPU request runs, in float64 by default
