@@ -15,7 +15,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from sampling_gpmpc_torch import setup
+from sampling_gpmpc_torch import obs, setup
 from sampling_gpmpc_torch.config import ProblemSpec
 from sampling_gpmpc_torch.envs.base import Env
 from sampling_gpmpc_torch.gp import exact
@@ -149,8 +149,10 @@ def _fused_sample_empty(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
     """Empty-hall GP stage through the fused kernel (ops/gp_sample.py):
     posterior, Cholesky, pathwise draw and override tail, every output in
     one launch."""
-    dg = gp_sample.sample_empty(**empty_stage_inputs_all(spec, hyp, gp, Xt,
-                                                         eps, md))
+    with obs.span("gp.inputs"):
+        kw = empty_stage_inputs_all(spec, hyp, gp, Xt, eps, md)
+    with obs.span("gp.kernel"):
+        dg = gp_sample.sample_empty(**kw)
     return dg.transpose(0, 1).reshape(spec.ns, spec.g_ny, spec.H, spec.Ty)
 
 
@@ -209,8 +211,10 @@ def _fused_sample_hall(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
     (ops/gp_hall.py): the products, one blocked Cholesky of each bordered
     matrix, pathwise draw and override tail, every output in one launch
     set."""
-    dg = gp_hall.sample_hall(**hall_stage_inputs_all(spec, hyp, gp, Xt, eps,
-                                                     md))
+    with obs.span("gp.inputs"):
+        kw = hall_stage_inputs_all(spec, hyp, gp, Xt, eps, md)
+    with obs.span("gp.kernel"):
+        dg = gp_hall.sample_hall(**kw)
     return dg.transpose(0, 1).reshape(spec.ns, spec.g_ny, spec.H, spec.Ty)
 
 
@@ -385,7 +389,8 @@ def sample_dynamics(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
         idx += 1
 
     if not oracle_only:
-        gp = append_hall(spec, hyp, gp, Xt, dg, dist=dist)
+        with obs.span("gp.append"):
+            gp = append_hall(spec, hyp, gp, Xt, dg, dist=dist)
     return dg, gp
 
 

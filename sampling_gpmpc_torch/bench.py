@@ -20,8 +20,9 @@ functions take their sizes as arguments, and :func:`mpc_step` and
   plan's first input with the ancillary feedback applied to the plant,
   the solution shift) timed on the host clock ending in
   ``torch.cuda.synchronize()``.  ``value`` = 1 / mean step time; the
-  median, the p90 and the cold step 0 beside it; ``idle_share`` from one
-  separate window of 5 steps under ``torch.profiler``;
+  median, the p90 and the cold step 0 beside it; ``idle_share``: 1 -
+  device busy time over wall time, both of one separate window of 5 steps
+  under ``torch.profiler``;
 * ``ns512_value``: the same at ns = 512 (3 + 80 steps);
 * ``car_value``: ``params_car`` (ns = 20, H = 15, 4 SQP iterations a step:
   the hall-block GP stage), 3 + 80 steps;
@@ -225,7 +226,8 @@ def loop_row(spec, data, env, device, warmup: int, timed: int, seed: int,
     status 0, finite state).  The launch counters are zeroed after the
     warm-up and read after the timed steps.  With ``trace_steps``, that
     many more steps run under ``torch.profiler`` (CUDA activity; trace in
-    ``trace_dir``) for the device idle share."""
+    ``trace_dir``) for the device idle share: 1 - their busy time over
+    their wall time."""
     n = warmup + timed + trace_steps
     eps = draws(spec, n, seed, device, dtype)
     loop = ClosedLoop(spec, data, env, device, dtype)
@@ -263,13 +265,12 @@ def loop_row(spec, data, env, device, warmup: int, timed: int, seed: int,
                 step(m)
             wall_ms = 1e3 * (time.perf_counter() - t0)
         os.makedirs(trace_dir, exist_ok=True)
-        busy_ms, n_kernels, _ = device_trace(
+        busy_ms, n_kernels, _, _ = device_trace(
             prof, os.path.join(trace_dir, "trace_bench_device.json"))
         if busy_ms is None:
             raise RuntimeError(f"{label}: the trace holds no device work")
         row.update(
-            idle_share=1.0 - busy_ms / (trace_steps * row["mean_ms"]),
-            idle_share_traced=1.0 - busy_ms / wall_ms,
+            idle_share=1.0 - busy_ms / wall_ms,
             device_busy_ms_per_step=busy_ms / trace_steps,
             kernels_per_step=n_kernels / trace_steps)
     return row
@@ -485,7 +486,6 @@ def run(device=None, seed=None, sizes: Sizes = Sizes(), skip_512=False,
                 f"float32, fastest of {sizes.cpu_reps}",
         "vs_baseline": vs, **_row_keys("", rows["ns64"]),
         "idle_share": rows["ns64"].get("idle_share"),
-        "idle_share_traced": rows["ns64"].get("idle_share_traced"),
         "kernels_per_step": rows["ns64"].get("kernels_per_step"),
         "load_avg_1min": load}
 

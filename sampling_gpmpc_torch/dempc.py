@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from sampling_gpmpc_torch import agent as agent_mod
-from sampling_gpmpc_torch import setup
+from sampling_gpmpc_torch import obs, setup
 from sampling_gpmpc_torch.config import ProblemData, ProblemSpec
 from sampling_gpmpc_torch.envs.base import Env
 from sampling_gpmpc_torch.gp.exact import GPHyperArrays
@@ -30,7 +30,9 @@ from sampling_gpmpc_torch.utils.termcolor import bcolors
 def shift_solution(X, U):
     """Warm-start shift (ref: src/solver.py:174-178): stages move one step
     forward; the terminal state and last input are repeated."""
-    return torch.cat([X[1:], X[-1:]], dim=0), torch.cat([U[1:], U[-1:]], dim=0)
+    with obs.span("loop.shift"):
+        return (torch.cat([X[1:], X[-1:]], dim=0),
+                torch.cat([U[1:], U[-1:]], dim=0))
 
 
 class DEMPC:
@@ -150,6 +152,7 @@ class DEMPC:
                     spec, self.env, self.hyp, self.ocp, x_curr, X, U,
                     self.gp_state, self.epistemic[m], qp_ws, qp_valid)
                 self._render_sqp_records(m, recs)
+            obs.count(obs.SYNCS, "dempc.run:status", tally=False)
             status = int(st.status)          # waits for the device
             dt_solve = time.perf_counter() - t0
             qp_ws, qp_valid = st.qp_ws, st.qp_valid
@@ -157,6 +160,8 @@ class DEMPC:
             u0 = self._realized_input(X[0, 0], U[0])
             x_next = self.env.discrete_dyn(X[0, 0], u0)
 
+            for read in ("x", "U", "X", "qp_iters", "qp_gap"):
+                obs.count(obs.SYNCS, "dempc.run:" + read, tally=False)
             phys.append(x_curr.cpu().numpy())
             inputs.append(U.cpu().numpy())
             plans.append(X.cpu().numpy())
@@ -165,6 +170,7 @@ class DEMPC:
             statuses.append(status)
             gaps.append(float(st.qp_gap))
             if self.verbose:
+                obs.count(obs.SYNCS, "dempc.run:u0", tally=False)
                 print(f"{bcolors.green}Reached: {m} "
                       f"{np.round(phys[-1], 4)} "
                       f"u0={np.round(u0.cpu().numpy(), 4)} "
@@ -189,6 +195,8 @@ class DEMPC:
             if spec.shift_soln:
                 X, U = shift_solution(X, U)
 
+        for read in ("final_state", "status", "done"):
+            obs.count(obs.SYNCS, "dempc.run:" + read, tally=False)
         return {
             "physical_state_traj": phys,
             "input_traj": inputs,

@@ -28,6 +28,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from sampling_gpmpc_torch import obs
 from sampling_gpmpc_torch.config import ProblemSpec
 
 
@@ -48,14 +49,17 @@ class Env:
 
     def g_inputs(self, xu: torch.Tensor) -> torch.Tensor:
         """Filter (..., nx+nu) points down to the GP input dims."""
+        # the index list's copy to the device synchronises
+        obs.count(obs.SYNCS, "envs.Env.g_inputs", tally=False)
         return xu[..., list(self.spec.g_idx_inputs)]
 
     def discrete_dyn(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """True plant step for (..., nx) states and (..., nu) inputs."""
-        xu = torch.cat([x, u], dim=-1)
-        f = self.f_val_jac(xu)[..., 0]
-        g = self.g_val(self.g_inputs(xu))
-        return f + (self.B_d_dyn(xu) @ g[..., None])[..., 0]
+        with obs.span("loop.plant"):
+            xu = torch.cat([x, u], dim=-1)
+            f = self.f_val_jac(xu)[..., 0]
+            g = self.g_val(self.g_inputs(xu))
+            return f + (self.B_d_dyn(xu) @ g[..., None])[..., 0]
 
     def assemble_val_jac(self, xu: torch.Tensor,
                          dg: torch.Tensor) -> torch.Tensor:
@@ -70,6 +74,8 @@ class Env:
         spec = self.spec
         tg = self.transform_sensitivity(dg, xu)
         pad = tg.new_zeros(tg.shape[:-1] + (1 + spec.nx + spec.nu,))
+        # the index list's copy to the device synchronises
+        obs.count(obs.SYNCS, "envs.Env.assemble_val_jac:pad_g", tally=False)
         pad[..., list(spec.pad_g)] = tg
         return self.f_val_jac(xu) + self.B_d(xu) @ pad
 

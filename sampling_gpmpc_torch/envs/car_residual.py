@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sampling_gpmpc_torch import obs
 from sampling_gpmpc_torch.config import ProblemSpec
 from sampling_gpmpc_torch.envs.base import Env, grid_training_data
 from sampling_gpmpc_torch.envs.car import _beta_terms, make_f_val_jac
@@ -57,12 +58,15 @@ def make(spec: ProblemSpec, params: dict) -> Env:
 
     def B_d_const(xu):
         # jacobian-assembly matrix: constant identity; the v-scaling is done
-        # by transform_sensitivity (ref: car_model_residual.py:26,211-224)
+        # by transform_sensitivity (ref: car_model_residual.py:26,211-224);
+        # a copy from pageable host memory: the host waits for the device
+        obs.count(obs.SYNCS, "envs.car_residual.B_d_const", tally=False)
         E = torch.as_tensor(eye, dtype=xu.dtype, device=xu.device)
         return E.expand(xu.shape[:-1] + E.shape)
 
     def B_d_dyn(xu):
-        # true-dynamics matrix B_d(x) = v * I
+        # true-dynamics matrix B_d(x) = v * I (a synchronising copy, as above)
+        obs.count(obs.SYNCS, "envs.car_residual.B_d_dyn", tally=False)
         E = torch.as_tensor(eye, dtype=xu.dtype, device=xu.device)
         return xu[..., 3, None, None] * E
 

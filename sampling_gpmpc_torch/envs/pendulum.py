@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sampling_gpmpc_torch import obs
 from sampling_gpmpc_torch.config import ProblemSpec
 from sampling_gpmpc_torch.envs.base import (Env, grid_training_data,
                                             identity_transform)
@@ -50,6 +51,8 @@ def make(spec: ProblemSpec, params: dict) -> Env:
     B = np.eye(nx, spec.g_ny)
 
     def B_d(xu):
+        # a copy from pageable host memory: the host waits for the device
+        obs.count(obs.SYNCS, "envs.pendulum.B_d", tally=False)
         Bt = torch.as_tensor(B, dtype=xu.dtype, device=xu.device)
         return Bt.expand(xu.shape[:-1] + Bt.shape)
 

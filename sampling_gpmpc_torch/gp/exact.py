@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from sampling_gpmpc_torch import obs
 from sampling_gpmpc_torch.gp.kernel import kernel_matrix
 
 
@@ -79,6 +80,7 @@ def safe_cholesky(A: torch.Tensor, jitter: float) -> torch.Tensor:
     L = cholesky_nan(A + j[..., None, None] * eye)
     while True:
         retry = torch.isnan(L).any(-1).any(-1) & (j * 10.0 <= cap)
+        obs.count(obs.SYNCS, "exact.safe_cholesky:retry", tally=False)
         if not bool(retry.any()):
             return L
         j = torch.where(retry, j * 10.0, j)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from sampling_gpmpc_torch import obs
 from sampling_gpmpc_torch.gp.kernel import kernel_matrix
 from sampling_gpmpc_torch.parallel.collectives import (all_gather,
                                                        group_rank,
@@ -45,6 +46,7 @@ def _cg(matvec, gather, B_loc, psum, tol, max_iter):
                       device=B_loc.device)
     for _ in range(max_iter):
         live = rs > tol * tol              # replicated: rs is psum-ed
+        obs.count(obs.SYNCS, "train_sharded._cg:live", tally=False)
         if not bool(live.any()):
             break
         AP = matvec(gather(P))

@@ -21,8 +21,8 @@ from typing import NamedTuple
 
 import torch
 
-from sampling_gpmpc_torch import setup
-from sampling_gpmpc_torch.ops import build, ipm
+from sampling_gpmpc_torch import obs, setup
+from sampling_gpmpc_torch.ops import ipm
 from sampling_gpmpc_torch.ops.ipm import _precond_factor, _precond_solve
 from sampling_gpmpc_torch.parallel.collectives import (group_size,
                                                        make_reducers)
@@ -124,8 +124,13 @@ def solve_qp(P, q, C, d, tol: float = None, max_iter: int = 50,
 
     it = 0
     csum = psum(torch.dot(s, lam))
+    # scalars copied from host memory (here and at the end) and reads
+    obs.count(obs.SYNCS, "qp.solve_qp:inf", tally=False)
     res = torch.tensor(float("inf"), dtype=dtype, device=dev)
-    while it < max_iter and bool(res > tol):
+    while it < max_iter:
+        obs.count(obs.SYNCS, "qp.solve_qp:res", tally=False)
+        if not bool(res > tol):
+            break
         mu = csum / m
         aux = factorize(z, lam, s)
         # predictor (affine) step
@@ -142,6 +147,7 @@ def solve_qp(P, q, C, d, tol: float = None, max_iter: int = 50,
         # convergence); the flag agrees across shards
         fin = torch.stack([torch.isfinite(v).all() for v in (z_n, lam_n,
                                                              s_n)]).all()
+        obs.count(obs.SYNCS, "qp.solve_qp:finite", tally=False)
         ok = bool(pmin(fin.to(torch.int32)) > 0)
         it += 1
         if not ok:
@@ -150,6 +156,7 @@ def solve_qp(P, q, C, d, tol: float = None, max_iter: int = 50,
         res, csum = residual_parts(z, lam, s)
     res = residual_parts(z, lam, s)[0]
     status = torch.where(res <= tol * STATUS_RTOL, 0, 4)
+    obs.count(obs.SYNCS, "qp.solve_qp:iters", tally=False)
     return QPSolution(z=z, lam=lam, s=s, iters=torch.tensor(it, device=dev),
                       status=status, gap=res)
 
@@ -171,37 +178,44 @@ def solve_qp_soft(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
     warm start's row slots) are this shard's; H, g and u are replicated.
     ``ordered`` selects the order-defined sums (parallel/collectives.py).
     """
-    dtype = g.dtype
-    if tol is None:
-        tol = TOL[dtype]
-    reg = 1e-13 if dtype == torch.float64 else 1e-7
-    args = tuple(a.contiguous() for a in (H, g, G_h, d_h, G_s, lo_s, hi_s,
-                                          zl, zu, Zl, Zu))
-    if ws is not None:
-        ws = tuple(a.contiguous() for a in ws)
-    if group is not None:
-        # the JAX gate (qp.py:273): no fused IPM under a sample axis
-        build.count(ROUTES, "group")
-        p = ipm.prepare_plain(*args, ws, ws_valid, WS_BAND, group, ordered)
-        best, best_res, it = ipm.mehrotra_plain(
-            p, tol, reg, max_iter, STALL_ITERS, STALL_RTOL, MU_GRIND, group,
-            ordered)
-        return _finish(best, best_res, it, p.scale_h, p.scale_s, tol)
-    build.count(ROUTES, "run_full")
-    # CPU tensors take the plain solver; CUDA ones the kernels, or raise
-    best, best_res, it, scale_h, scale_s = ipm.run_full(
-        *args, ws, ws_valid, tol, reg, max_iter, STALL_ITERS, STALL_RTOL,
-        MU_GRIND, WS_BAND)
-    return _finish(best, best_res, it, scale_h, scale_s, tol)
+    with obs.span("qp.solve"):
+        dtype = g.dtype
+        if tol is None:
+            tol = TOL[dtype]
+        reg = 1e-13 if dtype == torch.float64 else 1e-7
+        args = tuple(a.contiguous() for a in (H, g, G_h, d_h, G_s, lo_s,
+                                              hi_s, zl, zu, Zl, Zu))
+        if ws is not None:
+            ws = tuple(a.contiguous() for a in ws)
+        if group is not None:
+            # the JAX gate (qp.py:273): no fused IPM under a sample axis
+            obs.count(ROUTES, "group")
+            with obs.span("qp.prepare"):
+                p = ipm.prepare_plain(*args, ws, ws_valid, WS_BAND, group,
+                                      ordered)
+            with obs.span("qp.mehrotra"):
+                best, best_res, it = ipm.mehrotra_plain(
+                    p, tol, reg, max_iter, STALL_ITERS, STALL_RTOL, MU_GRIND,
+                    group, ordered)
+            return _finish(best, best_res, it, p.scale_h, p.scale_s, tol)
+        obs.count(ROUTES, "run_full")
+        # CPU tensors take the plain solver; CUDA ones the kernels, or raise
+        best, best_res, it, scale_h, scale_s = ipm.run_full(
+            *args, ws, ws_valid, tol, reg, max_iter, STALL_ITERS, STALL_RTOL,
+            MU_GRIND, WS_BAND)
+        return _finish(best, best_res, it, scale_h, scale_s, tol)
 
 
 def _finish(best, best_res, it, scale_h, scale_s, tol):
     """Status + un-equilibration tail shared by both paths."""
-    status = torch.where(best_res <= tol * STATUS_RTOL, 0, 4)
-    (u_b, sl_b, su_b, th_b, lh_b, tU_b, lU_b, tL_b, lL_b, nl_b, nu_b) = best
-    state = (u_b, sl_b * scale_s, su_b * scale_s, th_b * scale_h,
-             lh_b / scale_h, tU_b * scale_s, lU_b / scale_s,
-             tL_b * scale_s, lL_b / scale_s, nl_b / scale_s, nu_b / scale_s)
+    with obs.span("qp.finish"):
+        status = torch.where(best_res <= tol * STATUS_RTOL, 0, 4)
+        (u_b, sl_b, su_b, th_b, lh_b, tU_b, lU_b, tL_b, lL_b, nl_b,
+         nu_b) = best
+        state = (u_b, sl_b * scale_s, su_b * scale_s, th_b * scale_h,
+                 lh_b / scale_h, tU_b * scale_s, lU_b / scale_s,
+                 tL_b * scale_s, lL_b / scale_s, nl_b / scale_s,
+                 nu_b / scale_s)
     return QPSolution(z=best[0], lam=best[4], s=best[3], iters=it,
                       status=status, gap=best_res, state=state)
 

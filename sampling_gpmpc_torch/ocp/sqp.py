@@ -31,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from sampling_gpmpc_torch import agent as agent_mod
-from sampling_gpmpc_torch import setup
+from sampling_gpmpc_torch import obs, setup
 from sampling_gpmpc_torch.agent import GPState
 from sampling_gpmpc_torch.config import ProblemSpec
 from sampling_gpmpc_torch.envs.base import Env
@@ -125,19 +125,26 @@ def init_qp_ws(spec: ProblemSpec, device=None, dtype=None):
     m_h, m_s = row_counts(spec)
     nU = spec.H * spec.nu
     z = lambda n: torch.ones((n,), dtype=dtype, device=device)
-    return (torch.zeros((nU,), dtype=dtype, device=device), z(m_s), z(m_s),
-            z(m_h), z(m_h), z(m_s), z(m_s), z(m_s), z(m_s), z(m_s), z(m_s))
+    with obs.span("loop.start"):
+        return (torch.zeros((nU,), dtype=dtype, device=device), z(m_s),
+                z(m_s), z(m_h), z(m_h), z(m_s), z(m_s), z(m_s), z(m_s),
+                z(m_s), z(m_s))
 
 
 def init_iterate(spec: ProblemSpec, device=None, dtype=None, start=None):
     """Initial iterate: the start state tiled over all stages, zero inputs —
     acados' default initialization (ref: src/utils/ocp.py:175-177)."""
     device, dtype = setup.resolve(device, dtype)
-    X0 = torch.zeros((spec.H + 1, spec.ns, spec.nx), dtype=dtype,
-                     device=device)
-    if start is not None:
-        X0[:] = torch.as_tensor(start, dtype=dtype, device=device)
-    return X0, torch.zeros((spec.H, spec.nu), dtype=dtype, device=device)
+    with obs.span("loop.start"):
+        X0 = torch.zeros((spec.H + 1, spec.ns, spec.nx), dtype=dtype,
+                         device=device)
+        if start is not None:
+            # a copy from pageable host memory: the host waits for the
+            # device
+            obs.count(obs.SYNCS, "sqp.init_iterate:start", tally=False)
+            X0[:] = torch.as_tensor(start, dtype=dtype, device=device)
+        return X0, torch.zeros((spec.H, spec.nu), dtype=dtype,
+                               device=device)
 
 
 def _linearization_inputs(spec: ProblemSpec, ocp: OCPData, X, U):
@@ -166,19 +173,27 @@ def _assemble(spec, env, hyp, ocp, st_curr, X, U, gp, eps, hall_empty,
               group=None, ordered=False):
     """:func:`assemble_qp` and the GP rows ``dg`` and inputs ``Xt``."""
     ns, nx = spec.ns, spec.nx
-    xu = _linearization_inputs(spec, ocp, X, U)
-    Xt = xu[..., list(spec.g_idx_inputs)]                    # (ns, H, D)
-    dg, gp = agent_mod.sample_dynamics(spec, env, hyp, gp, Xt, eps,
-                                       hall_empty=hall_empty, group=group)
-    val, A, B = agent_mod.dyn_linearization(spec, env, xu, dg, ocp.K_fb)
-    # delta dynamics dx_{k+1} = A dx_k + B du_k + r_k, r = f_lin - x̄_{k+1}
-    r = val - X[1:].transpose(0, 1)
-    dx0 = st_curr[None].expand(ns, nx) - X[0]
-    T, Gamma = condense(A, B, r, dx0)
-    H_U, g_U = build_cost(spec, ocp, T, Gamma, X, U, group, ordered)
-    hard = build_hard_rows(spec, ocp, T, Gamma, X, U)
-    soft, (zl, zu, Zl, Zu) = build_soft_rows(spec, ocp, T, Gamma, X)
-    C_h, d_h = boxes_to_rows(hard.G, hard.lo, hard.hi)
+    with obs.span("glue.linearize"):
+        xu = _linearization_inputs(spec, ocp, X, U)
+        # the index list's copy to the device synchronises
+        obs.count(obs.SYNCS, "sqp._assemble:g_idx_inputs", tally=False)
+        Xt = xu[..., list(spec.g_idx_inputs)]                # (ns, H, D)
+    with obs.span("gp.sample"):
+        dg, gp = agent_mod.sample_dynamics(spec, env, hyp, gp, Xt, eps,
+                                           hall_empty=hall_empty, group=group)
+    with obs.span("glue.linearize"):
+        val, A, B = agent_mod.dyn_linearization(spec, env, xu, dg, ocp.K_fb)
+        # delta dynamics dx_{k+1} = A dx_k + B du_k + r_k,
+        # r = f_lin - x̄_{k+1}
+        r = val - X[1:].transpose(0, 1)
+        dx0 = st_curr[None].expand(ns, nx) - X[0]
+    with obs.span("glue.condense"):
+        T, Gamma = condense(A, B, r, dx0)
+    with obs.span("glue.assemble"):
+        H_U, g_U = build_cost(spec, ocp, T, Gamma, X, U, group, ordered)
+        hard = build_hard_rows(spec, ocp, T, Gamma, X, U)
+        soft, (zl, zu, Zl, Zu) = build_soft_rows(spec, ocp, T, Gamma, X)
+        C_h, d_h = boxes_to_rows(hard.G, hard.lo, hard.hi)
     qp = (H_U, g_U, C_h, d_h, soft.G, soft.lo, soft.hi, zl, zu, Zl, Zu)
     return qp, T, Gamma, gp, dg, Xt
 
@@ -201,9 +216,10 @@ def sqp_iteration(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
     sol = solve_qp_soft(*qp, tol=(spec.qp_tol if spec.qp_tol > 0 else None),
                         ws=qp_ws, ws_valid=qp_valid, group=group,
                         ordered=ordered)
-    dU = sol.z[:H * nu]
-    dX = T + torch.einsum("ikau,u->ika", Gamma, dU)          # (ns, H+1, nx)
-    X_new, U_new = X + dX.transpose(0, 1), U + dU.reshape(H, nu)
+    with obs.span("sqp.advance"):
+        dU = sol.z[:H * nu]
+        dX = T + torch.einsum("ikau,u->ika", Gamma, dU)      # (ns, H+1, nx)
+        X_new, U_new = X + dX.transpose(0, 1), U + dU.reshape(H, nu)
     if return_debug:
         return X_new, U_new, gp, sol, {"dg": dg, "Xt": Xt,
                                        "qp": dict(zip(QP_KEYS, qp))}
@@ -219,6 +235,9 @@ def _initial_state(spec: ProblemSpec, X0, U0, gp0: GPState, qp_ws,
         qp_ws = init_qp_ws(spec, dev, dtype)
         qp_valid = torch.zeros((), dtype=torch.bool, device=dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
+    # two copies from pageable host memory: the host waits for the device
+    obs.count(obs.SYNCS, "sqp._initial_state:qp_gap", tally=False)
+    obs.count(obs.SYNCS, "sqp._initial_state:best_step", tally=False)
     return SolveState(
         X=X0, U=U0, X_prev=X0, U_prev=U0, gp=agent_mod.reset_hall(gp0), it=0,
         status=zero, done=torch.zeros((), dtype=torch.bool, device=dev),
@@ -248,11 +267,17 @@ def _advance(spec: ProblemSpec, s: SolveState, X_cand, U_cand, gp, sol,
 
 
 def _go_on(spec: ProblemSpec, s: SolveState) -> bool:
-    """Whether another iteration runs (syncs on the device).  ``done`` and
-    ``status`` are replicated under a group (reduced norms, the QP's
-    reduced residual), so every rank takes the same branch."""
-    return (s.it < spec.max_sqp_iter and not bool(s.done)
-            and int(s.status) == 0)
+    """Whether another iteration runs: none past ``max_sqp_iter``, else
+    reads ``done`` and ``status`` (each a sync on the device).  Both are
+    replicated under a group (reduced norms, the QP's reduced residual),
+    so every rank takes the same branch."""
+    if s.it >= spec.max_sqp_iter:
+        return False
+    obs.count(obs.SYNCS, "sqp._go_on:done", tally=False)
+    if bool(s.done):
+        return False
+    obs.count(obs.SYNCS, "sqp._go_on:status", tally=False)
+    return int(s.status) == 0
 
 
 def solve(spec: ProblemSpec, env: Env, hyp: GPHyperArrays, ocp: OCPData,
@@ -269,15 +294,22 @@ def solve(spec: ProblemSpec, env: Env, hyp: GPHyperArrays, ocp: OCPData,
             X0, gp0's hall buffers, eps_iters, ocp.w_cost and qp_ws[1:]
             are then this shard's.
     """
-    s = _initial_state(spec, X0, U0, gp0, qp_ws, qp_valid)
-    while True:
-        out = sqp_iteration(spec, env, hyp, ocp, st_curr, s.X, s.U, s.gp,
-                            eps_iters[s.it], qp_ws=s.qp_ws,
-                            qp_valid=s.qp_valid, hall_empty=s.it == 0,
-                            group=group, ordered=ordered)
-        s = _advance(spec, s, *out, group=group, ordered=ordered)[0]
-        if not _go_on(spec, s):
-            return s
+    with obs.span("sqp.solve"):
+        s = _initial_state(spec, X0, U0, gp0, qp_ws, qp_valid)
+        while True:
+            with obs.span("sqp.iteration"):
+                out = sqp_iteration(spec, env, hyp, ocp, st_curr, s.X, s.U,
+                                    s.gp, eps_iters[s.it], qp_ws=s.qp_ws,
+                                    qp_valid=s.qp_valid,
+                                    hall_empty=s.it == 0, group=group,
+                                    ordered=ordered)
+                with obs.span("sqp.advance"):
+                    s = _advance(spec, s, *out, group=group,
+                                 ordered=ordered)[0]
+            with obs.span("sqp.go_on"):
+                go_on = _go_on(spec, s)
+            if not go_on:
+                return s
 
 
 def solve_recorded(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
@@ -315,6 +347,8 @@ def solve_recorded(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
     while True:
         mean = std = None
         if not oracle_only:
+            obs.count(obs.SYNCS, "sqp.solve_recorded:g_idx_inputs",
+                      tally=False)
             Xt = _linearization_inputs(spec, ocp, s.X, s.U)[
                 ..., list(spec.g_idx_inputs)]
             mean, std = probe_fn(s.gp, Xt)

@@ -35,6 +35,7 @@ import ctypes
 import torch
 
 from sampling_gpmpc_torch.gp.exact import cholesky_nan, solve_tri_shared
+from sampling_gpmpc_torch import obs
 from sampling_gpmpc_torch.ops import build
 from sampling_gpmpc_torch.ops.gp_sample import PANEL, TILE_FLOATS, factor_panels
 
@@ -173,7 +174,7 @@ def _chol_launch(A3: torch.Tensor) -> torch.Tensor:
         rc = fn(A3.data_ptr(), out.data_ptr(), B, n, chol_smem_bytes(n),
                 torch.cuda.current_stream(A3.device).cuda_stream)
     build.check(rc, "batch_chol launch")
-    build.count(LAUNCHES, "chol")
+    obs.count(LAUNCHES, "chol")
     return out
 
 
@@ -194,7 +195,7 @@ def _tri_launch(L3, R3, lower: bool) -> torch.Tensor:
                 int(lower), nt, int(warp_diag), tri_smem_bytes(n, m),
                 torch.cuda.current_stream(R3.device).cuda_stream)
     build.check(rc, "batch_tri_solve launch")
-    build.count(LAUNCHES, "tri_solve")
+    obs.count(LAUNCHES, "tri_solve")
     return out
 
 

@@ -15,6 +15,7 @@ import ctypes
 import torch
 
 from sampling_gpmpc_torch.gp.exact import cholesky_nan
+from sampling_gpmpc_torch import obs
 from sampling_gpmpc_torch.ops import build
 from sampling_gpmpc_torch.ops.batch_linalg import (PANEL, blocked_chol,
                                                    first_failed_pivot)
@@ -74,5 +75,5 @@ def batched_cholesky(A: torch.Tensor, jitter: float = 0.0,
         rc = fn(A3.data_ptr(), out.data_ptr(), B, n, float(jitter),
                 smem_bytes(n), torch.cuda.current_stream(A.device).cuda_stream)
     build.check(rc, "batched_chol launch")
-    build.count(LAUNCHES, "batched_chol")
+    obs.count(LAUNCHES, "batched_chol")
     return out.reshape(A.shape)

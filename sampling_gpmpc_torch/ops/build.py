@@ -15,7 +15,6 @@ Nothing is built when a module is imported: the first launch builds, or
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,8 +39,6 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
-_COUNT_LOCK = threading.Lock()
-_TALLY = threading.local()
 
 
 def _nvcc() -> str:
@@ -115,28 +112,6 @@ def load(name: str) -> ctypes.CDLL:
                 _finish(job)
             _LIBS[name] = ctypes.CDLL(_target(name))
         return _LIBS[name]
-
-
-def count(table: dict, name: str, tally: bool = True) -> None:
-    """One launch of kernel ``name``: added to its module's ``table`` under
-    a lock (the blocked solve launches from one thread per block) and,
-    with ``tally``, to the calling thread's :func:`thread_tally`."""
-    with _COUNT_LOCK:
-        table[name] += 1
-    mine = getattr(_TALLY, "counts", None)
-    if tally and mine is not None:
-        mine[name] = mine.get(name, 0) + 1
-
-
-@contextlib.contextmanager
-def thread_tally():
-    """The launches :func:`count` records from this thread meanwhile, as
-    a dict filled in place."""
-    _TALLY.counts = {}
-    try:
-        yield _TALLY.counts
-    finally:
-        _TALLY.counts = None
 
 
 def check(rc: int, what: str) -> None:

@@ -44,6 +44,7 @@ import ctypes
 
 import torch
 
+from sampling_gpmpc_torch import obs
 from sampling_gpmpc_torch.ops import build
 from sampling_gpmpc_torch.ops.gp_sample import (PANEL, TILE_FLOATS,
                                                 factor_panels, override_tail)
@@ -252,5 +253,5 @@ def sample_hall(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
                 float(var_zero), float(rel_floor), smem, int(glob),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "gp_hall_sample launch")
-    build.count(LAUNCHES, "gp_hall")
+    obs.count(LAUNCHES, "gp_hall")
     return dg

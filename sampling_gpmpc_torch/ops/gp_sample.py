@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from sampling_gpmpc_torch import obs
 from sampling_gpmpc_torch.ops import build
 
 LAUNCHES = {"gp_sample": 0}
@@ -252,5 +253,5 @@ def sample_empty(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
                 float(var_zero), float(rel_floor), *map(int, glob), stride,
                 smem, torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "gp_sample_empty launch")
-    build.count(LAUNCHES, "gp_sample")
+    obs.count(LAUNCHES, "gp_sample")
     return dg

@@ -44,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from sampling_gpmpc_torch import obs
 from sampling_gpmpc_torch.ops import build
 from sampling_gpmpc_torch.parallel.collectives import (group_size,
                                                        make_reducers)
@@ -283,6 +284,9 @@ def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
     m_total = _m_total(p, world)
     mu0 = p.qscale
 
+    def sync(what):
+        obs.count(obs.SYNCS, "ipm.mehrotra_plain:" + what, tally=False)
+
     def max_step(st, d):
         a = torch.ones((), dtype=dtype, device=dev)
         for v, dv in zip(st[1:], d[1:]):
@@ -358,6 +362,7 @@ def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
         return (du, dsl, dsu, dth, dlh, dtU, dlU, dtL, dlL, dnl, dnu)
 
     st = best = p.st0
+    sync("inf")                     # a scalar copied from host memory
     best_res = torch.tensor(float("inf"), dtype=dtype, device=dev)
     it, since = 0, 0
     # the loop's first mu numerator: a pre-loop round, as in JAX
@@ -376,6 +381,7 @@ def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
         d = direction(st, aux, sigma * mu, corr)
         alpha = max_step(st, d)
         st_n = tuple(v + alpha * dv for v, dv in zip(st, d))
+        sync("finite")
         ok = bool(pmin(torch.stack([torch.isfinite(v).all() for v in st_n])
                        .all().to(torch.int32)) > 0)
         it += 1
@@ -384,18 +390,28 @@ def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
         res, csum = _kkt_parts(p, st, red, world)
         if not ok:
             res = torch.full_like(best_res, float("inf"))
+        sync("best")
         if bool(res < best_res):
             best = st
+        sync("meaningful")
         meaningful = bool(res < best_res * (1.0 - stall_rtol))
         best_res = torch.minimum(res, best_res)
         mu_new = csum / m_total
+        sync("grinding")
         grinding = bool(mu_new < mu_grind * mu0)
         since = 0 if (meaningful or not grinding) else since + 1
-        live = ok and bool(mu_new > 1e-14 * mu0)
+        live = ok
+        if ok:
+            sync("live")
+            live = bool(mu_new > 1e-14 * mu0)
         if dtype != torch.float64:
             live = live and since < stall_iters
-        if not live or bool(best_res <= tol):
+        if not live:
             break
+        sync("converged")
+        if bool(best_res <= tol):
+            break
+    sync("iters")
     return best, best_res, torch.tensor(it, device=dev)
 
 
@@ -405,10 +421,12 @@ def run_full_plain(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
                    ws_band):
     """The kernels' algorithm in plain torch (the loop of the JAX package's
     ``solve_qp_soft``); same arguments and result as :func:`run_full`."""
-    p = prepare_plain(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
-                      ws, ws_valid, ws_band)
-    best, best_res, it = mehrotra_plain(p, tol, reg, max_iter, stall_iters,
-                                        stall_rtol, mu_grind)
+    with obs.span("qp.prepare"):
+        p = prepare_plain(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
+                          ws, ws_valid, ws_band)
+    with obs.span("qp.mehrotra"):
+        best, best_res, it = mehrotra_plain(p, tol, reg, max_iter,
+                                            stall_iters, stall_rtol, mu_grind)
     return best, best_res, it, p.scale_h, p.scale_s
 
 
@@ -661,9 +679,9 @@ def prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws, ws_valid,
                   lay.chunk, int(lay.resident), lay.smem,
                   torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "ipm_prepare launch")
-    build.count(LAUNCHES, "ipm_prepare")
+    obs.count(LAUNCHES, "ipm_prepare")
     if nU > NU_NARROW:
-        build.count(LAUNCHES_WIDE, "ipm_prepare", tally=False)
+        obs.count(LAUNCHES_WIDE, "ipm_prepare", tally=False)
     return Device(H=H, g=g, Gth=buf["Gth"].view(nU, m_h),
                   Gts=buf["Gts"].view(nU, m_s), dh=buf["dh"].view(2, m_h),
                   sd=buf["sd"].view(8, m_s), h0=buf["h0"].view(2, m_h),
@@ -722,9 +740,9 @@ def mehrotra(d: Device, tol: float, reg: float, max_iter: int,
                   lay.chunk, int(lay.resident), lay.group, lay.smem,
                   torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "ipm_mehrotra launch")
-    build.count(LAUNCHES, "ipm_mehrotra")
+    obs.count(LAUNCHES, "ipm_mehrotra")
     if nU > NU_NARROW:
-        build.count(LAUNCHES_WIDE, "ipm_mehrotra", tally=False)
+        obs.count(LAUNCHES_WIDE, "ipm_mehrotra", tally=False)
     best = (bu, bs[2], bs[3], bh[0], bh[1], bs[0], bs[4], bs[1], bs[5],
             bs[6], bs[7])
     return best, bres[0], bit[0]
@@ -745,8 +763,10 @@ def run_full(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
         return run_full_plain(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
                               ws, ws_valid, tol, reg, max_iter, stall_iters,
                               stall_rtol, mu_grind, ws_band)
-    d = prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws,
-                ws_valid, ws_band)
-    best, best_res, it = mehrotra(d, tol, reg, max_iter, stall_iters,
-                                  stall_rtol, mu_grind)
+    with obs.span("qp.prepare"):
+        d = prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws,
+                    ws_valid, ws_band)
+    with obs.span("qp.mehrotra"):
+        best, best_res, it = mehrotra(d, tol, reg, max_iter, stall_iters,
+                                      stall_rtol, mu_grind)
     return best, best_res, it, d.sch, d.scs

@@ -39,7 +39,7 @@ from typing import Callable, List
 import torch
 import torch.distributed as dist
 
-from sampling_gpmpc_torch.ops import build
+from sampling_gpmpc_torch import obs
 
 
 class LockstepError(RuntimeError):
@@ -138,7 +138,7 @@ class BlockGroup:
             self._local.rank, self._local.parity = r, 0
             try:
                 self._await_turn(r)
-                with build.thread_tally() as tally:
+                with obs.thread_tally() as tally:
                     if stream is None:
                         results[r] = fn(*args, **kwargs)
                     else:

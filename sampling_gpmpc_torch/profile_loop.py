@@ -6,11 +6,11 @@ Usage (on a machine with an NVIDIA GPU):
         [--trace-dir DIR]
 
 Runs ``DEMPC.run`` (for ``params_drone_obstacles_approx``: the approximate
-MPC's ``ApproxMPC.run``, pessimistic or with ``--optimistic``) four
-times on CUDA float32: untraced to build and warm
-up, untraced again for the wall time, under ``torch.profiler`` with CUDA
-activity only (the kernels, copies and fills on the card), and with CPU
-activity only (the host's torch ops).  With ``--fs`` the traced work is one
+MPC's ``ApproxMPC.run``, pessimistic or with ``--optimistic``) three
+times on CUDA float32: untraced to build and warm up, untraced again for
+the wall time, and under ``torch.profiler`` with CPU and CUDA activity
+(the host's torch ops and the program's spans, ``obs.py``, beside the
+kernels, copies and fills on the card).  With ``--fs`` the traced work is one
 forward-sampling rollout instead (``reachability.forward_sample_rollout``
 over the config's ``num_MPC_itrs`` steps on zero inputs, with the
 ancillary feedback, as ``simulate_forward_sampling`` runs it; e.g.
@@ -18,16 +18,21 @@ ancillary feedback, as ``simulate_forward_sampling`` runs it; e.g.
 step.  Prints one JSON object:
 
 * ``wall_ms`` / ``traced_wall_ms``: host clock around the untraced / the
-  CUDA-traced run, ending in a sync;
+  traced run, ending in a sync;
 * ``device_busy_ms``: the union of the card's kernel, copy and fill
-  intervals in the traced run; ``idle_share = 1 - busy / wall`` against the
-  untraced wall (tracing slows the host, so the traced share is higher);
+  intervals in the traced run; ``idle_share = 1 - busy / traced wall``;
 * ``kernels_per_step`` and the kernels with the most device time;
-* ``host_ops``: the torch ops with the most self CPU time in the CPU-traced
-  run, with their calls per step.
+* ``host_ms_per_step``: the traced run's host ms a step by layer
+  (``obs.host_ms_by_layer``: each instant to the innermost span), the time
+  outside spans included;
+* ``idle_ms_by_span``: the card's idle ms by the innermost span open at
+  each gap (``obs.idle_by_span``);
+* ``host_ops``: the torch ops with the most self CPU time, with their
+  calls per step.
 
-The device trace lands in ``--trace-dir`` (default ``build/``) as
-``trace_loop_device.json``.
+The trace lands in ``--trace-dir`` (default ``build/``) as
+``trace_loop_device.json``, the spans alone beside it as
+``trace_loop_spans.json`` on the same clock.
 """
 
 from __future__ import annotations
@@ -52,13 +57,14 @@ def _intervals_union_us(spans):
 
 
 def device_trace(prof, path):
-    """Write the device trace of a ``torch.profiler`` run (CUDA activity)
-    to ``path`` and read it back: the union of the card's kernel, copy and
-    fill intervals in ms (``None`` where the trace holds none), the number
-    of kernels, and per kernel name [ms, count]."""
+    """Write the chrome trace of a ``torch.profiler`` run to ``path`` and
+    read it back: the union of the card's kernel, copy and fill intervals
+    in ms (``None`` where the trace holds none), the number of kernels, per
+    kernel name [ms, count], and the trace as exported."""
     prof.export_chrome_trace(path)
     with open(path) as f:
-        events = json.load(f)["traceEvents"]
+        trace = json.load(f)
+    events = trace["traceEvents"]
     spans, per_kernel = [], defaultdict(lambda: [0.0, 0])
     n_kernels = 0
     for e in events:
@@ -71,7 +77,7 @@ def device_trace(prof, path):
                 k[0] += float(e["dur"]) / 1e3
                 k[1] += 1
     busy_ms = _intervals_union_us(spans) / 1e3 if spans else None
-    return busy_ms, n_kernels, dict(per_kernel)
+    return busy_ms, n_kernels, dict(per_kernel), trace
 
 
 def main(argv=None):
@@ -88,7 +94,7 @@ def main(argv=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from sampling_gpmpc_torch import setup
+    from sampling_gpmpc_torch import obs, setup
     from sampling_gpmpc_torch.config import load_problem
     from sampling_gpmpc_torch.dempc import DEMPC
     from sampling_gpmpc_torch.envs import make_env
@@ -153,15 +159,21 @@ def main(argv=None):
     run()                                            # build + warm up
     wall_ms, out = run()
     os.makedirs(args.trace_dir, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         traced_wall_ms, _ = run()
-    busy_ms, n_kernels, per_kernel = device_trace(
+    busy_ms, n_kernels, per_kernel, trace = device_trace(
         prof, os.path.join(args.trace_dir, "trace_loop_device.json"))
     top_k = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]
-
-    with profile(activities=[ProfilerActivity.CPU]) as prof_cpu:
-        wall_cpu_ms, _ = run()
-    host = sorted(prof_cpu.key_averages(),
+    obs.write(os.path.join(args.trace_dir, "trace_loop_spans.json"),
+              trace["baseTimeNanoseconds"])
+    host_ms = defaultdict(float)
+    for by_layer in obs.host_ms_by_layer(obs.spans()).values():
+        for name, ms in by_layer.items():
+            host_ms[name] += ms / steps
+    idle = obs.idle_by_span([e for e in trace["traceEvents"]
+                             if e.get("ph") == "X" and "dur" in e])
+    host = sorted(prof.key_averages(),
                   key=lambda a: -a.self_cpu_time_total)[:TOP]
 
     loop = {} if out is None else {
@@ -176,13 +188,14 @@ def main(argv=None):
         "wall_ms": wall_ms, **loop,
         "traced_wall_ms": traced_wall_ms,
         "device_busy_ms": busy_ms,
-        "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
-        "idle_share_traced": None if busy_ms is None
+        "idle_share": None if busy_ms is None
         else 1.0 - busy_ms / traced_wall_ms,
         "kernels_per_step": n_kernels / steps,
         "top_kernels": [{"name": n, "ms": v[0], "count": v[1]}
                         for n, v in top_k],
-        "host_traced_wall_ms": wall_cpu_ms,
+        "host_ms_per_step": dict(host_ms),
+        "idle_ms_by_span": {k: v / 1e3 for k, v in sorted(
+            idle.items(), key=lambda kv: -kv[1])[:TOP]},
         "host_ops": [{"name": a.key, "self_cpu_ms": a.self_cpu_time_total
                       / 1e3, "calls_per_step": a.count / steps}
                      for a in host],

@@ -703,3 +703,44 @@ def test_blocked_solve_matches_one_device_flagship(dev):
     for b in blocked.group.launches:
         assert b.get("gp_sample") == 1 and b.get("group") == 1, b
         assert not b.get("ipm_prepare") and not b.get("run_full"), b
+
+
+# synchronising calls a params_pendulum1D_samples step makes, each counted
+# in obs.SYNCS at its site, all copies from host memory: sqp._initial_state's
+# two scalars, the index lists of sqp._assemble, Env.assemble_val_jac and
+# Env.g_inputs (in the plant step), the pendulum's B_d in the linearization
+# and in the plant step
+PENDULUM_STEP_SYNCS = 7
+
+
+def test_pendulum_steps_sync_as_counted(dev):
+    """One cold and one warm params_pendulum1D_samples step as published
+    (ns = 70, H = 17, one RTI iteration: the solve, the plant step with the
+    feedback, the shift) under ``torch.cuda.set_sync_debug_mode("warn")``:
+    torch's count of synchronising calls in each step equals the step's
+    gain in ``obs.SYNCS``, the pinned count."""
+    import warnings
+    from collections import Counter
+
+    from sampling_gpmpc_torch import bench, obs
+    _, spec, data, env = bench.build(dict(ns=70, H=17))
+    eps = bench.draws(spec, 3, 5, dev)
+    bench.ClosedLoop(spec, data, env, dev).step(eps[2])   # build, warm up
+    loop = bench.ClosedLoop(spec, data, env, dev)
+    torch.cuda.synchronize()
+    for m, kind in enumerate(("cold", "warm")):
+        before = Counter(obs.SYNCS)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                st = loop.step(eps[m])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        counted = Counter(obs.SYNCS)
+        counted.subtract(before)
+        found = [str(w.message) for w in caught
+                 if "synchronizing CUDA operation" in str(w.message)]
+        loop.check(st, f"{kind} step")
+        assert len(found) == sum(counted.values()) == PENDULUM_STEP_SYNCS, (
+            kind, found, +counted)

@@ -164,7 +164,7 @@ def test_block_group_stress_with_short_switch_interval():
     interval: every block's every sum is the exact rank-order sum, and
     the launch counter, bumped from every block, loses no update."""
     import sys
-    from sampling_gpmpc_torch.ops import build
+    from sampling_gpmpc_torch import obs
     n, rounds = 12, 200
     g = BlockGroup(n, timeout=60.0)
     psum = make_reducers(g, ordered=True)[0]
@@ -174,7 +174,7 @@ def test_block_group_stress_with_short_switch_interval():
         r, out = g.rank(), []
         for i in range(rounds):
             out.append(float(psum(torch.tensor([float(r * rounds + i)]))))
-            build.count(table, "k")
+            obs.count(table, "k")
         return out
 
     old = sys.getswitchinterval()
