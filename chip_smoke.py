@@ -219,8 +219,8 @@ the port's bench (sampling_gpmpc_torch.bench):
              20, one RTI iteration; QP nU = 20, m_h = 7,720 / 61,480, m_s =
              64 / 512), 3 + 20 steps each, params_car 3 + 10, one forward-
              sampling rollout at 4000 x 50; QP status 0 and finite states at
-             every step (the rows raise otherwise), 1 gp_sample, 1 prepare
-             and 1 Mehrotra launch a step at both widths, the car's
+             every step (the rows raise otherwise), 1 gp_sample, 1 glue,
+             1 prepare and 1 Mehrotra launch a step at both widths, the car's
              launches by its SQP iterations, the idle share of 5 traced
              steps, its kernel-against-plain checks at the bars of phases
              4 and 6; its JSON line as a [bench] line; the ns = 512 chain of
@@ -229,6 +229,18 @@ the port's bench (sampling_gpmpc_torch.bench):
              JAX float32 path's distance from it; the three IPM checks and
              the timing of kernels 1-3 at ns = 64 (resident) and 512 (the
              streamed branches), cold and warm;
+the condensing and assembly kernel (csrc/glue.cu):
+30. glue   — the kernel against its plain version (ops/glue.py) on every
+             output (the QP tuple, T, Gamma; GLUE_RTOL of each output's
+             largest entry, the 1e8 bounds exactly) at the published shapes
+             of every config that reaches sqp._assemble on the card, in the
+             branch the shape picks and, where it fits, the other one, two
+             launches bit for bit; one launch per SQP iteration in 5
+             params_pendulum1D_samples steps and a params_car solve, and a
+             Gram launch per iteration in a params_car_residual solve only;
+             at every shape the device time of both branches beside the
+             bound (bytes) and the plain version's; the wrapper's host time
+             a call;
 then one JSON line listing the kernels, the card line, and the contract
 line {"ok": true, "device": {...}}.
 """
@@ -632,6 +644,13 @@ def ptxas_usage(log):
         elif "registers" in line or "spill" in line:
             out.append((fn, line.strip()))
     return out
+
+
+def not_launched(launches) -> bool:
+    """Whether a loop kernel every SQP iteration takes was not launched
+    (the glue's Gram launch, ``glue_gram``, runs past ops/glue.py's
+    GRAM_NU only)."""
+    return min(v for k, v in launches.items() if k != "glue_gram") <= 0
 
 
 def bound_ms(nbytes, flops):
@@ -1617,7 +1636,7 @@ def pendulum2d_phase(dev, checks, results):
           flush=True)
     if set(out["sqp_status_traj"]) != {0}:
         fail("2D pendulum free-running closed loop: status")
-    if min(launches.values()) <= 0:
+    if not_launched(launches):
         fail(f"a kernel of the 2D pendulum path was not launched: {launches}")
 
     cold = checks.timing("2D pendulum cold", qp0, None, None)
@@ -2165,7 +2184,7 @@ def debug_phase(dev):
         if launches["solve"][-1] != launches["solve_recorded"][-1]:
             fail(f"debug step {m}: launches {launches['solve'][-1]} (solve) "
                  f"against {launches['solve_recorded'][-1]} (recorded)")
-        if min(launches["solve"][-1].values()) <= 0:
+        if not_launched(launches["solve"][-1]):
             fail(f"debug step {m}: a loop kernel was not launched: "
                  f"{launches['solve'][-1]}")
         for it, (g, Xt, (mu, sd)) in enumerate(probes):
@@ -3171,7 +3190,7 @@ def bench_phase(dev, checks, results):
               f"iterations {sorted(set(r['sqp_iters']))}; launches per step "
               f"{r['launches_per_step']}", flush=True)
     one = {"gp_sample": 1.0, "gp_hall": 0.0, "ipm_prepare": 1.0,
-           "ipm_mehrotra": 1.0}
+           "ipm_mehrotra": 1.0, "glue_condense": 1.0, "glue_gram": 0.0}
     for name in ("ns64", "ns512"):
         if rows[name]["launches_per_step"] != one:
             fail(f"bench {name}: launches per step "
@@ -3179,7 +3198,8 @@ def bench_phase(dev, checks, results):
     car = rows["car"]
     its = car["sqp_iters"][-car["steps"]:]
     want = {"gp_sample": car["steps"], "gp_hall": sum(its) - len(its),
-            "ipm_prepare": sum(its), "ipm_mehrotra": sum(its)}
+            "ipm_prepare": sum(its), "ipm_mehrotra": sum(its),
+            "glue_condense": sum(its), "glue_gram": 0}
     if car["launches"] != want:
         fail(f"bench car: launches {car['launches']}, expected {want}")
     print(f"[bench] idle share (ns=64, 5 traced steps, busy over their "
@@ -3190,7 +3210,8 @@ def bench_phase(dev, checks, results):
     (gx, gu), (ix, iu) = rows["equiv"]["gp"], rows["equiv"]["ipm"]
     hall = rows["hall"]
     print(f"[bench] kernels vs plain on the ns=64 solve: GP swap max|dX| "
-          f"{gx:.3e} max|dU| {gu:.3e}, IPM swap {ix:.3e} / {iu:.3e} (tol "
+          f"{gx:.3e} max|dU| {gu:.3e}, glue + IPM swap {ix:.3e} / {iu:.3e} "
+          f"(tol "
           f"{TF_KP_TOL_X} / {TF_KP_TOL_U}); hall stage max|dg| "
           f"{hall['dg']:.3e} = {hall['rel']:.3e} of the tube (tol "
           f"{GP_HALL_REL_TOL}), tube violation {hall['viol']:.3e}; fs "
@@ -3280,6 +3301,171 @@ def bench_phase(dev, checks, results):
         "ns64", spec64, env64, loop64, dev, loop64.X, loop64.U, eps64[5, 0])
     return {name: rows[name]["launches_per_step"]
             for name in ("ns64", "ns512", "car")}
+
+
+# the glue kernel against its plain version: float32 rounding of the
+# condensing's sums of products in two association orders (stage by stage
+# against prefix compositions) and of the cost's sums in two orders
+GLUE_RTOL = 1e-4
+# every config whose solve reaches sqp._assemble on the card, as published
+GLUE_CONFIGS = (("params_pendulum1D_samples", 70), ("params_pendulum", 20),
+                ("params_car", 20), ("params_car_residual", 1),
+                ("params_car_samples", 10), ("params_pendulum_samples", 500))
+
+
+def glue_bound(spec):
+    """Bytes and float32 operations of one glue launch: the rows, the
+    iterate and the OCP data read once, the QP tuple, T and Gamma written
+    once (the workspace stays out: it is the kernel's own); the
+    condensing's, the cost's and the rows' products."""
+    from sampling_gpmpc_torch.ops import glue
+    ns, H, nx, nu = spec.ns, spec.H, spec.nx, spec.nu
+    nU = H * nu
+    shapes = glue.layout(spec)[2][:13]
+    out = sum(glue._numel(s) for s in shapes)
+    inp = (ns * H * nx * (1 + nx + nu) + (H + 1) * ns * nx + H * nu + nx
+           + 3 * nx * nx + nu * nu + 4 * (H + 1) * nx + 2 * H * nu + ns
+           + nu * nx + 5 * spec.n_ellipses)
+    flops = 0
+    for k in range(H + 1):
+        kn = k * nu
+        flops += ns * (2 * nx * nx * (kn + nu + 1)      # the recursion
+                       + 2 * nx * nx * kn                # Hx Gamma
+                       + nx * kn * (kn + 1)              # Gamma' Hx Gamma
+                       + 2 * nx * nu * nU)               # feedback rows
+    return 4 * (inp + out), flops
+
+
+def glue_phase(dev):
+    """Phase 30 (module docstring).  Returns the kernel's results for the
+    report."""
+    import torch
+    from sampling_gpmpc_torch import bench
+    from sampling_gpmpc_torch.microbench_linalg import cuda_ms
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.ops import glue
+    from sampling_gpmpc_torch.parallel.worker import glue_inputs, problem
+    names = sqp.QP_KEYS + ("T", "Gamma")
+
+    def rel_err(got, ref, config, branch):
+        errs = {}
+        for name, a, b in zip(names, (*got[0], *got[1:]),
+                              (*ref[0], *ref[1:])):
+            big = b.abs() >= 1e7
+            if not torch.isfinite(a).all() or not torch.equal(a[big],
+                                                              b[big]):
+                fail(f"glue {config} ({branch}): {name} non-finite or its "
+                     "1e8 bounds differ")
+            if (~big).any():
+                errs[name] = float((a - b)[~big].abs().max()) / max(
+                    float(b[~big].abs().max()), 1e-30)
+        worst = max(errs, key=errs.get)
+        if errs[worst] > GLUE_RTOL:
+            fail(f"glue {config} ({branch}): kernel disagrees with its "
+                 f"plain version in {worst}")
+        return worst, errs[worst]
+
+    worst, flagship, by_config = 0.0, None, {}
+    for config, ns in GLUE_CONFIGS:
+        args = glue_inputs(config, ns, dev, torch.float32)[0]
+        spec = args[0]
+        smem, gram = glue.layout(spec)[:2]
+        got = glue.assemble(*args)
+        again = glue.assemble(*args)
+        ref = glue.assemble_plain(*args)
+        torch.cuda.synchronize()
+        for name, a, c in zip(names, (*got[0], *got[1:]),
+                              (*again[0], *again[1:])):
+            if not torch.equal(a, c):
+                fail(f"glue {config}: two launches differ in {name}")
+        name, rel = rel_err(got, ref, config, "its branch")
+        try:                            # the branch the shape does not pick
+            glue.layout(spec, not gram)
+            other = glue.launch(*args, gram=not gram)
+            o_name, o_rel = rel_err(other, ref, config, "other branch")
+        except ValueError:              # its sums do not fit: not taken
+            other = None
+        branch = "Gram launch" if gram else "sums in shared memory"
+        print(f"[glue] {config} (ns={ns}, H={spec.H}, nx={spec.nx}, nU="
+              f"{spec.H * spec.nu}, m_h={ref[0][2].shape[0]}, m_s="
+              f"{ref[0][4].shape[0]}; {branch}, {smem} B shared): "
+              f"max|kernel - plain| / max|plain| by output {name} "
+              f"{rel:.3e}" + ("" if other is None else
+                              f"; other branch {o_name} {o_rel:.3e}")
+              + f" (bar {GLUE_RTOL}); two launches bit for bit", flush=True)
+        worst = max(worst, rel)
+        flagship = flagship or args
+
+        # device ms: the shape's branch, the other one, the plain version
+        t_k = cuda_ms(lambda: glue.assemble(*args))
+        t_o = None if other is None else cuda_ms(
+            lambda: glue.launch(*args, gram=not gram))
+        t_p = cuda_ms(lambda: glue.assemble_plain(*args), n=10, warm=2, k=1)
+        nb, fl = glue_bound(spec)
+        b, by = bound_ms(nb, fl)
+        by_config[config] = dict(ns=ns, H=spec.H, nU=spec.H * spec.nu,
+                                 gram=gram, ms=t_k, other_branch_ms=t_o,
+                                 plain_ms=t_p, bound_ms=b, bound_by=by,
+                                 max_rel_err=rel)
+        print(f"[timing] glue {config}: {t_k:.4f} ms ({branch}), other "
+              f"branch " + ("does not fit" if t_o is None else
+                            f"{t_o:.4f} ms") + f", plain {t_p:.4f} ms "
+              f"(host-bound: its ops' launches); bound {b:.6f} ms ({by}: "
+              f"{nb} B, {fl:.3e} flop)", flush=True)
+
+    # one launch per SQP iteration on the main path; the Gram launch only
+    # past GRAM_NU
+    spec, env, hyp, ocp, gp, X0, U0, st, eps = problem(
+        "params_car", 20, 4, dev, torch.float32)
+    zero_launch_counts()
+    s = sqp.solve(spec, env, hyp, ocp, st, X0, U0, gp, eps)
+    torch.cuda.synchronize()
+    car = launch_counts()
+    _, spec_b, data_b, env_b = bench.build(dict(ns=70, H=17))
+    draws = bench.draws(spec_b, 5, 7, dev)
+    loop = bench.ClosedLoop(spec_b, data_b, env_b, dev)
+    zero_launch_counts()
+    its = 0
+    for m in range(5):
+        its += loop.step(draws[m]).it
+    torch.cuda.synchronize()
+    pend = launch_counts()
+    spec_r, env, hyp, ocp, gp, X0, U0, st, eps = problem(
+        "params_car_residual", 1, 3, dev, torch.float32)
+    zero_launch_counts()
+    s_r = sqp.solve(spec_r, env, hyp, ocp, st, X0, U0, gp, eps)
+    torch.cuda.synchronize()
+    res = launch_counts()
+    print(f"[glue] launches (glue_condense, glue_gram): params_car solve "
+          f"{car['glue_condense']}, {car['glue_gram']} in {s.it} SQP "
+          f"iterations; 5 params_pendulum1D_samples steps "
+          f"{pend['glue_condense']}, {pend['glue_gram']} in {its}; "
+          f"params_car_residual {res['glue_condense']}, {res['glue_gram']} "
+          f"in {s_r.it}", flush=True)
+    if (car["glue_condense"], car["glue_gram"]) != (s.it, 0) or \
+            (pend["glue_condense"], pend["glue_gram"]) != (its, 0) or \
+            (res["glue_condense"], res["glue_gram"]) != (s_r.it, s_r.it):
+        fail("glue: not one launch per SQP iteration on the main path")
+
+    # the wrapper's host time a call at the flagship's shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        glue.assemble(*flagship)
+    host_ms = (time.perf_counter() - t0) / 200 * 1e3
+    torch.cuda.synchronize()
+    print(f"[timing] glue wrapper's host time {host_ms:.4f} ms a call "
+          f"(params_pendulum1D_samples)", flush=True)
+    flag = by_config[GLUE_CONFIGS[0][0]]
+    return dict(max_abs_err=worst, err_relative_to="each output's max "
+                "|plain|, the 1e8 bounds held exactly", ms=flag["ms"],
+                plain_ms=flag["plain_ms"], bound_ms=flag["bound_ms"],
+                bound_by=flag["bound_by"], library_ms=None,
+                host_ms_per_call=host_ms, by_config=by_config,
+                launches_car_solve=car["glue_condense"],
+                launches_pendulum_steps=pend["glue_condense"],
+                launches_car_residual=(res["glue_condense"],
+                                       res["glue_gram"]))
 
 
 def free_port():
@@ -3600,7 +3786,7 @@ def main():
           flush=True)
     if set(out_c["sqp_status_traj"]) != {0} or not np.isfinite(traj).all():
         fail("car free-running closed loop")
-    if min(launches_car.values()) <= 0:
+    if not_launched(launches_car):
         fail(f"a kernel of the car path was not launched: {launches_car}")
 
     # ---- 9. the 2D pendulum's GP stages, seeded ------------------------
@@ -3812,6 +3998,10 @@ def main():
     # ---- 29. the port's bench --------------------------------------------
     phase("bench")
     bench_launches = bench_phase(dev, checks, results)
+
+    # ==== the condensing and assembly kernel ===============================
+    phase("glue")
+    glue_res = glue_phase(dev)
     results["gp_sample"]["car_samples"] = car_s["timing"]["gp_sample"]
     results["gp_hall"]["car_samples_by_fill"] = car_s["timing"]["gp_hall"]
     results["ipm_prepare"]["drone_pessimistic"] = \
@@ -3894,6 +4084,16 @@ def main():
             "launches_drone_optimistic": drone["optimistic"]["wide"][name],
             **{k: r[k] for k in keys},
             **{k: v for k, v in r.items() if k not in keys}})
+    # the glue kernel: replaces no TPU kernel (XLA fused the chain there)
+    kernels.append({
+        "name": "glue_condense", "route": "cuda",
+        "source": "sampling_gpmpc_torch/csrc/glue.cu",
+        "replaces": "none: sampling_gpmpc_tpu/ocp/condense.py and "
+                    "ocp/assemble.py, fused by XLA",
+        "launches": launches_car["glue_condense"],
+        "launches_pendulum": launches_pend["glue_condense"],
+        **{k: glue_res[k] for k in keys},
+        **{k: v for k, v in glue_res.items() if k not in keys}})
     # kernels 5-7: launches from the microbench (their entry point), times
     # at the forward-sampling shape, every shape under "by_shape"
     meta_linalg = {

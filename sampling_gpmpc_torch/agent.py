@@ -447,18 +447,16 @@ def posterior_value_moments(spec: ProblemSpec, hyp: GPHyperArrays,
     return mean_v, std_v
 
 
-def dyn_linearization(spec: ProblemSpec, env: Env, xu: torch.Tensor,
-                      dg: torch.Tensor, K_fb):
-    """Per-sample per-stage (value, A, B) from sampled dynamics, with the
-    feedback chain rule A <- A + B K (ref: src/agent.py:532-564).
+def dyn_linearization(spec: ProblemSpec, combined: torch.Tensor, K_fb):
+    """Per-sample per-stage (value, A, B) from the rows of
+    ``Env.assemble_val_jac``, with the feedback chain rule A <- A + B K
+    (ref: src/agent.py:532-564).
 
     Args:
-        xu: (ns, H, nx+nu) linearization points (with realized inputs).
-        dg: (ns, g_ny, H, Ty) sampled GP rows.
+        combined: (ns, H, nx, 1+nx+nu) [value, d/dx, d/du] rows.
     Returns:
         val (ns, H, nx), A (ns, H, nx, nx), B (ns, H, nx, nu).
     """
-    combined = env.assemble_val_jac(xu, dg.transpose(1, 2))
     val = combined[..., 0]
     A = combined[..., 1:1 + spec.nx]
     B = combined[..., 1 + spec.nx:]

@@ -287,13 +287,15 @@ def cpu_baseline(spec, data, env, warmup: int, timed: int, reps: int,
 
 def equiv_check(spec, data, env, device, seed: int, dtype=DTYPE) -> dict:
     """The same cold solve three ways on ``device``: through all kernels,
-    through the plain GP stage with the IPM kernels, and all plain.
-    Returns {"gp": (max|dX|, max|dU|) of the first two, "ipm": ... of the
-    last two}, in units of the solution."""
+    through the plain GP stage with the glue and IPM kernels, and all
+    plain.  Returns {"gp": (max|dX|, max|dU|) of the first two, "ipm": ...
+    of the last two (the glue kernel's and the IPM's together)}, in units
+    of the solution."""
     eps = draws(spec, 1, seed, device, dtype)[0]
 
     def solve(gp_plain, qp_plain):
-        with routes.plain_route(gp=gp_plain, qp=qp_plain):
+        with routes.plain_route(gp=gp_plain, qp=qp_plain,
+                                glue=gp_plain and qp_plain):
             loop = ClosedLoop(spec, data, env, device, dtype)
             st = loop.step(eps)
         loop.check(st, f"equivalence solve (plain GP {gp_plain}, plain QP "
@@ -309,9 +311,9 @@ def equiv_check(spec, data, env, device, seed: int, dtype=DTYPE) -> dict:
 def hall_equiv_check(device, seed: int, dtype=DTYPE) -> dict:
     """The hall-block GP stage against its plain version at identical
     inputs: params_car's SQP iteration 1 from the iterate of a 2-iteration
-    solve (plain GP, IPM kernels), the hall buffer filled by a real
-    iteration-0 append, the test points moved by 0.01 normal noise.  The
-    tube criterion: every kernel draw within beta (sigma + sigma_n) of the
+    solve (plain GP; glue and IPM kernels), the hall buffer filled by a
+    real iteration-0 append, the test points moved by 0.01 normal noise.
+    The tube criterion: every kernel draw within beta (sigma + sigma_n) of the
     float32 posterior mean, sigma_n = sqrt(NOISE_REL prior variance) the
     float32 variance's cancellation floor.  Returns the raw max |dg kernel
     - plain| ("dg"), that difference as a share of the tube width ("rel")
@@ -320,7 +322,7 @@ def hall_equiv_check(device, seed: int, dtype=DTYPE) -> dict:
     eps = draws(spec, 2, seed, device, dtype)
     loop = ClosedLoop(spec, data, env, device, dtype)
     hyp = loop.hyp
-    with routes.plain_route(gp=True, qp=False):
+    with routes.plain_route(gp=True, qp=False, glue=False):
         warm = loop.step(eps[0])
         loop.check(warm, "hall equivalence: the 2-iteration solve")
         xu = sqp._linearization_inputs(spec, loop.ocp, warm.X, warm.U)
@@ -453,7 +455,7 @@ def run(device=None, seed=None, sizes: Sizes = Sizes(), skip_512=False,
         # the loops' kernel libraries, built before the rows so that each
         # row's cold step is a cold solve and not a build
         t0 = time.perf_counter()
-        kernels.build_all(("gp_sample", "gp_hall", "ipm"))
+        kernels.build_all(("gp_sample", "gp_hall", "ipm", "glue"))
         build_s = time.perf_counter() - t0
     where = f"on {card}" if on_card else "on the CPU"
     notes, rows = [], {}

@@ -14,8 +14,8 @@ prefix before the first dot is its layer (``LAYERS``).
 
 Counters.  ``count(table, name)`` adds one to a module's table: the kernel
 launches (``LAUNCHES`` of ``ops/gp_sample.py``, ``ops/gp_hall.py``,
-``ops/ipm.py``, ``ops/batch_linalg.py``, ``ops/batched_chol.py``,
-``ipm.LAUNCHES_WIDE``), the QP routes (``ocp/qp.py`` ``ROUTES``), and here
+``ops/ipm.py``, ``ops/glue.py``, ``ops/batch_linalg.py``,
+``ops/batched_chol.py``, ``ipm.LAUNCHES_WIDE``), the QP routes (``ocp/qp.py`` ``ROUTES``), and here
 ``SYNCS``, by call site: each point on the MPC step's path where the host
 waits for the card, a read of a tensor's value or a copy from pageable host
 memory (a scalar or an index list), as torch's sync-debug mode finds them

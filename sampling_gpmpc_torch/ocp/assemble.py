@@ -5,6 +5,9 @@ Linear algebra over the condensing maps ``dx_{i,k} = T[i,k] + Gamma[i,k] dU``
 per-sample state box, realized feedback-input rows) and the soft rows
 (terminal ellipse, obstacle ellipses) with acados' z/Z slack penalties.
 Replaces acados' OCP-QP interface + HPIPM condensing (ref: src/utils/ocp.py).
+On the card ``ocp/sqp.py`` runs this module's chain as one kernel
+(``ops/glue.py``, ``csrc/glue.cu``); these functions are its plain
+version.
 
 Shapes:  T (ns, H+1, nx),  Gamma (ns, H+1, nx, nU),  Xbar (H+1, ns, nx),
          Ubar (H, nu),  nU = H*nu.
@@ -58,8 +61,7 @@ def build_cost(spec: ProblemSpec, ocp: OCPData, T, Gamma, Xbar, Ubar,
     over the shards (one tuple-psum) before the replicated input blocks are
     added once.
     """
-    H, nx, nu = spec.H, spec.nx, spec.nu
-    nU = H * nu
+    H, nx = spec.H, spec.nx
     dtype, dev = T.dtype, T.device
     Qk = torch.cat([ocp.Qs[None].expand(H, nx, nx), ocp.Qe[None]])  # (H+1,nx,nx)
     Hx = (2.0 * ocp.w_cost[:, None, None, None] * Qk[None]
@@ -70,10 +72,18 @@ def build_cost(spec: ProblemSpec, ocp: OCPData, T, Gamma, Xbar, Ubar,
     H_U = torch.einsum("ikau,ikab,ikbv->uv", Gamma, Hx, Gamma)
     g_U = torch.einsum("ikau,ika->u", Gamma, grad_x)
     H_U, g_U = make_reducers(group, ordered)[0]((H_U, g_U))
+    H_in, g_in = input_cost(spec, ocp, Ubar)
+    return H_U + H_in, g_U + g_in
+
+
+def input_cost(spec: ProblemSpec, ocp: OCPData, Ubar):
+    """The condensed cost's replicated input blocks: kron(I_H, 2 Qu + lm I)
+    and 2 Ubar Qu."""
+    H, nu = spec.H, spec.nu
+    dtype, dev = Ubar.dtype, Ubar.device
     Hu = 2.0 * ocp.Qu + ocp.lm * torch.eye(nu, dtype=dtype, device=dev)
-    H_U = H_U + torch.kron(torch.eye(H, dtype=dtype, device=dev), Hu)
-    g_U = g_U + (2.0 * Ubar @ ocp.Qu).reshape(nU)
-    return H_U, g_U
+    return (torch.kron(torch.eye(H, dtype=dtype, device=dev), Hu),
+            (2.0 * Ubar @ ocp.Qu).reshape(H * nu))
 
 
 def build_hard_rows(spec: ProblemSpec, ocp: OCPData, T, Gamma, Xbar,

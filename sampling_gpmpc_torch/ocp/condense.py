@@ -13,6 +13,10 @@ the affine map is  dx_k = T_k + Gamma_k dU  with
 
 Shapes: A (ns, H, nx, nx), B (ns, H, nx, nu), r (ns, H, nx), dx0 (ns, nx)
 -> T (ns, H+1, nx), Gamma (ns, H+1, nx, H*nu).
+
+On the card ``ocp/sqp.py`` condenses and assembles in one kernel
+(``ops/glue.py``, ``csrc/glue.cu``); ``condense_parallel`` is the plain
+version's condensing.
 """
 
 from __future__ import annotations

@@ -36,11 +36,10 @@ from sampling_gpmpc_torch.agent import GPState
 from sampling_gpmpc_torch.config import ProblemSpec
 from sampling_gpmpc_torch.envs.base import Env
 from sampling_gpmpc_torch.gp.exact import GPHyperArrays
-from sampling_gpmpc_torch.ocp.assemble import (build_cost, build_hard_rows,
-                                               build_soft_rows, row_counts)
-from sampling_gpmpc_torch.ocp.condense import condense_parallel as condense
-from sampling_gpmpc_torch.ocp.qp import boxes_to_rows, solve_qp_soft
+from sampling_gpmpc_torch.ocp.assemble import row_counts
+from sampling_gpmpc_torch.ocp.qp import solve_qp_soft
 from sampling_gpmpc_torch.ocp.spec import OCPData
+from sampling_gpmpc_torch.ops import glue
 from sampling_gpmpc_torch.parallel.collectives import make_reducers
 
 
@@ -172,7 +171,6 @@ def assemble_qp(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
 def _assemble(spec, env, hyp, ocp, st_curr, X, U, gp, eps, hall_empty,
               group=None, ordered=False):
     """:func:`assemble_qp` and the GP rows ``dg`` and inputs ``Xt``."""
-    ns, nx = spec.ns, spec.nx
     with obs.span("glue.linearize"):
         xu = _linearization_inputs(spec, ocp, X, U)
         # the index list's copy to the device synchronises
@@ -182,19 +180,11 @@ def _assemble(spec, env, hyp, ocp, st_curr, X, U, gp, eps, hall_empty,
         dg, gp = agent_mod.sample_dynamics(spec, env, hyp, gp, Xt, eps,
                                            hall_empty=hall_empty, group=group)
     with obs.span("glue.linearize"):
-        val, A, B = agent_mod.dyn_linearization(spec, env, xu, dg, ocp.K_fb)
-        # delta dynamics dx_{k+1} = A dx_k + B du_k + r_k,
-        # r = f_lin - x̄_{k+1}
-        r = val - X[1:].transpose(0, 1)
-        dx0 = st_curr[None].expand(ns, nx) - X[0]
-    with obs.span("glue.condense"):
-        T, Gamma = condense(A, B, r, dx0)
-    with obs.span("glue.assemble"):
-        H_U, g_U = build_cost(spec, ocp, T, Gamma, X, U, group, ordered)
-        hard = build_hard_rows(spec, ocp, T, Gamma, X, U)
-        soft, (zl, zu, Zl, Zu) = build_soft_rows(spec, ocp, T, Gamma, X)
-        C_h, d_h = boxes_to_rows(hard.G, hard.lo, hard.hi)
-    qp = (H_U, g_U, C_h, d_h, soft.G, soft.lo, soft.hi, zl, zu, Zl, Zu)
+        combined = env.assemble_val_jac(xu, dg.transpose(1, 2))
+    # the feedback chain rule, residuals, condensing and rows: one kernel
+    # on the card (ops/glue.py)
+    qp, T, Gamma = glue.assemble(spec, ocp, combined, X, U, st_curr, group,
+                                 ordered)
     return qp, T, Gamma, gp, dg, Xt
 
 

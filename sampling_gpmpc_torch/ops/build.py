@@ -28,7 +28,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build")
 SOURCES = ("gp_sample", "gp_hall", "ipm", "ipm_hard", "ipm_wide",
-           "ipm_hard_wide", "batch_linalg", "batched_chol")
+           "ipm_hard_wide", "batch_linalg", "batched_chol", "glue")
 # library -> (source in csrc/, extra nvcc flags); the rest build name.cu
 VARIANTS = {"ipm_hard": ("ipm", ("-DIPM_SOFT=0",)),
             "ipm_wide": ("ipm", ("-DIPM_WIDE=1",)),

@@ -1,40 +1,47 @@
 """The route the main path's kernel wrappers take, and their launch counts.
 
-``plain_route`` swaps the wrappers that ``agent.sample_dynamics`` and
-``qp.solve_qp_soft`` call for their plain torch versions (same arguments,
-same results), so that a reference solve runs on the same device through
-the same code; ``launch_counts`` reads the counters each wrapper adds one
-to where it launches its kernel.  ``chip_smoke.py`` and ``bench.py`` share
-them.
+``plain_route`` swaps the wrappers that ``agent.sample_dynamics``,
+``sqp._assemble`` and ``qp.solve_qp_soft`` call for their plain torch
+versions (same arguments, same results), so that a reference solve runs
+on the same device through the same code; ``launch_counts`` reads the
+counters each wrapper adds one to where it launches its kernel.
+``chip_smoke.py`` and ``bench.py`` share them.
 """
 
 from __future__ import annotations
 
 import contextlib
 
+from sampling_gpmpc_torch.ops import glue as _glue
 from sampling_gpmpc_torch.ops import gp_hall, gp_sample, ipm
 
 
 @contextlib.contextmanager
-def plain_route(gp: bool = True, qp: bool = True):
+def plain_route(gp: bool = True, qp: bool = True, glue: bool = True):
     """Within the block, the GP stages (``gp``: ``gp_sample.sample_empty``
-    and ``gp_hall.sample_hall``) and the QP (``qp``: ``ipm.run_full``)
-    take their plain versions; restored on exit."""
-    saved = (gp_sample.sample_empty, gp_hall.sample_hall, ipm.run_full)
+    and ``gp_hall.sample_hall``), the QP (``qp``: ``ipm.run_full``) and the
+    condensing and assembly (``glue``: ``glue.assemble``) take their plain
+    versions; restored on exit."""
+    saved = (gp_sample.sample_empty, gp_hall.sample_hall, ipm.run_full,
+             _glue.assemble)
     if gp:
         gp_sample.sample_empty = gp_sample.sample_empty_plain_stacked
         gp_hall.sample_hall = gp_hall.sample_hall_plain_stacked
     if qp:
         ipm.run_full = ipm.run_full_plain
+    if glue:
+        _glue.assemble = _glue.assemble_plain
     try:
         yield
     finally:
-        (gp_sample.sample_empty, gp_hall.sample_hall, ipm.run_full) = saved
+        (gp_sample.sample_empty, gp_hall.sample_hall, ipm.run_full,
+         _glue.assemble) = saved
 
 
 def launch_counts() -> dict:
     """Launches of each loop kernel since the counters were last zeroed."""
-    return {**gp_sample.LAUNCHES, **gp_hall.LAUNCHES, **ipm.LAUNCHES}
+    return {**gp_sample.LAUNCHES, **gp_hall.LAUNCHES, **ipm.LAUNCHES,
+            **_glue.LAUNCHES}
 
 
 def wide_launch_counts() -> dict:
@@ -45,6 +52,6 @@ def wide_launch_counts() -> dict:
 
 def zero_launch_counts() -> None:
     for table in (gp_sample.LAUNCHES, gp_hall.LAUNCHES, ipm.LAUNCHES,
-                  ipm.LAUNCHES_WIDE):
+                  ipm.LAUNCHES_WIDE, _glue.LAUNCHES):
         for name in table:
             table[name] = 0

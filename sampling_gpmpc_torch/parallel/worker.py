@@ -40,7 +40,7 @@ from sampling_gpmpc_torch.gp.exact import GPHyperArrays
 from sampling_gpmpc_torch.ocp import qp as qp_mod
 from sampling_gpmpc_torch.ocp import sqp
 from sampling_gpmpc_torch.ocp.spec import make_ocp_data
-from sampling_gpmpc_torch.ops import gp_hall, gp_sample, ipm
+from sampling_gpmpc_torch.ops import glue, gp_hall, gp_sample, ipm
 from sampling_gpmpc_torch.parallel import distributed
 from sampling_gpmpc_torch.parallel.collectives import all_gather
 from sampling_gpmpc_torch.parallel.mesh import sample_mesh
@@ -51,15 +51,17 @@ PARAMS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "params")
 # per-rank counters the worker reports, in this order
 COUNTERS = ("gp_sample", "gp_hall", "ipm_prepare", "ipm_mehrotra",
-            "qp_group", "qp_run_full")
+            "qp_group", "qp_run_full", "glue_condense", "glue_gram")
 
 
-def problem(config: str, ns: int, max_sqp: int, device, dtype):
+def problem(config: str, ns: int, max_sqp: int, device, dtype,
+            **spec_over):
     """One MPC step's solve inputs of a config at ``ns`` samples, with
     ``max_sqp`` forced SQP iterations (``tol_nlp = 0`` where > 1) on the
-    port's seeded draws: (spec, env, hyp, ocp, gp, X0, U0, st, eps)."""
+    port's seeded draws, ``spec_over`` replacing further fields of the
+    spec: (spec, env, hyp, ocp, gp, X0, U0, st, eps)."""
     params, spec, data = load_problem(os.path.join(PARAMS, config + ".yaml"))
-    over = dict(ns=ns, num_mpc_iter=1, max_sqp_iter=max_sqp)
+    over = dict(ns=ns, num_mpc_iter=1, max_sqp_iter=max_sqp, **spec_over)
     if max_sqp > 1:
         over["tol_nlp"] = 0.0
     spec = dataclasses.replace(spec, **over)
@@ -74,15 +76,38 @@ def problem(config: str, ns: int, max_sqp: int, device, dtype):
     return spec, env, hyp, ocp, gp, X0, U0, st, eps
 
 
+def glue_inputs(config: str, ns: int, device, dtype, **spec_over):
+    """One SQP iteration's inputs to ``ops/glue.assemble`` at ``ns``
+    samples, from a seeded perturbation of :func:`problem`'s start iterate
+    and state (so T and every row is nonzero): ((spec, ocp, combined, X, U,
+    st), (env, hyp, gp, eps0)), ``combined`` the rows of
+    ``Env.assemble_val_jac`` at the iterate."""
+    spec, env, hyp, ocp, gp, X0, U0, st, eps = problem(
+        config, ns, 1, device, dtype, **spec_over)
+    g = torch.Generator().manual_seed(ns)
+    X = X0 + (0.05 * torch.randn(X0.shape, generator=g, dtype=dtype)).to(
+        device)
+    U = U0 + (0.3 * torch.randn(U0.shape, generator=g, dtype=dtype)).to(
+        device)
+    st = st + 0.01
+    xu = sqp._linearization_inputs(spec, ocp, X, U)
+    dg, _ = agent.sample_dynamics(spec, env, hyp, gp,
+                                  xu[..., list(spec.g_idx_inputs)], eps[0],
+                                  hall_empty=True)
+    combined = env.assemble_val_jac(xu, dg.transpose(1, 2))
+    return (spec, ocp, combined, X, U, st), (env, hyp, gp, eps[0])
+
+
 def counters() -> dict:
     return {**gp_sample.LAUNCHES, **gp_hall.LAUNCHES, **ipm.LAUNCHES,
+            **glue.LAUNCHES,
             "qp_group": qp_mod.ROUTES["group"],
             "qp_run_full": qp_mod.ROUTES["run_full"]}
 
 
 def zero_counters() -> None:
     for table in (gp_sample.LAUNCHES, gp_hall.LAUNCHES, ipm.LAUNCHES,
-                  ipm.LAUNCHES_WIDE, qp_mod.ROUTES):
+                  ipm.LAUNCHES_WIDE, qp_mod.ROUTES, glue.LAUNCHES):
         for k in table:
             table[k] = 0
 

@@ -1,0 +1,165 @@
+"""``ops/glue.py``: the plain version of the condensing and assembly
+kernel against the SQP solve's CPU route, the kernel wrapper's refusals,
+its layout and the Gram kernel's tiles, and ``plain_route(glue=True)``.
+
+The kernel itself runs only on the card (``tests/test_torch_kernels_cuda.py``
+holds it against :func:`glue.assemble_plain`).
+"""
+
+import dataclasses
+import os
+
+import pytest
+import torch
+
+from sampling_gpmpc_torch.config import load_problem
+from sampling_gpmpc_torch.ocp import sqp
+from sampling_gpmpc_torch.ops import glue, routes
+from sampling_gpmpc_torch.parallel.worker import glue_inputs
+
+PARAMS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "params")
+CPU = torch.device("cpu")
+
+CASES = [("params_pendulum1D_samples", 5),   # feedback rows, terminal ellipse
+         ("params_pendulum", 3),             # hard rows only
+         ("params_car", 3),                  # ellipses: soft state box
+         ("params_car_residual", 1)]         # feedback with nu = 2
+
+
+@pytest.mark.parametrize("config,ns", CASES)
+def test_plain_twin_is_the_chain_before_the_kernel(config, ns):
+    """assemble_plain returns bit for bit what the SQP solve's CPU route
+    (``sqp.assemble_qp``, the chain the JAX-parity tests hold) returns."""
+    args, (env, hyp, gp, eps0) = glue_inputs(config, ns, CPU, torch.float64)
+    spec, ocp, _, X, U, st = args
+    got_qp, got_T, got_G = glue.assemble_plain(*args)
+    want_qp, want_T, want_G, _ = sqp.assemble_qp(spec, env, hyp, ocp, st, X,
+                                                 U, gp, eps0, hall_empty=True)
+    assert len(got_qp) == len(want_qp) == 11
+    for name, a, b in zip(sqp.QP_KEYS + ("T", "Gamma"),
+                          tuple(got_qp) + (got_T, got_G),
+                          tuple(want_qp) + (want_T, want_G)):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("config,ns,over", [
+    ("params_pendulum1D_samples", 4, {}),
+    ("params_pendulum1D_samples", 4, {"use_feedback": False}),
+    ("params_car", 2, {}),
+    ("params_pendulum_samples", 3, {}),
+])
+def test_layout_views_have_the_plain_shapes(config, ns, over):
+    """The kernel's buffer holds every output at the plain version's shape,
+    each at an ALIGN-aligned offset and apart from the others, the
+    workspace last; the cost sums sit in shared memory at these widths
+    (one launch), and the wide branch, where asked for, keeps M in the
+    workspace instead."""
+    args = glue_inputs(config, ns, CPU, torch.float32, **over)[0]
+    spec = args[0]
+    qp, T, Gamma = glue.assemble_plain(*args)
+    smem, gram, shapes, offsets, total, gram_grid = glue.layout(spec)
+    nU = spec.H * spec.nu
+    assert not gram and gram_grid == 0 and 0 < smem <= glue.SMEM_LIMIT
+    assert list(shapes[:13]) == [tuple(t.shape) for t in (*qp, T, Gamma)]
+    assert shapes[13] == (ns * (nU * nU + nU),)
+    wide = glue.layout(spec, gram=True)
+    assert wide[0] < smem and wide[2][:13] == shapes[:13]
+    assert wide[2][13] == (ns * (spec.H + 1) * spec.nx * (nU + 1),)
+    assert all(o % glue.ALIGN == 0 for o in offsets)
+    ends = [o + glue._numel(s) for o, s in zip(offsets, shapes)]
+    assert all(e <= o for e, o in zip(ends, offsets[1:]))
+    assert ends[-1] <= total
+
+
+def test_layout_of_the_widest_qp_keeps_the_cost_sums_global():
+    """Past GRAM_NU the cost forms in the second launch from M in the
+    global workspace: at params_car_samples' nU = 200 and at nU = 256,
+    where the narrow branch's sums do not fit in shared memory and cannot
+    be asked for; params_car_residual's nU = 100 too.  A horizon whose
+    stage rows alone pass the limit is refused."""
+    params, spec, data = load_problem(os.path.join(PARAMS,
+                                                   "params_car_samples.yaml"))
+    wide = dataclasses.replace(spec, H=128)
+    smem, gram = glue.layout(wide)[:2]
+    assert gram and smem <= glue.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        glue.layout(wide, gram=False)
+    assert glue.layout(spec)[1]
+    assert glue.layout(dataclasses.replace(spec, ns=1, H=50))[1]
+    assert not glue.layout(dataclasses.replace(spec, H=glue.GRAM_NU //
+                                                   spec.nu))[1]
+    with pytest.raises(ValueError, match="shared memory"):
+        glue.layout(dataclasses.replace(spec, H=3000))
+
+
+@pytest.mark.parametrize("nU", [1, 17, 31, 32, 33, 63, 64, 65, 100, 200,
+                                 255, 256])
+def test_gram_grid_covers_the_upper_triangle_once(nU):
+    """glue_gram_kernel's tiles, decoded from the block index as the kernel
+    does, write every entry of H_U's upper triangle and of g_U (column nU)
+    exactly once over layout's gram_grid blocks."""
+    spec = dataclasses.replace(load_problem(os.path.join(
+        PARAMS, "params_pendulum1D_samples.yaml"))[1], H=nU, ns=2)
+    grid = glue.layout(spec, gram=True)[5]
+    ts, ntv = glue.TS, (nU + glue.TS) // glue.TS
+    seen = []
+    for blk in range(grid):
+        bu, rem = 0, blk
+        while rem >= ntv - bu:
+            rem -= ntv - bu
+            bu += 1
+        bv = bu + rem
+        for t in range(256):
+            v = bv * ts + (t & 31)
+            for j in range(4):
+                u = bu * ts + (t >> 5) * 4 + j
+                if u < nU and v <= nU and (v == nU or u <= v):
+                    seen.append((u, v))
+    want = [(u, v) for u in range(nU) for v in range(u, nU + 1)]
+    assert sorted(seen) == want
+
+
+@pytest.mark.parametrize("what", ["float64", "shape", "strided", "ocp"])
+def test_wrapper_refuses_what_the_kernel_does_not_take(what):
+    """check_inputs (run before every launch) names the input the kernel
+    cannot take: float64, a wrong shape, a non-contiguous tensor, an OCP
+    field of another dtype; assemble raises on a device that is neither
+    the CPU nor CUDA.  Nothing falls back to the plain chain."""
+    spec, ocp, combined, X, U, st = glue_inputs(
+        "params_pendulum1D_samples", 4, CPU, torch.float32)[0]
+    dev = CPU
+    args = dict(combined=combined, X=X, U=U, st_curr=st)
+    if what == "float64":
+        args["combined"], match = combined.double(), "combined: need float32"
+    elif what == "shape":
+        args["X"], match = X[:-1], r"X: shape \(17, 4, 2\)"
+    elif what == "strided":
+        args["X"] = X.transpose(0, 1).contiguous().transpose(0, 1)
+        match = "X: not contiguous"
+    else:
+        ocp, match = ocp._replace(lm=ocp.lm.double()), "ocp.lm: need float32"
+    with pytest.raises(ValueError, match=match):
+        glue.check_inputs(spec, ocp, dev=dev, **args)
+    assert len(glue.check_inputs(spec, ocp._replace(lm=ocp.lm.float()),
+                                 combined, X, U, st, dev)) == 4 + 17 + 8
+    meta = combined.to("meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        glue.assemble(spec, ocp, meta, X, U, st)
+
+
+@pytest.mark.parametrize("glue_plain", [True, False])
+def test_plain_route_swaps_the_glue_and_puts_it_back(glue_plain):
+    """plain_route(glue=True) sends the SQP solve's glue.assemble to
+    assemble_plain inside the block; glue=False leaves it; both restore
+    it on exit, also when the block raises."""
+    kernel_route = glue.assemble
+    with pytest.raises(RuntimeError):
+        with routes.plain_route(gp=False, qp=False, glue=glue_plain):
+            want = glue.assemble_plain if glue_plain else kernel_route
+            assert glue.assemble is want
+            raise RuntimeError
+    assert glue.assemble is kernel_route
+    assert routes.launch_counts()["glue_condense"] == \
+        glue.LAUNCHES["glue_condense"]
+    routes.zero_launch_counts()
+    assert glue.LAUNCHES["glue_condense"] == 0

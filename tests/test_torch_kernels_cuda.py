@@ -16,8 +16,8 @@ import pytest
 import torch
 
 from sampling_gpmpc_torch.ocp import qp as qp_mod
-from sampling_gpmpc_torch.ops import (batch_linalg, batched_chol, gp_hall,
-                                      gp_sample, ipm)
+from sampling_gpmpc_torch.ops import (batch_linalg, batched_chol, glue,
+                                      gp_hall, gp_sample, ipm, routes)
 
 pytestmark = pytest.mark.cuda
 
@@ -744,3 +744,160 @@ def test_pendulum_steps_sync_as_counted(dev):
         loop.check(st, f"{kind} step")
         assert len(found) == sum(counted.values()) == PENDULUM_STEP_SYNCS, (
             kind, found, +counted)
+
+
+def _glue_problem(dev, config, ns, **over):
+    """One SQP iteration's glue inputs on the card in float32 (the shared
+    builder ``worker.glue_inputs``): (spec, ocp, combined, X, U, st)."""
+    from sampling_gpmpc_torch.parallel.worker import glue_inputs
+    return glue_inputs(config, ns, dev, torch.float32, **over)[0]
+
+
+# float32 rounding of the condensing's sums of products along two
+# association orders (the kernel's stage-by-stage recursion against the
+# plain version's prefix compositions, at up to H = 128 stages) and of the
+# cost's sums over samples and stages in two orders: a few hundred ulps of
+# an output's largest entry; the 1e8 upper bounds of the ellipse rows are
+# held exactly
+GLUE_RTOL = 1e-4
+
+
+def _glue_close(got, ref):
+    qp, T, Gamma = got
+    qp_r, T_r, Gamma_r = ref
+    from sampling_gpmpc_torch.ocp import sqp
+    for name, a, b in zip(sqp.QP_KEYS + ("T", "Gamma"), (*qp, T, Gamma),
+                          (*qp_r, T_r, Gamma_r)):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert bool(torch.isfinite(a).all()), name
+        big = b.abs() >= 1e7
+        assert torch.equal(a[big], b[big]), name
+        if (~big).any():
+            scale = float(b[~big].abs().max())
+            err = float((a - b)[~big].abs().max())
+            assert err <= GLUE_RTOL * scale, (name, err, scale)
+
+
+GLUE_CASES = [
+    ("params_pendulum1D_samples", 70, {}),     # feedback, terminal ellipse
+    ("params_pendulum", 20, {}),               # hard rows only
+    ("params_car", 20, {}),                    # ellipses, nx = 4, nu = 2
+    ("params_car_samples", 10, {}),            # nU = 200: the Gram launch
+    ("params_car_samples", 4, {"H": 128}),     # nU = 256: Gram, tile edge
+    ("params_pendulum1D_samples", 300, {}),    # CTAs loop past MAX_CTAS
+    ("params_pendulum1D_samples", 70, {"use_feedback": False}),
+    ("params_car_residual", 1, {}),            # ns = 1, nu = 2, Gram
+    ("params_pendulum_samples", 500, {}),      # H = 1
+]
+
+
+@pytest.mark.parametrize("config,ns,over", GLUE_CASES)
+def test_glue_kernel_matches_plain(dev, config, ns, over):
+    """The condensing and assembly kernel against its plain version on
+    every output: the QP tuple, T and Gamma (GLUE_RTOL)."""
+    spec, ocp, comb, X, U, st = _glue_problem(dev, config, ns, **over)
+    got = glue.assemble(spec, ocp, comb, X, U, st)
+    ref = glue.assemble_plain(spec, ocp, comb, X, U, st)
+    torch.cuda.synchronize()
+    _glue_close(got, ref)
+
+
+@pytest.mark.parametrize("config,ns,gram", [
+    ("params_pendulum1D_samples", 70, True),
+    ("params_car", 20, True),
+    ("params_car_residual", 1, False),
+    ("params_pendulum_samples", 500, True),
+])
+def test_glue_other_branch_matches_plain(dev, config, ns, gram):
+    """The branch the shape does not pick, asked for: the Gram launch at
+    the narrow shapes, the sums in shared memory at nU = 100; both agree
+    with the plain version (GLUE_RTOL)."""
+    spec, ocp, comb, X, U, st = _glue_problem(dev, config, ns)
+    assert glue.layout(spec)[1] != gram
+    got = glue.launch(spec, ocp, comb, X, U, st, gram=gram)
+    ref = glue.assemble_plain(spec, ocp, comb, X, U, st)
+    torch.cuda.synchronize()
+    _glue_close(got, ref)
+
+
+@pytest.mark.parametrize("config,ns,over", [GLUE_CASES[0], GLUE_CASES[3],
+                                            GLUE_CASES[4], GLUE_CASES[5]])
+def test_glue_kernel_is_deterministic(dev, config, ns, over):
+    """Two launches on the same inputs give the same bits: the cost's sums
+    over samples run in sample order in the last CTA, with no float
+    atomics (the flagship, the Gram launch at nU = 200 and 256, CTAs
+    looping over samples)."""
+    spec, ocp, comb, X, U, st = _glue_problem(dev, config, ns, **over)
+    a = glue.launch(spec, ocp, comb, X, U, st)
+    b = glue.launch(spec, ocp, comb, X, U, st)
+    torch.cuda.synchronize()
+    for x, y in zip((*a[0], a[1], a[2]), (*b[0], b[1], b[2])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("config,ns", [("params_pendulum1D_samples", 70),
+                                       ("params_car", 20),
+                                       ("params_car_samples", 10)])
+def test_glue_group_route_adds_the_input_block_after(dev, config, ns):
+    """Under a sample-axis group the launch leaves the input block out of
+    (H, g) and the wrapper adds ``input_cost`` after the psum: with the
+    block added so, the result equals the ungrouped launch (H bit for bit,
+    g to the float32 rounding of 2 Ubar Qu's sum over nu), every row
+    bit for bit."""
+    from sampling_gpmpc_torch.ocp.assemble import input_cost
+    spec, ocp, comb, X, U, st = _glue_problem(dev, config, ns)
+    whole = glue.launch(spec, ocp, comb, X, U, st)
+    part = glue.launch(spec, ocp, comb, X, U, st, with_block=False)
+    H_in, g_in = input_cost(spec, ocp, U)
+    torch.cuda.synchronize()
+    assert torch.equal(part[0][0] + H_in, whole[0][0])
+    g_ref = whole[0][1]
+    assert float((part[0][1] + g_in - g_ref).abs().max()) <= \
+        1e-6 * float(g_ref.abs().max())
+    for x, y in zip((*part[0][2:], part[1], part[2]),
+                    (*whole[0][2:], whole[1], whole[2])):
+        assert torch.equal(x, y)
+
+
+def test_glue_refuses_float64_on_the_card(dev):
+    """A float64 problem on the card raises (run it on the CPU or under
+    plain_route()); nothing falls back to the plain chain."""
+    spec, ocp, comb, X, U, st = _glue_problem(dev, "params_car", 4)
+    ocp64 = type(ocp)(*(t.double() for t in ocp))
+    before = glue.LAUNCHES["glue_condense"]
+    with pytest.raises(ValueError, match="need float32"):
+        glue.assemble(spec, ocp64, comb.double(), X.double(), U.double(),
+                      st.double())
+    assert glue.LAUNCHES["glue_condense"] == before
+
+
+def test_glue_launches_once_per_sqp_iteration(dev):
+    """On the main path the glue kernel launches once per SQP iteration:
+    params_car's four-iteration solve and three params_pendulum1D_samples
+    steps as published (one RTI iteration each), with no Gram launch;
+    params_car_residual (nU = 100) adds one Gram launch an iteration."""
+    from sampling_gpmpc_torch import bench
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.parallel.worker import problem
+    spec, env, hyp, ocp, gp, X0, U0, st, eps = problem(
+        "params_car", 20, 4, dev, torch.float32)
+    routes.zero_launch_counts()
+    s = sqp.solve(spec, env, hyp, ocp, st, X0, U0, gp, eps)
+    torch.cuda.synchronize()
+    assert s.it == 4 and routes.launch_counts()["glue_condense"] == 4
+    assert routes.launch_counts()["glue_gram"] == 0
+    _, spec, data, env = bench.build(dict(ns=70, H=17))
+    draws = bench.draws(spec, 3, 5, dev)
+    loop = bench.ClosedLoop(spec, data, env, dev)
+    routes.zero_launch_counts()
+    its = sum(loop.step(draws[m]).it for m in range(3))
+    torch.cuda.synchronize()
+    assert its == 3 and routes.launch_counts()["glue_condense"] == 3
+    assert routes.launch_counts()["glue_gram"] == 0
+    spec, env, hyp, ocp, gp, X0, U0, st, eps = problem(
+        "params_car_residual", 1, 3, dev, torch.float32)
+    routes.zero_launch_counts()
+    s = sqp.solve(spec, env, hyp, ocp, st, X0, U0, gp, eps)
+    torch.cuda.synchronize()
+    n = routes.launch_counts()
+    assert s.it == 3 and n["glue_condense"] == n["glue_gram"] == 3
