@@ -211,9 +211,9 @@ def _fused_sample_hall(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
     (ops/gp_hall.py): the products, one blocked Cholesky of each bordered
     matrix, pathwise draw and override tail, every output in one launch
     set."""
-    with obs.span("gp.inputs"):
+    with obs.span("gp.hall.inputs"):
         kw = hall_stage_inputs_all(spec, hyp, gp, Xt, eps, md)
-    with obs.span("gp.kernel"):
+    with obs.span("gp.hall.kernel"):
         dg = gp_hall.sample_hall(**kw)
     return dg.transpose(0, 1).reshape(spec.ns, spec.g_ny, spec.H, spec.Ty)
 
@@ -339,6 +339,11 @@ def sample_dynamics(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
     use_fused = not oracle_only and uses_gp_kernels(spec, Xt.device)
     posterior = (_batched_posterior_real if hall_empty
                  else _batched_posterior_incremental)
+    # the spans of the stage on the plain route, as the kernels' wrappers
+    # name theirs: the moments, then the draw
+    spans = "gp." if hall_empty else "gp.hall."
+    if not (oracle_only or hall_empty):
+        obs.count(obs.HALL_ROWS, gp.hall_n * Ty, tally=False)
 
     need_train_set = hyp.min_data_dist >= 0.0
     if need_train_set:
@@ -367,13 +372,15 @@ def sample_dynamics(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
         dg = torch.zeros((ns, spec.g_ny, H, Ty), dtype=Xt.dtype,
                          device=Xt.device)
     else:
-        mean, cov = posterior(spec, hyp, gp, Xt)
-        pv = exact.prior_task_variances(hyp.lengthscale, hyp.outputscale,
-                                        Ty)[None, :, None, :]   # (1,g_ny,1,Ty)
-        Xb = Xt[:, None].expand(ns, spec.g_ny, H, Xt.shape[-1])
-        dg = exact.sample_with_overrides(
-            Xb, Z, Y, mean, cov, eps.reshape(ns, spec.g_ny, H * Ty), hyp, Ty,
-            prior_var=pv, dist=dist)
+        with obs.span(spans + "inputs"):
+            mean, cov = posterior(spec, hyp, gp, Xt)
+        with obs.span(spans + "kernel"):
+            pv = exact.prior_task_variances(
+                hyp.lengthscale, hyp.outputscale, Ty)[None, :, None, :]
+            Xb = Xt[:, None].expand(ns, spec.g_ny, H, Xt.shape[-1])
+            dg = exact.sample_with_overrides(
+                Xb, Z, Y, mean, cov, eps.reshape(ns, spec.g_ny, H * Ty), hyp,
+                Ty, prior_var=pv, dist=dist)
 
     # the overrides address GLOBAL samples 0 (and 1): under a group they
     # live on the first shard(s) (JAX agent.py:378-379)

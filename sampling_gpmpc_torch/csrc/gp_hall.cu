@@ -18,9 +18,14 @@
 // Only the first nh = hall_n * Ty hall rows take part: the rows past the
 // fill are identity rows of S with zero couplings (empty slots are masked),
 // whose elimination steps are exact no-ops for everything read later
-// (pallas_gp.py:315-319).  No escalating-jitter retry: a non-positive pivot
-// gives NaN, which spreads through the later columns exactly as in a
-// column-by-column sweep and lands on the non-finite -> mean backstop.
+// (pallas_gp.py:315-319).  A non-positive pivot gives NaN, which spreads
+// through the later columns exactly as in a column-by-column sweep; a
+// covariance factor that fails so is retried with ten times the jitter, as
+// gp/exact.py's safe_cholesky does in float32 (sgp::factor_retry, from the
+// covariance block as the hall columns left it, kept in the workspace's
+// Ktt - V_r'V_r region; the TPU kernel has no retry), and one that fails
+// at every jitter, or a Schur pivot's NaN, lands on the non-finite -> mean
+// backstop.
 //
 // What bounds it on the H100.  At the car shape (3 outputs x ns=20, Ht=60,
 // Rr=180, nh=180) the products C, V_r, C'C, V_r'C and V_r'V_r are ~26 MFLOP
@@ -168,7 +173,7 @@ hall_gemm_kernel(GemmJobs jobs, int nbatch) {
 template <bool GLOBAL_TILES>
 __global__ void __launch_bounds__(FACTOR_THREADS)
 gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww,
-                      const float* __restrict__ Gw, const float* __restrict__ Bw,
+                      float* __restrict__ Gw, const float* __restrict__ Bw,
                       const float* __restrict__ MRw, const float* __restrict__ eps,
                       const float* __restrict__ pv, const float* __restrict__ close,
                       const float* __restrict__ ynear, float* __restrict__ dg,
@@ -189,7 +194,7 @@ gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww
 
   const float* S_i = Sw + (size_t)b * nh * nh;
   const float* W_i = Ww + (size_t)b * Ht * nh;
-  const float* G_i = Gw + (size_t)b * Ht * Ht;
+  float* G_i = Gw + (size_t)b * Ht * Ht;
   const float* B_i = Bw + (size_t)b * nh;
   const float* MR_i = MRw + (size_t)b * Ht;
   for (int e = tid; e < ntile * TILE_FLOATS; e += nt) T[e] = 0.f;
@@ -216,9 +221,18 @@ gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww
     sMean[t] = -M.at(n2, nhp + t);
     sVar[t] = M.at(nhp + t, nhp + t) - jitter;
   }
+  // the covariance as the hall columns left it, for a retry, over G_i
+  // (read into the tiles above)
+  for (int e = tid; e < Ht * Ht; e += nt) {
+    const int a = e / Ht, c = e % Ht;
+    if (c <= a) G_i[e] = M.at(nhp + a, nhp + c);
+  }
   __syncthreads();
-  // the covariance columns, bordering row left out
+  // the covariance columns, bordering row left out; retried with more
+  // jitter while the factor fails
   for (int k = nhp / TB; k * TB < n2; ++k) factor_panel(M, k, n2);
+  sgp::factor_retry(M, nhp, n2, [&](int a, int c) { return G_i[(size_t)a * Ht + c]; },
+                    jitter, sVar, jitter);
 
   const size_t row = (size_t)b * Ht;
   sgp::draw_override_tail_at(sgp::TiledAt{M, nhp}, sMean, sVar, sEps, pv + (size_t)o * Ht,

@@ -13,9 +13,10 @@
 //   (Ty>1: all tasks of the point), min-dist -> nearest train row, beta
 //   clip, non-finite -> mean.
 // The triangular solve against the fixed real factor is a matmul with
-// Linv, and there is no escalating-jitter retry: a failed factorization
-// propagates NaN into the sample and lands on the non-finite -> mean
-// backstop, as on the TPU.
+// Linv.  A failed factorization is retried with ten times the jitter, as
+// gp/exact.py's safe_cholesky does in float32 (sgp::factor_retry; the TPU
+// kernel has no retry); one that fails at every jitter propagates NaN
+// into the sample and lands on the non-finite -> mean backstop.
 //
 // What bounds it on the H100.  At the car shape (3 outputs x ns=20, Ht=60,
 // R=180) the products are ~4.6 MFLOP per (output, sample), ~0.28 GFLOP a
@@ -262,11 +263,14 @@ gp_sample_kernel(const float* __restrict__ Kx, const float* __restrict__ Ktt,
   }
 
   // 3. cov = (Ktt_i - V'V) + jitter I and the variance, in the plain
-  // version's order (each thread adds the Ktt_i entries it copied); the
-  // blocked factor, the draw and the override tail
+  // version's order (each thread adds the Ktt_i entries it copied), Ktt_i
+  // - V'V kept in the tiles K for a retry; the blocked factor, retried with
+  // more jitter while it fails (sgp::factor_retry), the draw and the
+  // override tail
   for (int a = warp; a < Ht; a += nw)
     for (int c = lane; c <= a; c += 32) {
       float v = K.at(a, c) - M.at(a, c);
+      K.at(a, c) = v;
       if (a == c) {
         v = v + jitter;
         sVar[a] = v - jitter;
@@ -275,6 +279,8 @@ gp_sample_kernel(const float* __restrict__ Kx, const float* __restrict__ Ktt,
     }
   __syncthreads();
   for (int k = 0; k < nt_t; ++k) sgp::factor_panel(M, k, Ht);   // ends in a barrier
+  sgp::factor_retry(M, 0, Ht, [&](int a, int c) { return K.at(a, c); }, 0.f, sVar,
+                    jitter);
   const size_t row = (size_t)b * Ht;
   sgp::draw_override_tail_at(sgp::TiledAt{M, 0}, sMean, sVar, sEps,
                              pv + (size_t)o * Ht, close ? close + row : nullptr,

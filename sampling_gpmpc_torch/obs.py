@@ -20,7 +20,10 @@ launches (``LAUNCHES`` of ``ops/gp_sample.py``, ``ops/gp_hall.py``,
 waits for the card, a read of a tensor's value or a copy from pageable host
 memory (a scalar or an index list), as torch's sync-debug mode finds them
 on the card (``tests/test_torch_kernels_cuda.py``).  The same sites count
-on the CPU, so a CPU test sees what the card would.
+on the CPU, so a CPU test sees what the card would.  ``HALL_ROWS``, by
+fill: one for each hall-conditioned GP stage (SQP iterations >= 1, either
+route), under the number of buffer rows it conditions on (``hall_n *
+Ty``).
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ OUTSIDE = "outside spans"
 
 # the host's waits for the card, by call site
 SYNCS: Counter = Counter()
+# the hall-conditioned GP stages, by the buffer rows each conditions on
+HALL_ROWS: Counter = Counter()
 
 _COUNT_LOCK = threading.Lock()
 _TALLY = threading.local()
@@ -63,14 +68,16 @@ class Span(NamedTuple):
 
 
 class _State:
-    """The newest stretch: its spans, the step id, the SYNCS it started
-    from; whether the last span ran on; the depth of ``recording``."""
+    """The newest stretch: its spans, the step id, the SYNCS and HALL_ROWS
+    it started from; whether the last span ran on; the depth of
+    ``recording``."""
     def __init__(self):
         self.on = False
         self.depth = 0
         self.spans = []
         self.step = 0
         self.syncs0 = Counter()
+        self.hall0 = Counter()
 
 
 _STATE = _State()
@@ -102,6 +109,7 @@ class _On:
         if not st.on:                       # a new stretch
             st.on, st.spans, st.step = True, [], 0
             st.syncs0 = Counter(SYNCS)
+            st.hall0 = Counter(HALL_ROWS)
             _LOCAL.stack = []
         stack = getattr(_LOCAL, "stack", None)
         if stack is None:
@@ -154,15 +162,46 @@ def spans() -> list:
     return [Span(*r) for r in _STATE.spans]
 
 
+def _since(table: Counter, start: Counter) -> Counter:
+    d = Counter(table)
+    d.subtract(start)
+    return +d
+
+
 def syncs() -> Counter:
     """``SYNCS`` counted since the newest stretch began."""
-    d = Counter(SYNCS)
-    d.subtract(_STATE.syncs0)
-    return +d
+    return _since(SYNCS, _STATE.syncs0)
+
+
+def hall_rows() -> Counter:
+    """``HALL_ROWS`` counted since the newest stretch began: the hall
+    stages by fill."""
+    return _since(HALL_ROWS, _STATE.hall0)
 
 
 def layer(name: str) -> str:
     return LAYERS.get(name.split(".", 1)[0], OUTSIDE)
+
+
+def _self_ns(records):
+    """Each span's length and its self time (its length less its closed
+    children's), None for an open span."""
+    dur = [(s.t1_ns - s.t0_ns) if s.t1_ns is not None else None
+           for s in records]
+    self_ns = list(dur)
+    for s, d in zip(records, dur):
+        if d is not None and s.parent >= 0 and self_ns[s.parent] is not None:
+            self_ns[s.parent] -= d
+    return dur, self_ns
+
+
+def host_ms_in(records, prefix: str):
+    """Host ms during which a span whose name starts with ``prefix`` is
+    the innermost open one (the spans' self time), or None where no closed
+    span has that prefix.  Assumes the spans come from one thread."""
+    own = [v for s, v in zip(records, _self_ns(records)[1])
+           if v is not None and s.name.startswith(prefix)]
+    return sum(own) / 1e6 if own else None
 
 
 def host_ms_by_layer(records) -> dict:
@@ -172,12 +211,7 @@ def host_ms_by_layer(records) -> dict:
     the next one's, the last to its last span's end; spans before the
     first solve form step 0.  Open spans are left out.  Assumes the spans
     come from one thread."""
-    dur = [(s.t1_ns - s.t0_ns) if s.t1_ns is not None else None
-           for s in records]
-    self_ns = list(dur)
-    for s, d in zip(records, dur):
-        if d is not None and s.parent >= 0 and self_ns[s.parent] is not None:
-            self_ns[s.parent] -= d
+    dur, self_ns = _self_ns(records)
     out = defaultdict(lambda: defaultdict(float))
     first, last = {}, {}
     for i, s in enumerate(records):

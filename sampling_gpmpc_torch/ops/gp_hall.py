@@ -23,10 +23,13 @@ covariance Cholesky); the kernel runs width 32.
 Only the first ``nh`` (= hall_n * Ty, the fill) hall rows take part: the
 rows past the fill are masked empty slots, identity rows of S with zero
 couplings, whose elimination steps are exact no-ops.  As in ``gp_sample``,
-the solves against the fixed real factor are matmuls with ``Linv`` and
-there is no escalating-jitter retry (a failed factorization gives NaN, and
-NaN samples fall back to the mean); the float64 reference path is
-``gp/exact.py`` condition_update + predict_update + sample_with_overrides.
+the solves against the fixed real factor are matmuls with ``Linv``, and a
+covariance factor that fails is retried with more jitter
+(``gp_sample.factor_retried``, from the covariance block as the hall
+columns left it); a Schur pivot that fails, or a covariance that fails at
+every jitter, gives NaN, and NaN entries fall back to the mean.  The
+float64 reference path is ``gp/exact.py`` condition_update +
+predict_update + sample_with_overrides.
 
 :func:`sample_hall` takes every GP output at once (inputs stacked on a
 leading output axis) and runs the plain version for CPU tensors and the
@@ -47,7 +50,8 @@ import torch
 from sampling_gpmpc_torch import obs
 from sampling_gpmpc_torch.ops import build
 from sampling_gpmpc_torch.ops.gp_sample import (PANEL, TILE_FLOATS,
-                                                factor_panels, override_tail)
+                                                factor_panels, factor_retried,
+                                                override_tail)
 
 LAUNCHES = {"gp_hall": 0}
 # per-output arguments of sample_hall_one, stacked on a leading axis by
@@ -129,7 +133,7 @@ def bordered_factor(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r,
     """The covariance factor L, the mean and the variance (diag(cov) -
     jitter) of every sample, from one blocked Cholesky of the bordered
     matrix: its first nh columns with the bordering row, then the next Ht
-    without it."""
+    without it, retried with more jitter where they fail."""
     nh = int(nh)
     Ht = Kxr.shape[1]
     n2 = nh + Ht
@@ -137,7 +141,8 @@ def bordered_factor(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r,
     factor_panels(M, 0, nh, n2 + 1, panel)
     mean = -M[:, n2, nh:n2].clone()
     var = torch.diagonal(M[:, nh:n2, nh:n2], dim1=-2, dim2=-1) - jitter
-    factor_panels(M, nh, n2, n2, panel)
+    factor_retried(M, nh, n2, M[:, nh:n2, nh:n2].clone(), jitter, var, jitter,
+                   panel)
     return torch.tril(M[:, nh:n2, nh:n2]), mean, var
 
 

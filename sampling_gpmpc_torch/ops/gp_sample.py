@@ -7,15 +7,19 @@ from the masked cross-covariance rows Kx_i and the test block Ktt_i:
     V = Linv Kx_i',  G = V'V,  mean = Kx_i alpha,  cov = Ktt_i - G + jitter I,
     L = chol(cov),   y = mean + L eps_i,   then the override tail.
 
-Two deliberate differences from the float64 reference path
+One deliberate difference from the float64 reference path
 (``gp/exact.py`` predict_real + sample_with_overrides), shared by the kernel
 and its plain version: the triangular solve against the fixed real-data
-factor is a matmul with the precomputed ``Linv``, and there is no
-escalating-jitter retry (a failed factorization gives NaN, and NaN samples
-fall back to the mean).  The Cholesky is the right-looking blocked factor
-in panels of ``panel`` columns (:func:`factor_panels`, which ``gp_hall``
-and ``batch_linalg`` share); panel width 1 is the column sweep of the
-earlier design, the kernel runs width 32.
+factor is a matmul with the precomputed ``Linv``.  As there, a covariance
+factor that fails (a non-positive pivot) is retried with ten times the
+jitter within ``safe_cholesky``'s float32 cap (:func:`factor_retried`;
+the TPU kernel has no retry, and at ``params_car``'s GP its float32
+covariance fails at the first jitter); one that fails at every jitter
+gives NaN, and NaN entries fall back to the mean.  The Cholesky is the
+right-looking blocked factor in panels of ``panel`` columns
+(:func:`factor_panels`, which ``gp_hall`` and ``batch_linalg`` share);
+panel width 1 is the column sweep of the earlier design, the kernel runs
+width 32.
 
 :func:`sample_empty` takes every GP output at once (inputs stacked on a
 leading output axis) and runs the plain version for CPU tensors and the
@@ -124,6 +128,35 @@ def factor_panels(A, c0: int, c1: int, n: int, panel: int):
     return A
 
 
+def factor_retried(M, c0: int, n: int, base, added: float, var,
+                   jitter: float, panel: int):
+    """Columns [c0, n) of M factored by :func:`factor_panels`, in place,
+    their block M[..., c0:n, c0:n] holding the covariance plus ``jitter``
+    on its diagonal.  A sample whose factor failed (a non-positive pivot:
+    its last diagonal entry is not finite) is factored again from ``base``
+    (that block before the factor, holding ``added`` of the jitter) with
+    ten times the jitter, while that stays within max(1e-3 x the mean of
+    ``var``, 1e-2): ``exact.safe_cholesky``'s float32 rule, as the kernels
+    retry.  A sample that fails at every jitter keeps its first factor,
+    NaN from the failing column on, for the non-finite -> mean backstop."""
+    factor_panels(M, c0, n, n, panel)
+    first = M.clone()
+    cap = torch.clamp(1e-3 * var.mean(-1), min=1e-2)
+    j = torch.full_like(cap, jitter)
+    eye = torch.eye(n - c0, dtype=M.dtype, device=M.device)
+    while True:
+        failed = ~torch.isfinite(M[..., n - 1, n - 1])
+        retry = failed & (j * 10.0 <= cap)
+        if not bool(retry.any()):
+            M[failed] = first[failed]
+            return M
+        j = torch.where(retry, j * 10.0, j)
+        Mr = M[retry]
+        Mr[..., c0:n, c0:n] = base[retry] + (j[retry] - added)[
+            ..., None, None] * eye
+        M[retry] = factor_panels(Mr, c0, n, n, panel)
+
+
 def sample_empty_plain(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
                        beta: float, var_zero: float, rel_floor: float,
                        ty: int = 1, close=None, ynear=None,
@@ -137,9 +170,10 @@ def sample_empty_plain(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
     G = torch.tril(G) + torch.tril(G, -1).transpose(1, 2)  # exactly symmetric
     mean = (Kxm @ alpha[:, None])[..., 0]                  # (ns, Ht)
     eye = torch.eye(Ht, dtype=Kxm.dtype, device=Kxm.device)
-    S = Ktt - G + jitter * eye
+    cov = Ktt - G
+    S = cov + jitter * eye
     var = torch.diagonal(S, dim1=-2, dim2=-1) - jitter
-    L = torch.tril(factor_panels(S, 0, Ht, Ht, panel))
+    L = torch.tril(factor_retried(S, 0, Ht, cov, 0.0, var, jitter, panel))
     y = mean + (L @ eps[..., None])[..., 0]
     return override_tail(mean, y, var, prior_var, beta, var_zero, rel_floor,
                          ty, close, ynear)

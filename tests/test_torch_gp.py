@@ -205,7 +205,7 @@ def test_plain_gp_sample_matches_pallas_interpret(pend, monkeypatch,
 
 
 def test_plain_gp_sample_within_tube_of_xla_twin(pend):
-    """Kernel algorithm (Linv matmuls, no jitter retry) vs the f32 twin's
+    """Kernel algorithm (Linv matmuls, jitter retry) vs the f32 twin's
     posterior: every sample inside mu ± beta (sigma + sigma_noise)."""
     arrs, spec, hyp, gp = _kernel_inputs(pend)
     got = gp_sample.sample_empty_one(

@@ -156,6 +156,60 @@ def test_gp_hall_kernel_matches_plain(dev, ns, H, ty, Rr, Rh, nh):
     assert float((got - mean).abs().max()) > 100 * (err_k + 1e-7 * scale)
 
 
+def _indefinite_by(kw, stage, neg, nh=0):
+    """The stage's Ktt moved along its covariance's last principal
+    direction so that the covariance (float64, without jitter) has
+    smallest eigenvalue -neg in every sample."""
+    t = {k: torch.as_tensor(v, dtype=torch.float64) for k, v in kw.items()}
+    if stage == "empty":
+        V = t["Linv"] @ t["Kxm"].transpose(1, 2)
+        cov = t["Ktt"] - V.transpose(1, 2) @ V
+    else:
+        Ht = t["Ktt"].shape[-1]
+        M = gp_hall.bordered_matrix(nh, *(t[k] for k in (
+            "Kxr", "Kxh", "Ktt", "Arh", "Ahh", "yh", "Linv", "w_r")),
+            jitter=1e-6)
+        gp_sample.factor_panels(M, 0, nh, nh + Ht + 1, 32)
+        cov = M[:, nh:nh + Ht, nh:nh + Ht] - 1e-6 * torch.eye(
+            Ht, dtype=M.dtype)
+        cov = torch.tril(cov) + torch.tril(cov, -1).transpose(1, 2)
+    lam, V = torch.linalg.eigh(cov)
+    u = V[..., :, 0]
+    move = (lam[..., 0] + neg)[:, None, None] * u[..., :, None] * u[..., None, :]
+    return dict(kw, Ktt=kw["Ktt"] - move.numpy())
+
+
+@pytest.mark.parametrize("stage", ["empty", "hall"])
+def test_gp_kernels_retry_a_failed_covariance_factor(dev, stage):
+    """At the car's shape (ns = 20, Ht = 60, R = 180; the hall stage at nh
+    = 180), covariances whose smallest eigenvalue is -3e-5 fail at the
+    first jitter (1e-6) and at the second (1e-5): the kernels factor them
+    again at 1e-4, as the plain versions do (2e-4 relative), and every
+    entry of every draw follows eps (none fell back to the mean)."""
+    ns, Ht, ty, nh = 20, 60, 4, 180
+    if stage == "empty":
+        kw = _indefinite_by(_empty_problem(ns, Ht, 180, seed=31), stage,
+                            3e-5)
+        run = lambda **t: gp_sample.sample_empty_one(**t, **args)  # noqa
+        plain = lambda **t: gp_sample.sample_empty_plain(**t, **args)  # noqa
+    else:
+        kw = _indefinite_by(_hall_problem(ns, Ht, 180, 240, nh, seed=31),
+                            stage, 3e-5, nh)
+        run = lambda **t: gp_hall.sample_hall_one(nh, **t, **args)  # noqa
+        plain = lambda **t: gp_hall.sample_hall_plain(nh, **t, **args)  # noqa
+    args = dict(jitter=1e-6, beta=2.5, var_zero=-1.0, rel_floor=1e-5, ty=ty)
+    t = {k: torch.as_tensor(v, dtype=torch.float32, device=dev).contiguous()
+         for k, v in kw.items()}
+    got, ref = run(**t), plain(**t)
+    mean = run(**dict(t, eps=torch.zeros_like(t["eps"])))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(mean).all())
+    assert not bool((got == mean).any())
+    scale = float(ref.abs().max())
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=2e-4 * scale)
+
+
 @pytest.mark.parametrize("nh", [120, 240, 360])
 def test_gp_hall_pendulum_shape_matches_plain(dev, nh):
     """The 2D pendulum's stage (ns = 20, Ht = 120, Rr = 180, Rh = 360) at

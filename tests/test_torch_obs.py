@@ -261,3 +261,111 @@ def test_sqp_reads_two_values_after_each_iteration_it_goes_on_from(
     assert delta["sqp._go_on:done"] == delta["sqp._go_on:status"] == 2
     assert delta["envs.pendulum1d.B_d"] == 4
     assert delta["sqp._assemble:g_idx_inputs"] == 3
+
+
+def _car_step_spans(monkeypatch):
+    """One closed-loop step of params_car at ns = 4, H = 8 with three SQP
+    iterations and no convergence exit, float64 on the CPU (the plain GP
+    route), inside ``obs.recording()``: (spec, the stretch's spans, the
+    HALL_ROWS it counted)."""
+    _, spec, data, env = bench.build_car(dict(ns=4, H=8, max_sqp_iter=3))
+    spec = dataclasses.replace(spec, tol_nlp=0.0)
+    loop = bench.ClosedLoop(spec, data, env, "cpu", torch.float64)
+    eps = bench.draws(spec, 1, 5, "cpu", torch.float64)[0]
+    _off()
+    with obs.recording():
+        st = loop.step(eps)
+        got = obs.spans(), obs.hall_rows()
+    assert int(st.status) == 0 and st.it == 3
+    return spec, got[0], got[1]
+
+
+def test_car_step_spans_its_hall_stages_apart(monkeypatch, one_thread):
+    """The empty stage (iteration 0) keeps ``gp.inputs`` / ``gp.kernel``;
+    each hall stage (iterations 1 and 2) opens ``gp.hall.inputs`` /
+    ``gp.hall.kernel`` inside its ``gp.sample``, and ``HALL_ROWS`` counts
+    it at its fill i H Ty."""
+    spec, spans, rows = _car_step_spans(monkeypatch)
+    samples = [i for i, s in enumerate(spans) if s.name == "gp.sample"]
+    assert len(samples) == 3
+    inner = [[s.name for s in spans if s.parent == i] for i in samples]
+    assert inner[0] == ["gp.inputs", "gp.kernel", "gp.append"]
+    assert inner[1] == inner[2] == ["gp.hall.inputs", "gp.hall.kernel",
+                                    "gp.append"]
+    fill = spec.H * spec.Ty
+    assert rows == {fill: 1, 2 * fill: 1}
+    assert all(obs.layer(s.name) == GP for s in spans
+               if s.name.startswith("gp."))
+
+
+def test_hall_rows_count_from_each_stretch():
+    _off()
+    obs.count(obs.HALL_ROWS, 60, tally=False)      # before the stretch
+    with obs.recording():
+        with obs.span("gp.hall.kernel"):
+            obs.count(obs.HALL_ROWS, 60, tally=False)
+            obs.count(obs.HALL_ROWS, 120, tally=False)
+    assert obs.hall_rows() == {60: 1, 120: 1}
+    _off()
+    with obs.recording():
+        with obs.span("gp.kernel"):
+            pass
+    assert obs.hall_rows() == {}
+
+
+def test_host_ms_in_takes_a_prefix_innermost():
+    spans = [_span("gp.sample", 0, 50, -1, 1),
+             _span("gp.hall.inputs", 5, 20, 0, 1),
+             _span("gp.hall.kernel", 20, 45, 0, 1),
+             _span("glue.condense", 30, 40, 2, 1),
+             _span("gp.hall.kernel", 60, 70, -1, 1),
+             _span("gp.hall.kernel", 80, 1, -1, 1)._replace(t1_ns=None)]
+    assert obs.host_ms_in(spans, "gp.hall.") == pytest.approx(
+        (15 + 15 + 10) / 1e3)
+    assert obs.host_ms_in(spans, "gp.") == pytest.approx(
+        (10 + 15 + 15 + 10) / 1e3)
+    assert obs.host_ms_in(spans, "qp.") is None
+
+
+@dataclasses.dataclass
+class _Ctx:
+    summary: object
+    sizes: dict
+
+
+def test_hall_readers_on_a_recorded_car_step(monkeypatch, one_thread):
+    """``hall_host_ms`` reads the hall spans' self time of a recorded car
+    step; ``hall_roofline`` the hall bound at the fills ``HALL_ROWS``
+    counted over a synthetic trace summary's ``hall_*`` / ``gp_hall_*``
+    device time; both None where no hall stage ran."""
+    from perfbench import bounds, trace
+    spec, spans, rows = _car_step_spans(monkeypatch)
+    host = cell.metric_module("hall_host_ms")
+    roof = cell.metric_module("hall_roofline")
+    assert host.LAYER == roof.LAYER == GP
+    assert host.MOVES == roof.MOVES == "step_ms"
+    summary = trace.Summary(
+        steps=1, window_us=1e4, busy_us=600.0,
+        ops={"hall_gemm_kernel": (200.0, 6), "gp_hall_factor_kernel":
+             (300.0, 3), "gp_sample_kernel": (100.0, 1)},
+        n_ops=10, idle_by_host={})
+    sizes = dict(ns=spec.ns, g_ny=spec.g_ny, H=spec.H, Ty=spec.Ty, R=180)
+    ctx = _Ctx(summary, sizes)
+    want_ms = obs.host_ms_in(spans, "gp.hall.")
+    assert want_ms > 0 and host.read(ctx) == pytest.approx(want_ms)
+    Ht = spec.H * spec.Ty
+    b = sum(bounds.bound_s(*(spec.g_ny * v for v in bounds.gp_hall_bound(
+        spec.ns, Ht, 180, nh))) for nh in (Ht, 2 * Ht))
+    assert roof.read(ctx) == pytest.approx(100.0 * b * 1e6 / 500.0)
+    assert 0.0 < roof.read(ctx) < 100.0
+    # no hall kernel in the trace, no trace
+    assert roof.read(dataclasses.replace(ctx, summary=dataclasses.replace(
+        summary, ops={"gp_sample_kernel": (100.0, 1)}))) is None
+    assert roof.read(types.SimpleNamespace(summary=None, sizes=sizes)) is None
+    # a step with no hall stage (one SQP iteration)
+    _off()
+    with obs.recording():
+        with obs.span("sqp.solve"):
+            with obs.span("gp.kernel"):
+                pass
+    assert host.read(ctx) is None and roof.read(ctx) is None
