@@ -659,6 +659,51 @@ def bound_ms(nbytes, flops):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+HALL_BLOCK_ARGS = ("real_Z", "m_r", "hall_Z", "hall_Y", "Xt", "eps",
+                   "lengthscale", "outputscale", "noise_diag")
+HALL_BLOCKS_REL_TOL = 1e-5     # expf's and the sum's rounding, of a block's max
+
+
+def hall_blocks_report(label, pts):
+    """hall_blocks_kernel's blocks from the points ``pts`` (the arguments
+    of gp_hall.sample_hall_points) against their plain version on the same
+    float32 points: each block within HALL_BLOCKS_REL_TOL of its largest
+    entry, the eps rows, prior_var and yh exactly.  Returns the kernel's
+    blocks."""
+    import torch
+    from sampling_gpmpc_torch.ops import gp_hall
+    args = [pts[k] for k in HALL_BLOCK_ARGS]
+    kb = gp_hall.hall_blocks(pts["nh"], *args, ty=pts["ty"])
+    ref = gp_hall.hall_blocks_plain(pts["nh"], *args, pts["ty"])
+    worst = 0.0
+    for k, v in ref.items():
+        if k in ("eps", "prior_var", "yh"):
+            if not torch.equal(kb[k], v):
+                fail(f"gp_hall {label}: hall_blocks_kernel's {k} differs")
+        elif v.numel():
+            worst = max(worst, float((kb[k] - v).abs().max() / v.abs().max()))
+    print(f"[gp_hall] {label}, nh={pts['nh']}: hall_blocks_kernel against "
+          f"its plain version: {worst:.3e} of a block's largest entry (tol "
+          f"{HALL_BLOCKS_REL_TOL})", flush=True)
+    if worst > HALL_BLOCKS_REL_TOL:
+        fail(f"gp_hall {label}: hall_blocks_kernel disagrees with its plain "
+             "version")
+    return kb
+
+
+def hall_blocks_bytes(pts):
+    """Bytes of one hall_blocks_kernel launch: the points, masks and draws
+    it reads, once each, and the blocks it writes."""
+    from sampling_gpmpc_torch.ops import gp_hall
+    no, Rr = pts["m_r"].shape
+    ns, H, D = pts["Xt"].shape
+    ty, nh = pts["ty"], pts["nh"]
+    hn = nh // ty
+    read = (pts["real_Z"].numel() + no * Rr + ns * no * hn * (D + ty)
+            + ns * H * D + pts["eps"].numel() + no * D + no + ty)
+    return 4 * (read + gp_hall.blocks_floats(no, ns, H * ty, Rr, nh))
+
+
 def gp_sample_bound(ns, Ht, R):
     """Bytes and float32 operations of one gp_sample launch."""
     nbytes = 4 * (ns * Ht * R + ns * Ht * Ht + ns * Ht + R * R + R + Ht
@@ -840,17 +885,21 @@ def stage_walk(tag, spec, env, hyp, hyp64, ocp, gp, gp64, st, X, U, eps,
     f64 = torch.float64
     gidx, Ty, Ht = list(spec.g_idx_inputs), spec.Ty, spec.H * spec.Ty
     gp_it, ws, wv = agent.reset_hall(gp), None, None
-    out = dict(one=None, empty=None, hall={}, warm=None, gs_errs=[],
+    out = dict(one=None, empty=None, hall={}, points={}, warm=None,
+               gs_errs=[],
                gh_errs=[], gh_rels=[])
 
-    def stacked_report(label, st_in, dps, d0s, tubes, means, d64s=None):
-        """All outputs in one launch set (the main path's call) against
-        the plain version of each output."""
-        dk = gp_hall.sample_hall(**st_in)
+    def stacked_report(label, st_in, dps, d0s, tubes, means, d64s=None,
+                       dk=None, how="one launch set"):
+        """All outputs in one launch set (from the blocks ``st_in``, or
+        ``dk`` drawn otherwise) against the plain version of each
+        output."""
+        if dk is None:
+            dk = gp_hall.sample_hall(**st_in)
         for j in range(spec.g_ny):
             err, rel = gp_report(
                 "gp_hall", spec, f"{label}, nh={st_in['nh']}, all "
-                f"{spec.g_ny} outputs in one launch set: output {j}", dk[j],
+                f"{spec.g_ny} outputs in {how}: output {j}", dk[j],
                 dps[j], tubes[j], means[j], GP_HALL_REL_TOL, d0=d0s[j],
                 d64=d64s[j] if d64s else None)
             out["gh_errs"].append(err)
@@ -931,7 +980,28 @@ def stage_walk(tag, spec, env, hyp, hyp64, ocp, gp, gp64, st, X, U, eps,
             stacked_report(f"{tag} SQP iteration {it}", st_in, dps, d0s,
                            tubes, [m64[:, j] for j in range(spec.g_ny)],
                            d64s)
+            # the main path's call: the blocks from the points on the card.
+            # Its blocks against their plain version (HALL_BLOCKS_REL_TOL),
+            # then its draws against the plain factor on the blocks the
+            # kernel wrote: an ulp in a block moves the car's float32 draws
+            # by up to ~0.4 of the tube width (cancellation), so the
+            # pointwise bar holds the factor on equal blocks
+            pts = agent.hall_point_inputs(spec, hyp, gp_it, Xt, eps_it)
+            kb = hall_blocks_report(f"{tag} SQP iteration {it}", pts)
+            on_kb = dict(kb, Linv=pts["Linv"], w_r=pts["w_r"],
+                         **{k: pts[k] for k in ("nh", "jitter", "beta",
+                                                "var_zero", "rel_floor",
+                                                "ty")})
+            stacked_report(
+                f"{tag} SQP iteration {it}", st_in,
+                gp_hall.sample_hall_plain_stacked(**on_kb),
+                gp_hall.sample_hall_plain_stacked(
+                    **dict(on_kb, eps=torch.zeros_like(kb["eps"]))), tubes,
+                [m64[:, j] for j in range(spec.g_ny)],
+                dk=gp_hall.sample_hall_points(**pts),
+                how="one call from the points (plain: on its blocks)")
             out["hall"][st_in["nh"]] = st_in
+            out["points"][st_in["nh"]] = pts
         if it == 1 and per_output:
             # the empty buffer through the hall stage: the real-data
             # posterior
@@ -3189,8 +3259,9 @@ def bench_phase(dev, checks, results):
               f"Mehrotra iterations per step {r['qp_iters']}; SQP "
               f"iterations {sorted(set(r['sqp_iters']))}; launches per step "
               f"{r['launches_per_step']}", flush=True)
-    one = {"gp_sample": 1.0, "gp_hall": 0.0, "ipm_prepare": 1.0,
-           "ipm_mehrotra": 1.0, "glue_condense": 1.0, "glue_gram": 0.0}
+    one = {"gp_sample": 1.0, "gp_hall": 0.0, "gp_hall_blocks": 0.0,
+           "ipm_prepare": 1.0, "ipm_mehrotra": 1.0, "glue_condense": 1.0,
+           "glue_gram": 0.0}
     for name in ("ns64", "ns512"):
         if rows[name]["launches_per_step"] != one:
             fail(f"bench {name}: launches per step "
@@ -3198,6 +3269,7 @@ def bench_phase(dev, checks, results):
     car = rows["car"]
     its = car["sqp_iters"][-car["steps"]:]
     want = {"gp_sample": car["steps"], "gp_hall": sum(its) - len(its),
+            "gp_hall_blocks": sum(its) - len(its),
             "ipm_prepare": sum(its), "ipm_mehrotra": sum(its),
             "glue_condense": sum(its), "glue_gram": 0}
     if car["launches"] != want:
@@ -3868,10 +3940,25 @@ def main():
               f"the ({no * ns},{nh},{nh}) Schur batch "
               f"{'-' if t_chol is None else f'{t_chol:.4f} ms'} (only the "
               f"factorization)", flush=True)
-        hall_rows.append(dict(nh=nh, ms=t_k, ms_one_output=t_1,
-                              plain_ms=t_p, bound_ms=b, bound_by=by,
-                              bound_ms_one_output=b1,
-                              partial_library_ms=t_chol))
+        row = dict(nh=nh, ms=t_k, ms_one_output=t_1, plain_ms=t_p,
+                   bound_ms=b, bound_by=by, bound_ms_one_output=b1,
+                   partial_library_ms=t_chol)
+        pts = walk["points"].get(nh)
+        if pts is not None:
+            # the main path's call: the blocks kernel, then the launch set
+            blk = [pts[k] for k in HALL_BLOCK_ARGS]
+            t_pts = cuda_ms(lambda: gp_hall.sample_hall_points(**pts))
+            t_blk = cuda_ms(lambda: gp_hall.hall_blocks(nh, *blk,
+                                                        ty=pts["ty"]))
+            b_blk, _ = bound_ms(hall_blocks_bytes(pts), 0)
+            print(f"[timing] gp_hall nh={nh} from the points (one call: "
+                  f"hall_blocks_kernel + the launch set) {t_pts:.4f} ms; "
+                  f"hall_blocks_kernel alone {t_blk:.4f} ms (bound "
+                  f"{b_blk:.5f} ms, bytes: {hall_blocks_bytes(pts)} B)",
+                  flush=True)
+            row.update(ms_points=t_pts, blocks_ms=t_blk,
+                       blocks_bound_ms=b_blk)
+        hall_rows.append(row)
     f1_hall = []
     for nh in F1_FILLS:
         st = f1[nh][0]

@@ -159,33 +159,18 @@ def _fused_sample_empty(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
 def hall_stage_inputs(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
                       Xt, eps, j: int) -> dict:
     """Arguments of ``gp_hall.sample_hall_one`` for GP output j: the masked
-    real, hall and test kernel blocks (plain torch, as the JAX package
-    leaves them to XLA; empty and filtered hall rows get zero couplings
-    and an identity diagonal), the base draws and the real-data factor."""
+    real, hall and test kernel blocks over the whole capacity
+    (``gp_hall.hall_blocks_one``), the base draws and the real-data
+    factor.  With :func:`hall_stage_inputs_all` and
+    ``gp_hall.sample_hall_plain_stacked`` it is the plain twin of the stage
+    the agent runs (:func:`hall_point_inputs`)."""
     H, Ty, ns = spec.H, spec.Ty, spec.ns
-    wg = spec.use_derivatives
-    Rr = gp.real_fact["mask"].shape[-1]
-    Mh = gp.hall_Z.shape[2]
-    Rh = Mh * Ty
     ls, os_ = hyp.lengthscale[j], hyp.outputscale[j]
-    m_r = gp.real_fact["mask"][j]
-    Zh = gp.hall_Z[:, j]                                   # (ns, Mh, D)
-    yh_flat = gp.hall_Y[:, j].reshape(ns, Rh)
-    m_h = (~torch.isnan(yh_flat)).to(Xt.dtype)
-    Zr = gp.real_Z.expand((ns,) + gp.real_Z.shape)
-    ev1 = kernel_matrix(torch.cat([Zr, Zh], dim=1), Zh, ls, os_, wg)
-    Arh = ev1[:, :Rr] * m_r[None, :, None] * m_h[:, None, :]
-    Khh = ev1[:, Rr:] + torch.diag(hyp.noise_diag.repeat(Mh))
-    Ahh = (m_h[:, :, None] * Khh * m_h[:, None, :]
-           + torch.diag_embed(1.0 - m_h))
-    ev2 = kernel_matrix(Xt, torch.cat([Zr, Zh, Xt], dim=1), ls, os_, wg)
+    blocks = gp_hall.hall_blocks_one(
+        gp.real_Z, gp.real_fact["mask"][j], gp.hall_Z[:, j], gp.hall_Y[:, j],
+        Xt, ls, os_, hyp.noise_diag, spec.use_derivatives)
     return dict(
-        nh=gp.hall_n * Ty,
-        Kxr=(ev2[..., :Rr] * m_r).contiguous(),
-        Kxh=(ev2[..., Rr:Rr + Rh] * m_h[:, None, :]).contiguous(),
-        Ktt=ev2[..., Rr + Rh:].contiguous(),
-        Arh=Arh.contiguous(), Ahh=Ahh.contiguous(),
-        yh=(torch.nan_to_num(yh_flat) * m_h).contiguous(),
+        nh=gp.hall_n * Ty, **blocks,
         eps=eps[:, j].reshape(ns, H * Ty).contiguous(),
         Linv=gp.real_fact["Linv"][j].contiguous(),
         w_r=gp.real_fact["w"][j].contiguous(),
@@ -205,16 +190,37 @@ def hall_stage_inputs_all(spec: ProblemSpec, hyp: GPHyperArrays,
                            for j in range(spec.g_ny)], gp_hall.STACKED, md)
 
 
+def hall_point_inputs(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
+                      Xt, eps, md=None) -> dict:
+    """Arguments of ``gp_hall.sample_hall_points``: the points, masks,
+    hyperparameters and real factor as the state holds them (no copy), the
+    base draws, and the min-dist override rows ``md`` = (close, ynear),
+    each (ns, g_ny, Ht), or None, in output-major order."""
+    kw = dict(nh=gp.hall_n * spec.Ty, real_Z=gp.real_Z,
+              m_r=gp.real_fact["mask"], hall_Z=gp.hall_Z, hall_Y=gp.hall_Y,
+              Xt=Xt.contiguous(), eps=eps.contiguous(),
+              lengthscale=hyp.lengthscale, outputscale=hyp.outputscale,
+              noise_diag=hyp.noise_diag, Linv=gp.real_fact["Linv"],
+              w_r=gp.real_fact["w"],
+              jitter=max(hyp.jitter, 1e-6),  # safe_cholesky's f32 first try
+              beta=hyp.beta, var_zero=hyp.variance_is_zero, rel_floor=1e-5,
+              ty=spec.Ty)
+    if md is not None:
+        kw.update(close=md[0].transpose(0, 1).contiguous(),
+                  ynear=md[1].transpose(0, 1).contiguous())
+    return kw
+
+
 def _fused_sample_hall(spec: ProblemSpec, hyp: GPHyperArrays, gp: GPState,
                        Xt, eps, md=None):
     """Hall-block GP stage (SQP iterations >= 1) through the fused kernels
-    (ops/gp_hall.py): the products, one blocked Cholesky of each bordered
-    matrix, pathwise draw and override tail, every output in one launch
-    set."""
+    (ops/gp_hall.py): the kernel blocks from the points, the products, one
+    blocked Cholesky of each bordered matrix, pathwise draw and override
+    tail, every output in one call."""
     with obs.span("gp.hall.inputs"):
-        kw = hall_stage_inputs_all(spec, hyp, gp, Xt, eps, md)
+        kw = hall_point_inputs(spec, hyp, gp, Xt, eps, md)
     with obs.span("gp.hall.kernel"):
-        dg = gp_hall.sample_hall(**kw)
+        dg = gp_hall.sample_hall_points(**kw)
     return dg.transpose(0, 1).reshape(spec.ns, spec.g_ny, spec.H, spec.Ty)
 
 

@@ -61,6 +61,24 @@
 // is chosen from the shapes alone (ops/gp_hall.py factor_tiles_global); the
 // car's fills all keep their tiles in shared memory.  Full float32
 // throughout: no TF32.
+//
+// The blocks from the points (gp_hall_points; replaces no TPU kernel: the
+// JAX package leaves the blocks to XLA's fusion, as the port's plain
+// version, gp_hall.hall_blocks_plain, leaves them to ~210 small torch
+// launches a stage).  hall_blocks_kernel evaluates the closed forms of
+// gp/kernel.py from the real, hall and test points of every (output,
+// sample) at once, one thread per (row point, column point) pair, which
+// forms k and delta once and writes that pair's Ty x Ty task block
+// (point-major), masked, into the stage's workspace in front of the
+// regions above: Kxr, Kxh, Ktt, Arh, Ahh (noise on the diagonal, identity
+// fill on masked rows), yh, the eps rows and prior_var.  Only the first
+// hn = hall_n filled hall points are evaluated, the blocks stored with
+// row stride nh (= hn Ty): the launches above read no column past nh.
+// Each entry is rounded in kernel.py's order (the __f*_rn intrinsics keep
+// nvcc from contracting a product into an FMA), so its float32 value is
+// the torch path's to expf's ulp.  ~22 MB of writes at the car's nh =
+// 180 (~7 us at HBM rate) and ~20 flop per written float: memory-bound,
+// coalesced by the column point across a warp.
 #include "common.cuh"
 
 namespace {
@@ -70,6 +88,8 @@ constexpr int GK = 16;              // product depth step
 constexpr int GEMM_THREADS = 256;
 constexpr int FACTOR_THREADS = 256;
 constexpr int MAX_JOBS = 5;
+constexpr int BLOCKS_THREADS = 256;
+constexpr int MAX_D = 8;            // ops/gp_hall.py MAX_D
 using sgp::factor_panel;
 using sgp::TB;
 using sgp::TILE_FLOATS;
@@ -241,6 +261,152 @@ gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww
                              var_zero, rel_floor);
 }
 
+// The points and blocks of gp_hall_points (layouts there).
+struct HallPoints {
+  const float *real_Z, *m_r, *hall_Z, *hall_Y, *Xt, *eps, *ls, *os, *noise;
+  float *Kxr, *Kxh, *Ktt, *Arh, *Ahh, *yh, *eps_o, *pv;
+  int no, ns, N, Mh, H, D, ty, hn;
+};
+
+// A task row or column's mask: 1, the real mask, or "not NaN" of a hall
+// observation.
+struct Mask {
+  const float* m;     // real mask, or null
+  const float* y;     // hall observations (NaN: masked), or null
+  __device__ float at(int t) const {
+    if (m) return m[t];
+    if (y) return isnan(y[t]) ? 0.f : 1.f;
+    return 1.f;
+  }
+};
+
+// One (row point x, column point z) pair's Ty x Ty block of output o's
+// kernel, at out + (r Ty) ld + c Ty, each entry (v [+ noise]) * m_row *
+// m_col [+ 1 - m_row] (hh: the hall-hall block, noise and identity fill
+// on its diagonal), in gp/kernel.py's order of operations:
+//   rbf_grad: diff = x - z, delta = diff / l^2, k = s exp(-0.5 sum diff delta),
+//     [k, k delta_e; -k delta_d, k (I_de / l_d^2 - delta_d delta_e)];
+//   rbf (ty = 1): diff = (x - z) / l, k = s exp(-0.5 sum diff diff).
+__device__ void pair_block(float* out, int ld, int r, int c, const float* x,
+                           const float* z, const float* ls, float os, int D, int ty,
+                           Mask rm, Mask cm, bool hh, const float* noise) {
+  float il2[MAX_D], delta[MAX_D];
+  float s = 0.f;
+  for (int d = 0; d < D; ++d) {
+    const float l = ls[d];
+    if (ty > 1) {
+      il2[d] = __fdiv_rn(1.f, __fmul_rn(l, l));
+      const float diff = __fsub_rn(x[d], z[d]);
+      delta[d] = __fmul_rn(diff, il2[d]);
+      s = __fadd_rn(s, __fmul_rn(diff, delta[d]));
+    } else {
+      const float diff = __fdiv_rn(__fsub_rn(x[d], z[d]), l);
+      s = __fadd_rn(s, __fmul_rn(diff, diff));
+    }
+  }
+  const float k = __fmul_rn(os, expf(__fmul_rn(-0.5f, s)));
+  const bool diag = hh && r == c;
+  for (int a = 0; a < ty; ++a) {
+    const float mr = rm.at(r * ty + a);
+    const float da = a ? delta[a - 1] : 0.f;
+    float* row = out + (size_t)(r * ty + a) * ld + (size_t)c * ty;
+    for (int b = 0; b < ty; ++b) {
+      float v;
+      if (a == 0) v = b == 0 ? k : __fmul_rn(k, delta[b - 1]);
+      else if (b == 0) v = __fmul_rn(-k, da);
+      else v = __fmul_rn(k, __fsub_rn(a == b ? il2[a - 1] : 0.f,
+                                      __fmul_rn(da, delta[b - 1])));
+      const bool dd = diag && a == b;
+      if (hh) v = __fadd_rn(v, dd ? noise[a] : 0.f);
+      v = __fmul_rn(__fmul_rn(v, mr), cm.at(c * ty + b));
+      if (hh) v = __fadd_rn(v, dd ? __fsub_rn(1.f, mr) : 0.f);
+      row[b] = v;
+    }
+  }
+}
+
+// One thread per (row point, column point) pair of every block, then one
+// per hall point (yh) and per test point (eps rows; prior_var on sample
+// 0), for the (output, sample) pair b = blockIdx.x / chunks.
+__global__ void __launch_bounds__(BLOCKS_THREADS)
+hall_blocks_kernel(HallPoints p, int chunks) {
+  const int b = blockIdx.x / chunks, o = b / p.ns, i = b % p.ns;
+  long long e = (long long)(blockIdx.x % chunks) * BLOCKS_THREADS + threadIdx.x;
+  const int N = p.N, hn = p.hn, H = p.H, D = p.D, ty = p.ty;
+  const int Rr = N * ty, nh = hn * ty, Ht = H * ty;
+  const float* Zr = p.real_Z;
+  const float* Zh = p.hall_Z + ((size_t)i * p.no + o) * p.Mh * D;
+  const float* Yh = p.hall_Y + ((size_t)i * p.no + o) * p.Mh * ty;
+  const float* X = p.Xt + (size_t)i * H * D;
+  const float* ls = p.ls + (size_t)o * D;
+  const float os = p.os[o];
+  const Mask none{nullptr, nullptr}, mr{p.m_r + (size_t)o * Rr, nullptr},
+      mh{nullptr, Yh};
+  // Arh: real x hall
+  if (e < (long long)N * hn) {
+    const int r = e / hn, c = e % hn;
+    pair_block(p.Arh + (size_t)b * Rr * nh, nh, r, c, Zr + (size_t)r * D,
+               Zh + (size_t)c * D, ls, os, D, ty, mr, mh, false, nullptr);
+    return;
+  }
+  e -= (long long)N * hn;
+  // Ahh: hall x hall, noise and identity fill on the diagonal
+  if (e < (long long)hn * hn) {
+    const int r = e / hn, c = e % hn;
+    pair_block(p.Ahh + (size_t)b * nh * nh, nh, r, c, Zh + (size_t)r * D,
+               Zh + (size_t)c * D, ls, os, D, ty, mh, mh, true, p.noise);
+    return;
+  }
+  e -= (long long)hn * hn;
+  // Kxr: test x real
+  if (e < (long long)H * N) {
+    const int r = e / N, c = e % N;
+    pair_block(p.Kxr + (size_t)b * Ht * Rr, Rr, r, c, X + (size_t)r * D,
+               Zr + (size_t)c * D, ls, os, D, ty, none, mr, false, nullptr);
+    return;
+  }
+  e -= (long long)H * N;
+  // Kxh: test x hall
+  if (e < (long long)H * hn) {
+    const int r = e / hn, c = e % hn;
+    pair_block(p.Kxh + (size_t)b * Ht * nh, nh, r, c, X + (size_t)r * D,
+               Zh + (size_t)c * D, ls, os, D, ty, none, mh, false, nullptr);
+    return;
+  }
+  e -= (long long)H * hn;
+  // Ktt: test x test
+  if (e < (long long)H * H) {
+    const int r = e / H, c = e % H;
+    pair_block(p.Ktt + (size_t)b * Ht * Ht, Ht, r, c, X + (size_t)r * D,
+               X + (size_t)c * D, ls, os, D, ty, none, none, false, nullptr);
+    return;
+  }
+  e -= (long long)H * H;
+  // yh = nan_to_num(y) m_h
+  if (e < hn) {
+    for (int a = 0; a < ty; ++a) {
+      const int t = (int)e * ty + a;
+      float y = Yh[t];
+      const float m = isnan(y) ? 0.f : 1.f;
+      if (isnan(y)) y = 0.f;
+      else if (isinf(y)) y = copysignf(3.402823466e38f, y);
+      p.yh[(size_t)b * nh + t] = __fmul_rn(y, m);
+    }
+    return;
+  }
+  e -= hn;
+  // the eps rows; prior_var: s for the value, s / l_d^2 for gradient d
+  if (e < H) {
+    for (int a = 0; a < ty; ++a) {
+      const int t = (int)e * ty + a;
+      p.eps_o[(size_t)b * Ht + t] = p.eps[((size_t)i * p.no + o) * Ht + t];
+      if (i == 0)
+        p.pv[(size_t)o * Ht + t] =
+            a == 0 ? os : __fdiv_rn(os, __fmul_rn(ls[a - 1], ls[a - 1]));
+    }
+  }
+}
+
 GemmJob job(const float* A, long long sAb, int dA, int sAm, int sAk, const float* B,
             long long sBb, int dB, int sBk, int sBn, const float* D, long long sDb,
             int sDm, float* O, long long sOb, int sOm, int M, int N, int K,
@@ -260,27 +426,15 @@ cudaError_t launch_gemms(GemmJobs jobs, int nb, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Inputs stacked over no outputs (leading axis): Kxr (no, ns, Ht, Rr), Kxh
-// (no, ns, Ht, Rh), Ktt (no, ns, Ht, Ht), Arh (no, ns, Rr, Rh), Ahh (no, ns,
-// Rh, Rh), yh (no, ns, Rh), eps (no, ns, Ht), Linv (no, Rr, Rr), w_r (no,
-// Rr), pv (no, Ht), close/ynear (no, ns, Ht) or null; dg (no, ns, Ht).
-// Workspace (float32, no * ns * (Rr*nh + Ht*Rr + nh*nh + Ht*nh + Ht*Ht + nh
-// + Ht), plus no * ns * tile_floats when global_tiles): C, V_r', S, B's
-// first Ht rows, Ktt - V_r'V_r, B's last row yh - w_r C and the real-data
-// mean V_r'w_r, per (output, sample), then the factor's tiles when they do
-// not fit shared memory (tile_floats each; smem_bytes then holds only the
-// three rows).
-extern "C" int gp_hall_sample(const float* Kxr, const float* Kxh, const float* Ktt,
-                              const float* Arh, const float* Ahh, const float* yh,
-                              const float* eps, const float* Linv, const float* w_r,
-                              const float* pv, const float* close, const float* ynear,
-                              float* dg, float* work, int no, int ns, int Ht, int Rr,
-                              int Rh, int nh, int ty, float jitter, float beta,
-                              float var_zero, float rel_floor, int smem_bytes,
-                              int global_tiles, void* stream_) {
-  cudaStream_t stream = (cudaStream_t)stream_;
+// The two product launches and the factor launch, from the blocks (Rh their
+// hall row stride).
+int launch_stage(const float* Kxr, const float* Kxh, const float* Ktt, const float* Arh,
+                 const float* Ahh, const float* yh, const float* eps, const float* Linv,
+                 const float* w_r, const float* pv, const float* close,
+                 const float* ynear, float* dg, float* work, int no, int ns, int Ht,
+                 int Rr, int Rh, int nh, int ty, float jitter, float beta,
+                 float var_zero, float rel_floor, int smem_bytes, int global_tiles,
+                 cudaStream_t stream) {
   const int nb = no * ns;
   float* C = work;
   float* VT = C + (size_t)nb * Rr * nh;
@@ -333,4 +487,103 @@ extern "C" int gp_hall_sample(const float* Kxr, const float* Kxh, const float* K
       global_tiles ? MR + (size_t)nb * Ht : nullptr, ns, Ht, nh, ty, jitter, beta,
       var_zero, rel_floor);
   return (int)cudaGetLastError();
+}
+
+// The blocks' regions in blocks (gp_hall_blocks' layout) and the points.
+HallPoints hall_points(const float* real_Z, const float* m_r, const float* hall_Z,
+                       const float* hall_Y, const float* Xt, const float* eps,
+                       const float* ls, const float* os, const float* noise,
+                       float* blocks, int no, int ns, int N, int Mh, int H, int D,
+                       int ty, int hn) {
+  const size_t nb = (size_t)no * ns, Rr = (size_t)N * ty, nh = (size_t)hn * ty,
+               Ht = (size_t)H * ty;
+  HallPoints p{real_Z, m_r, hall_Z, hall_Y, Xt, eps, ls, os, noise};
+  p.Kxr = blocks;
+  p.Kxh = p.Kxr + nb * Ht * Rr;
+  p.Ktt = p.Kxh + nb * Ht * nh;
+  p.Arh = p.Ktt + nb * Ht * Ht;
+  p.Ahh = p.Arh + nb * Rr * nh;
+  p.yh = p.Ahh + nb * nh * nh;
+  p.eps_o = p.yh + nb * nh;
+  p.pv = p.eps_o + nb * Ht;
+  p.no = no; p.ns = ns; p.N = N; p.Mh = Mh; p.H = H; p.D = D; p.ty = ty; p.hn = hn;
+  return p;
+}
+
+cudaError_t launch_blocks(const HallPoints& p, cudaStream_t stream) {
+  const long long per_b = (long long)p.N * p.hn + (long long)p.hn * p.hn +
+                          (long long)p.H * p.N + (long long)p.H * p.hn +
+                          (long long)p.H * p.H + p.hn + p.H;
+  const int chunks = (int)((per_b + BLOCKS_THREADS - 1) / BLOCKS_THREADS);
+  const long long ctas = (long long)p.no * p.ns * chunks;
+  if (ctas > 0)
+    hall_blocks_kernel<<<(unsigned)ctas, BLOCKS_THREADS, 0, stream>>>(p, chunks);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Inputs stacked over no outputs (leading axis): Kxr (no, ns, Ht, Rr), Kxh
+// (no, ns, Ht, Rh), Ktt (no, ns, Ht, Ht), Arh (no, ns, Rr, Rh), Ahh (no, ns,
+// Rh, Rh), yh (no, ns, Rh), eps (no, ns, Ht), Linv (no, Rr, Rr), w_r (no,
+// Rr), pv (no, Ht), close/ynear (no, ns, Ht) or null; dg (no, ns, Ht).
+// Workspace (float32, no * ns * (Rr*nh + Ht*Rr + nh*nh + Ht*nh + Ht*Ht + nh
+// + Ht), plus no * ns * tile_floats when global_tiles): C, V_r', S, B's
+// first Ht rows, Ktt - V_r'V_r, B's last row yh - w_r C and the real-data
+// mean V_r'w_r, per (output, sample), then the factor's tiles when they do
+// not fit shared memory (tile_floats each; smem_bytes then holds only the
+// three rows).
+extern "C" int gp_hall_sample(const float* Kxr, const float* Kxh, const float* Ktt,
+                              const float* Arh, const float* Ahh, const float* yh,
+                              const float* eps, const float* Linv, const float* w_r,
+                              const float* pv, const float* close, const float* ynear,
+                              float* dg, float* work, int no, int ns, int Ht, int Rr,
+                              int Rh, int nh, int ty, float jitter, float beta,
+                              float var_zero, float rel_floor, int smem_bytes,
+                              int global_tiles, void* stream) {
+  return launch_stage(Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r, pv, close, ynear, dg,
+                      work, no, ns, Ht, Rr, Rh, nh, ty, jitter, beta, var_zero,
+                      rel_floor, smem_bytes, global_tiles, (cudaStream_t)stream);
+}
+
+// The blocks of the stage from the points, into blocks: real_Z (N, D), m_r
+// (no, Rr = N ty), hall_Z (ns, no, Mh, D), hall_Y (ns, no, Mh, ty) (NaN:
+// masked), Xt (ns, H, D), eps (ns, no, H, ty), ls (no, D), os (no), noise
+// (ty); hn filled hall points of each (output, sample), nh = hn ty.  Per
+// (output, sample): Kxr (Ht, Rr), Kxh (Ht, nh), Ktt (Ht, Ht), Arh (Rr, nh),
+// Ahh (nh, nh), yh (nh), the eps rows (Ht), each region after the last
+// one's nb blocks (ops/gp_hall.py block_views), then prior_var (no, Ht).
+extern "C" int gp_hall_blocks(const float* real_Z, const float* m_r, const float* hall_Z,
+                              const float* hall_Y, const float* Xt, const float* eps,
+                              const float* ls, const float* os, const float* noise,
+                              float* blocks, int no, int ns, int N, int Mh, int H, int D,
+                              int ty, int hn, void* stream) {
+  const HallPoints p = hall_points(real_Z, m_r, hall_Z, hall_Y, Xt, eps, ls, os, noise,
+                                   blocks, no, ns, N, Mh, H, D, ty, hn);
+  return (int)launch_blocks(p, (cudaStream_t)stream);
+}
+
+// The whole stage from the points: gp_hall_blocks into the front of the
+// workspace, then gp_hall_sample's launches (Rh = nh) on them and on the
+// real factor Linv (no, Rr, Rr), w_r (no, Rr), close/ynear (no, ns, Ht) or
+// null; dg (no, ns, Ht).  Workspace: the blocks, then gp_hall_sample's
+// workspace at nh.
+extern "C" int gp_hall_points(const float* real_Z, const float* m_r, const float* hall_Z,
+                              const float* hall_Y, const float* Xt, const float* eps,
+                              const float* ls, const float* os, const float* noise,
+                              const float* Linv, const float* w_r, const float* close,
+                              const float* ynear, float* dg, float* work, int no, int ns,
+                              int N, int Mh, int H, int D, int ty, int hn, float jitter,
+                              float beta, float var_zero, float rel_floor,
+                              int smem_bytes, int global_tiles, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
+  const HallPoints p = hall_points(real_Z, m_r, hall_Z, hall_Y, Xt, eps, ls, os, noise,
+                                   work, no, ns, N, Mh, H, D, ty, hn);
+  const cudaError_t err = launch_blocks(p, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int nh = hn * ty, Ht = H * ty;
+  return launch_stage(p.Kxr, p.Kxh, p.Ktt, p.Arh, p.Ahh, p.yh, p.eps_o, Linv, w_r, p.pv,
+                      close, ynear, dg, p.pv + (size_t)no * Ht, no, ns, Ht, N * ty, nh,
+                      nh, ty, jitter, beta, var_zero, rel_floor, smem_bytes,
+                      global_tiles, stream);
 }

@@ -37,23 +37,47 @@ CUDA kernels (``csrc/gp_hall.cu``: two batched product launches and one
 factor launch, each over every (output, sample), the factor's tiles in
 shared memory or, where they do not fit, in the global workspace:
 :func:`factor_tiles_global`) for CUDA tensors;
-:func:`sample_hall_one` is its one-output case.  Neither falls back: a CUDA
-stage the kernels cannot take raises (:func:`check_supported`).
+:func:`sample_hall_one` is its one-output case.
+
+:func:`sample_hall_points` is the stage the agent calls: from the points
+(real, hall and test), the masks and the hyperparameters, it evaluates the
+masked kernel blocks of every (output, sample) in one more launch
+(``hall_blocks_kernel``, into the stage's workspace, only the first ``nh``
+hall columns), then runs :func:`sample_hall`'s launch set on them, all in
+one call.  Its plain version :func:`sample_hall_points_plain` evaluates the
+same blocks in torch (:func:`hall_blocks_plain`, each output by
+:func:`hall_blocks_one`, which ``agent.hall_stage_inputs`` runs over the
+whole capacity) and runs :func:`sample_hall_plain_stacked`;
+:func:`hall_blocks` runs the blocks kernel alone.  None falls back: a CUDA
+stage the kernels cannot take raises (:func:`check_supported`,
+:func:`check_points_supported`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from sampling_gpmpc_torch import obs
+from sampling_gpmpc_torch.gp.exact import prior_task_variances
+from sampling_gpmpc_torch.gp.kernel import kernel_matrix
 from sampling_gpmpc_torch.ops import build
 from sampling_gpmpc_torch.ops.gp_sample import (PANEL, TILE_FLOATS,
                                                 factor_panels, factor_retried,
                                                 override_tail)
 
-LAUNCHES = {"gp_hall": 0}
+# gp_hall: the stage's launch set (either entry); gp_hall_blocks: the
+# blocks kernel (sample_hall_points, hall_blocks)
+LAUNCHES = {"gp_hall": 0, "gp_hall_blocks": 0}
+MAX_D = 8           # GP input dimensions of csrc/gp_hall.cu's blocks kernel
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argument types of csrc/gp_hall.cu's C entries
+_ARGTYPES = {"gp_hall_sample": [_P] * 14 + [_I] * 7 + [_F] * 4 + [_I, _I, _P],
+             "gp_hall_points": [_P] * 15 + [_I] * 8 + [_F] * 4 + [_I, _I, _P],
+             "gp_hall_blocks": [_P] * 10 + [_I] * 8 + [_P]}
+_FNS: dict = {}
 # per-output arguments of sample_hall_one, stacked on a leading axis by
 # sample_hall
 STACKED = ("Kxr", "Kxh", "Ktt", "Arh", "Ahh", "yh", "eps", "Linv", "w_r",
@@ -100,6 +124,106 @@ def check_supported(Ht: int, Rr: int, Rh: int, nh: int, dtype) -> None:
     if Ht < 1 or Rr < 1 or not 0 <= nh <= Rh:
         raise ValueError(f"gp_hall: need 1 <= Ht, 1 <= Rr and 0 <= nh <= Rh, "
                          f"got Ht={Ht}, Rr={Rr}, nh={nh}, Rh={Rh}")
+
+
+def check_points_supported(N: int, Rr: int, D: int, ty: int, nh: int,
+                           Mh: int) -> None:
+    """Raise ValueError naming the limit when the blocks kernel cannot take
+    a stage: 1 <= D <= MAX_D, ty = 1 (values) or 1 + D (values and
+    gradients), Rr = N ty real rows and whole hall points within the
+    capacity."""
+    if not 1 <= D <= MAX_D or ty not in (1, 1 + D):
+        raise ValueError(f"gp_hall blocks: need 1 <= D <= {MAX_D} and ty in "
+                         f"(1, 1 + D), got D={D}, ty={ty}")
+    if Rr != N * ty or nh % ty or not 0 <= nh <= Mh * ty:
+        raise ValueError(f"gp_hall blocks: need Rr = N ty and nh a multiple "
+                         f"of ty within Mh ty, got N={N}, Rr={Rr}, nh={nh}, "
+                         f"Mh={Mh}, ty={ty}")
+
+
+def _block_shapes(no: int, ns: int, Ht: int, Rr: int, nh: int) -> dict:
+    """The blocks of ``hall_blocks_kernel`` in their order in its buffer
+    (csrc/gp_hall.cu gp_hall_blocks), each region one after the other."""
+    return dict(Kxr=(no, ns, Ht, Rr), Kxh=(no, ns, Ht, nh),
+                Ktt=(no, ns, Ht, Ht), Arh=(no, ns, Rr, nh),
+                Ahh=(no, ns, nh, nh), yh=(no, ns, nh), eps=(no, ns, Ht),
+                prior_var=(no, Ht))
+
+
+def blocks_floats(no: int, ns: int, Ht: int, Rr: int, nh: int) -> int:
+    """Floats of the blocks in front of the workspace of
+    :func:`sample_hall_points`: Kxr, Kxh, Ktt, Arh, Ahh, yh and the eps rows
+    of each (output, sample), then prior_var of each output."""
+    return sum(math.prod(s) for s in _block_shapes(no, ns, Ht, Rr,
+                                                   nh).values())
+
+
+def block_views(buf, no: int, ns: int, Ht: int, Rr: int, nh: int) -> dict:
+    """The blocks in ``buf`` (at least :func:`blocks_floats` floats) as
+    views, under :func:`hall_blocks_plain`'s keys and shapes."""
+    out, at = {}, 0
+    for k, shape in _block_shapes(no, ns, Ht, Rr, nh).items():
+        n = math.prod(shape)
+        out[k] = buf[at:at + n].view(shape)
+        at += n
+    return out
+
+
+def hall_blocks_one(real_Z, m_r, hall_Z, hall_Y, Xt, lengthscale,
+                    outputscale, noise_diag, with_grad: bool) -> dict:
+    """One output's masked kernel blocks of the hall stage, plain torch (as
+    the JAX package leaves them to XLA): Kxr (ns, Ht, Rr), Kxh (ns, Ht, Rh),
+    Ktt (ns, Ht, Ht), Arh (ns, Rr, Rh), Ahh (ns, Rh, Rh) with the noise on
+    its diagonal, yh (ns, Rh); empty and filtered hall rows get zero
+    couplings and an identity diagonal.
+
+    Args:
+        real_Z: (N, D); m_r: (Rr,) real mask; hall_Z: (ns, M, D) and
+        hall_Y: (ns, M, Ty) the hall points evaluated (NaN: masked), Rh =
+        M Ty; Xt: (ns, H, D); lengthscale (D,), outputscale, noise_diag
+        (Ty,) of the output.
+    """
+    ns, M, Ty = hall_Y.shape
+    Rr, Rh = m_r.shape[-1], M * Ty
+    yh_flat = hall_Y.reshape(ns, Rh)
+    m_h = (~torch.isnan(yh_flat)).to(Xt.dtype)
+    Zr = real_Z.expand((ns,) + real_Z.shape)
+    ev1 = kernel_matrix(torch.cat([Zr, hall_Z], dim=1), hall_Z, lengthscale,
+                        outputscale, with_grad)
+    Arh = ev1[:, :Rr] * m_r[None, :, None] * m_h[:, None, :]
+    Khh = ev1[:, Rr:] + torch.diag(noise_diag.repeat(M))
+    Ahh = (m_h[:, :, None] * Khh * m_h[:, None, :]
+           + torch.diag_embed(1.0 - m_h))
+    ev2 = kernel_matrix(Xt, torch.cat([Zr, hall_Z, Xt], dim=1), lengthscale,
+                        outputscale, with_grad)
+    return dict(
+        Kxr=(ev2[..., :Rr] * m_r).contiguous(),
+        Kxh=(ev2[..., Rr:Rr + Rh] * m_h[:, None, :]).contiguous(),
+        Ktt=ev2[..., Rr + Rh:].contiguous(),
+        Arh=Arh.contiguous(), Ahh=Ahh.contiguous(),
+        yh=(torch.nan_to_num(yh_flat) * m_h).contiguous())
+
+
+def hall_blocks_plain(nh: int, real_Z, m_r, hall_Z, hall_Y, Xt, eps,
+                      lengthscale, outputscale, noise_diag, ty: int) -> dict:
+    """Plain version of ``hall_blocks_kernel``: the blocks it writes, each
+    output's :func:`hall_blocks_one` over the first nh / ty hall points
+    stacked on a leading output axis (Kxr (no, ns, Ht, Rr), Kxh (no, ns,
+    Ht, nh), Ktt, Arh (no, ns, Rr, nh), Ahh (no, ns, nh, nh), yh (no, ns,
+    nh)), the eps rows (no, ns, Ht) and prior_var (no, Ht).  Arguments as
+    :func:`sample_hall_points`'."""
+    hn = int(nh) // ty
+    no = m_r.shape[0]
+    ns, H = Xt.shape[:2]
+    per = [hall_blocks_one(real_Z, m_r[j], hall_Z[:, j, :hn],
+                           hall_Y[:, j, :hn], Xt, lengthscale[j],
+                           outputscale[j], noise_diag, ty > 1)
+           for j in range(no)]
+    out = {k: torch.stack([b[k] for b in per]) for k in per[0]}
+    out["eps"] = eps.transpose(0, 1).reshape(no, ns, H * ty)
+    out["prior_var"] = prior_task_variances(lengthscale, outputscale,
+                                            ty).repeat(1, H)
+    return out
 
 
 def bordered_matrix(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r,
@@ -238,10 +362,7 @@ def sample_hall(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
         args += [("close", close, (no, ns, Ht)), ("ynear", ynear, (no, ns, Ht))]
     for name, t, shape in args:
         build.check_tensor(name, t, shape, dev)
-    fn = build.load("gp_hall").gp_hall_sample
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P] * 14 + [I] * 7 + [F] * 4 + [I, I, P]
-    fn.restype = I
+    fn = _fn("gp_hall_sample")
     dg = torch.empty((no, ns, Ht), dtype=torch.float32, device=dev)
     work = torch.empty((max(workspace_floats(no * ns, Ht, Rr, nh), 1),),
                        dtype=torch.float32, device=dev)
@@ -260,3 +381,132 @@ def sample_hall(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
     build.check(rc, "gp_hall_sample launch")
     obs.count(LAUNCHES, "gp_hall")
     return dg
+
+
+def sample_hall_points_plain(nh: int, real_Z, m_r, hall_Z, hall_Y, Xt, eps,
+                             lengthscale, outputscale, noise_diag, Linv, w_r,
+                             jitter: float, beta: float, var_zero: float,
+                             rel_floor: float, ty: int = 1, close=None,
+                             ynear=None):
+    """Plain version of :func:`sample_hall_points`: the blocks by
+    :func:`hall_blocks_plain`, then :func:`sample_hall_plain_stacked`."""
+    blocks = hall_blocks_plain(nh, real_Z, m_r, hall_Z, hall_Y, Xt, eps,
+                               lengthscale, outputscale, noise_diag, ty)
+    return sample_hall_plain_stacked(
+        nh=nh, jitter=jitter, beta=beta, var_zero=var_zero,
+        rel_floor=rel_floor, ty=ty, **blocks, Linv=Linv, w_r=w_r,
+        close=close, ynear=ynear)
+
+
+def _fn(name: str):
+    """A C entry of the ``gp_hall`` library, loaded and typed once."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(build.load("gp_hall"), name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def sample_hall_points(nh: int, real_Z, m_r, hall_Z, hall_Y, Xt, eps,
+                       lengthscale, outputscale, noise_diag, Linv, w_r,
+                       jitter: float, beta: float, var_zero: float,
+                       rel_floor: float, ty: int = 1, close=None, ynear=None):
+    """Run the hall-block stage of every GP output from the points: the
+    blocks kernel, then :func:`sample_hall`'s launch set, in one call.
+
+    Args:
+        nh: filled hall rows (hall_n * ty); only they are evaluated.
+        real_Z: (N, D) real inputs; m_r: (no, Rr) real masks, Rr = N ty.
+        hall_Z: (ns, no, Mh, D), hall_Y: (ns, no, Mh, ty) the hall buffers
+            (NaN: an empty or filtered row).
+        Xt: (ns, H, D) test points; eps: (ns, no, H, ty) base draws.
+        lengthscale: (no, D); outputscale: (no,); noise_diag: (ty,).
+        Linv: (no, Rr, Rr); w_r: (no, Rr): the real factor.
+        ty: tasks per point, 1 (values, ``rbf``) or 1 + D (``rbf_grad``).
+        close/ynear: optional (no, ns, Ht) min-dist override rows.
+    Returns:
+        (no, ns, Ht) sampled rows, Ht = H ty.
+    """
+    if Xt.device.type == "cpu":
+        return sample_hall_points_plain(
+            nh, real_Z, m_r, hall_Z, hall_Y, Xt, eps, lengthscale,
+            outputscale, noise_diag, Linv, w_r, jitter, beta, var_zero,
+            rel_floor, ty=ty, close=close, ynear=ynear)
+    dims, ptrs = _checked_points(nh, real_Z, m_r, hall_Z, hall_Y, Xt, eps,
+                                 lengthscale, outputscale, noise_diag, ty)
+    no, ns, N, Mh, H, D, ty, hn = dims
+    nh, Rr, Ht, dev = hn * ty, N * ty, H * ty, Xt.device
+    args = [("Linv", Linv, (no, Rr, Rr)), ("w_r", w_r, (no, Rr))]
+    if close is not None:
+        args += [("close", close, (no, ns, Ht)),
+                 ("ynear", ynear, (no, ns, Ht))]
+    for name, t, shape in args:
+        build.check_tensor(name, t, shape, dev)
+    fn = _fn("gp_hall_points")
+    dg = torch.empty((no, ns, Ht), dtype=torch.float32, device=dev)
+    work = torch.empty((blocks_floats(no, ns, Ht, Rr, nh)
+                        + workspace_floats(no * ns, Ht, Rr, nh),),
+                       dtype=torch.float32, device=dev)
+    glob = factor_tiles_global(Ht, nh)
+    smem = 4 * 3 * Ht if glob else factor_smem_bytes(Ht, nh)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        rc = fn(*ptrs, Linv.data_ptr(), w_r.data_ptr(), ptr(close), ptr(ynear),
+                dg.data_ptr(), work.data_ptr(), *dims, float(jitter),
+                float(beta), float(var_zero), float(rel_floor), smem,
+                int(glob), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "gp_hall_points launch")
+    obs.count(LAUNCHES, "gp_hall_blocks")
+    obs.count(LAUNCHES, "gp_hall")
+    return dg
+
+
+def hall_blocks(nh: int, real_Z, m_r, hall_Z, hall_Y, Xt, eps, lengthscale,
+                outputscale, noise_diag, ty: int = 1) -> dict:
+    """``hall_blocks_kernel`` alone: the blocks :func:`sample_hall_points`
+    evaluates, as views of one buffer under :func:`hall_blocks_plain`'s
+    keys and shapes (the plain version for CPU tensors).  Arguments as
+    :func:`sample_hall_points`'."""
+    if Xt.device.type == "cpu":
+        return hall_blocks_plain(nh, real_Z, m_r, hall_Z, hall_Y, Xt, eps,
+                                 lengthscale, outputscale, noise_diag, ty)
+    dims, ptrs = _checked_points(nh, real_Z, m_r, hall_Z, hall_Y, Xt, eps,
+                                 lengthscale, outputscale, noise_diag, ty)
+    no, ns, N, Mh, H, D, ty, hn = dims
+    dev = Xt.device
+    shape = (no, ns, H * ty, N * ty, hn * ty)
+    buf = torch.empty((max(blocks_floats(*shape), 1),), dtype=torch.float32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        rc = _fn("gp_hall_blocks")(*ptrs, buf.data_ptr(), *dims,
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "gp_hall_blocks launch")
+    obs.count(LAUNCHES, "gp_hall_blocks")
+    return block_views(buf, *shape)
+
+
+def _checked_points(nh, real_Z, m_r, hall_Z, hall_Y, Xt, eps, lengthscale,
+                    outputscale, noise_diag, ty):
+    """The blocks kernel's sizes (no, ns, N, Mh, H, D, ty, hn) and the
+    points' pointers, of CUDA points it can take; raises for any other."""
+    if Xt.device.type != "cuda":
+        raise ValueError(f"gp_hall: unsupported device {Xt.device}")
+    ns, H, D = Xt.shape
+    no, Rr = m_r.shape
+    N, Mh = real_Z.shape[0], hall_Z.shape[2]
+    nh, ty = int(nh), int(ty)
+    check_supported(H * ty, Rr, Mh * ty, nh, Xt.dtype)
+    check_points_supported(N, Rr, D, ty, nh, Mh)
+    args = (("real_Z", real_Z, (N, D)), ("m_r", m_r, (no, Rr)),
+            ("hall_Z", hall_Z, (ns, no, Mh, D)),
+            ("hall_Y", hall_Y, (ns, no, Mh, ty)), ("Xt", Xt, (ns, H, D)),
+            ("eps", eps, (ns, no, H, ty)),
+            ("lengthscale", lengthscale, (no, D)),
+            ("outputscale", outputscale, (no,)),
+            ("noise_diag", noise_diag, (ty,)))
+    for name, t, shape in args:
+        build.check_tensor(name, t, shape, Xt.device)
+    return ((no, ns, N, Mh, H, D, ty, nh // ty),
+            [t.data_ptr() for _, t, _ in args])

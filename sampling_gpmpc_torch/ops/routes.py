@@ -18,15 +18,16 @@ from sampling_gpmpc_torch.ops import gp_hall, gp_sample, ipm
 
 @contextlib.contextmanager
 def plain_route(gp: bool = True, qp: bool = True, glue: bool = True):
-    """Within the block, the GP stages (``gp``: ``gp_sample.sample_empty``
-    and ``gp_hall.sample_hall``), the QP (``qp``: ``ipm.run_full``) and the
-    condensing and assembly (``glue``: ``glue.assemble``) take their plain
-    versions; restored on exit."""
-    saved = (gp_sample.sample_empty, gp_hall.sample_hall, ipm.run_full,
-             _glue.assemble)
+    """Within the block, the GP stages (``gp``: ``gp_sample.sample_empty``,
+    ``gp_hall.sample_hall`` and ``gp_hall.sample_hall_points``), the QP
+    (``qp``: ``ipm.run_full``) and the condensing and assembly (``glue``:
+    ``glue.assemble``) take their plain versions; restored on exit."""
+    saved = (gp_sample.sample_empty, gp_hall.sample_hall,
+             gp_hall.sample_hall_points, ipm.run_full, _glue.assemble)
     if gp:
         gp_sample.sample_empty = gp_sample.sample_empty_plain_stacked
         gp_hall.sample_hall = gp_hall.sample_hall_plain_stacked
+        gp_hall.sample_hall_points = gp_hall.sample_hall_points_plain
     if qp:
         ipm.run_full = ipm.run_full_plain
     if glue:
@@ -34,8 +35,8 @@ def plain_route(gp: bool = True, qp: bool = True, glue: bool = True):
     try:
         yield
     finally:
-        (gp_sample.sample_empty, gp_hall.sample_hall, ipm.run_full,
-         _glue.assemble) = saved
+        (gp_sample.sample_empty, gp_hall.sample_hall,
+         gp_hall.sample_hall_points, ipm.run_full, _glue.assemble) = saved
 
 
 def launch_counts() -> dict:

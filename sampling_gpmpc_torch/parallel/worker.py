@@ -51,7 +51,8 @@ PARAMS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "params")
 # per-rank counters the worker reports, in this order
 COUNTERS = ("gp_sample", "gp_hall", "ipm_prepare", "ipm_mehrotra",
-            "qp_group", "qp_run_full", "glue_condense", "glue_gram")
+            "qp_group", "qp_run_full", "glue_condense", "glue_gram",
+            "gp_hall_blocks")
 
 
 def problem(config: str, ns: int, max_sqp: int, device, dtype,
@@ -96,6 +97,30 @@ def glue_inputs(config: str, ns: int, device, dtype, **spec_over):
                                   hall_empty=True)
     combined = env.assemble_val_jac(xu, dg.transpose(1, 2))
     return (spec, ocp, combined, X, U, st), (env, hyp, gp, eps[0])
+
+
+def hall_inputs(config: str, ns: int, max_sqp: int, device, dtype,
+                **spec_over):
+    """The hall stages of one MPC step of ``max_sqp`` forced SQP
+    iterations at ``ns`` samples, as ``agent.sample_dynamics`` meets them:
+    for each iteration k >= 1 (fill k H), (spec, hyp, gp, Xt, eps_k).  The
+    GP inputs are a seeded perturbation of :func:`problem`'s start iterate,
+    a new one each iteration; each iteration draws its rows through
+    ``agent.sample_dynamics`` on ``device`` and appends them."""
+    spec, env, hyp, ocp, gp, X0, U0, st, eps = problem(
+        config, ns, max_sqp, device, dtype, **spec_over)
+    g = torch.Generator().manual_seed(ns)
+    xu = sqp._linearization_inputs(spec, ocp, X0, U0)[
+        ..., list(spec.g_idx_inputs)]
+    stages = []
+    for it in range(max_sqp):
+        Xt = xu + (0.05 * torch.randn(xu.shape, generator=g,
+                                      dtype=dtype)).to(device)
+        if it:
+            stages.append((spec, hyp, gp, Xt, eps[it]))
+        _, gp = agent.sample_dynamics(spec, env, hyp, gp, Xt, eps[it],
+                                      hall_empty=(it == 0))
+    return stages
 
 
 def counters() -> dict:

@@ -146,14 +146,15 @@ def car_stages():
     """The hall stages of one closed-loop step of params_car as published
     (H = 15: Ht = 60, R = 180) at ns = 4, float32 on the CPU through the
     kernels' plain versions (the card's algorithm): each stage's
-    ``gp_hall.sample_hall`` arguments."""
+    ``gp_hall.sample_hall`` arguments, the blocks that the stage from the
+    points (``gp_hall.sample_hall_points``) hands its plain factor."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     seen = []
-    orig = gp_hall.sample_hall
+    orig = gp_hall.sample_hall_plain_stacked
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(agent, "uses_gp_kernels", lambda spec, device: True)
-        mp.setattr(gp_hall, "sample_hall",
+        mp.setattr(gp_hall, "sample_hall_plain_stacked",
                    lambda **kw: seen.append(kw) or orig(**kw))
         _, spec, data, env = bench.build_car(dict(ns=4))
         spec = dataclasses.replace(spec, tol_nlp=0.0)

@@ -248,10 +248,34 @@ def test_gp_hall_stacked_wrapper_never_falls_back(monkeypatch):
     src = inspect.getsource(gp_hall.sample_hall)
     assert "try:" not in src and src.count("sample_hall_plain_stacked(") == 1
     assert 'Kxr.device.type == "cpu"' in src
-    # the agent's hall stage is one call of it
+    # the agent's hall stage is one call of its entry from the points
     from sampling_gpmpc_torch import agent
     src = inspect.getsource(agent._fused_sample_hall)
-    assert src.count("gp_hall.sample_hall(") == 1 and "for j" not in src
+    assert src.count("gp_hall.sample_hall_points(") == 1 and "for j" not in src
+
+
+def test_gp_hall_points_wrappers_never_fall_back(monkeypatch):
+    """The stage from the points and its blocks launch: the plain versions
+    only for CPU tensors, a raise for any other device."""
+    monkeypatch.setattr(gp_hall, "sample_hall_points_plain", _refuse)
+    monkeypatch.setattr(gp_hall, "hall_blocks_plain", _refuse)
+    no, ns, N, Mh, H, D, ty = 3, 2, 5, 6, 4, 3, 4
+    meta = lambda *s: torch.empty(*s, device="meta")
+    pts = (meta(N, D), meta(no, N * ty), meta(ns, no, Mh, D),
+           meta(ns, no, Mh, ty), meta(ns, H, D), meta(ns, no, H, ty),
+           meta(no, D), meta(no), meta(ty))
+    with pytest.raises(ValueError, match="unsupported device"):
+        gp_hall.sample_hall_points(8, *pts, meta(no, N * ty, N * ty),
+                                   meta(no, N * ty), 1e-6, 2.5, -1.0, 1e-5,
+                                   ty=ty)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gp_hall.hall_blocks(8, *pts, ty=ty)
+    for fn, plain in (
+            (gp_hall.sample_hall_points, "sample_hall_points_plain("),
+            (gp_hall.hall_blocks, "hall_blocks_plain(")):
+        src = inspect.getsource(fn)
+        assert "try:" not in src and src.count(plain) == 1
+        assert 'Xt.device.type == "cpu"' in src
 
 
 def test_ipm_wrapper_never_falls_back(monkeypatch):

@@ -955,3 +955,113 @@ def test_glue_launches_once_per_sqp_iteration(dev):
     torch.cuda.synchronize()
     n = routes.launch_counts()
     assert s.it == 3 and n["glue_condense"] == n["glue_gram"] == 3
+
+
+# the hall stages from the points (gp_hall.sample_hall_points): the car's
+# fills as published, the 2D pendulum's global-tile fills, params_car_samples
+# (Rr = 448, fills 400 / 800 / 1200), no derivatives (Ty = 1) and D = 2
+HALL_POINT_CASES = [("params_car", 20, 4), ("params_pendulum", 20, 3),
+                    ("params_car_samples", 10, 4),
+                    ("params_car_residual_fs", 8, 3),
+                    ("params_pendulum1D_samples", 70, 3)]
+_BLOCK_ARGS = ("real_Z", "m_r", "hall_Z", "hall_Y", "Xt", "eps", "lengthscale",
+               "outputscale", "noise_diag")
+
+
+def _hall_point_stages(dev, config, ns, its):
+    """The hall stages of one forced-iteration MPC step on the card in
+    float32 (the shared helper ``worker.hall_inputs``), each with the
+    entry's arguments: [(spec, hyp, gp, Xt, eps, kw)]."""
+    from sampling_gpmpc_torch import agent
+    from sampling_gpmpc_torch.parallel.worker import hall_inputs
+    return [(spec, hyp, gp, Xt, eps,
+             agent.hall_point_inputs(spec, hyp, gp, Xt, eps))
+            for spec, hyp, gp, Xt, eps in hall_inputs(config, ns, its, dev,
+                                                      torch.float32)]
+
+
+@pytest.mark.parametrize("config,ns,its", HALL_POINT_CASES)
+def test_hall_blocks_kernel_matches_plain(dev, config, ns, its):
+    """The blocks hall_blocks_kernel writes (the first nh hall columns)
+    against its plain version on the same float32 points: expf's and the
+    sum's rounding only, within 1e-5 of each block's largest entry; the
+    eps rows and prior_var exactly."""
+    for spec, _, gp, _, _, kw in _hall_point_stages(dev, config, ns, its):
+        nh = kw["nh"]
+        args = [kw[k] for k in _BLOCK_ARGS]
+        got = gp_hall.hall_blocks(nh, *args, ty=kw["ty"])
+        ref = gp_hall.hall_blocks_plain(nh, *args, kw["ty"])
+        torch.cuda.synchronize()
+        assert list(got) == list(ref)
+        for k, v in ref.items():
+            assert got[k].shape == v.shape, (nh, k)
+            if k in ("eps", "prior_var", "yh"):
+                assert torch.equal(got[k], v), (nh, k)
+            elif v.numel():
+                scale = float(v.abs().max())
+                assert float((got[k] - v).abs().max()) <= 1e-5 * scale, (
+                    config, nh, k)
+
+
+@pytest.mark.parametrize("config,ns,its", HALL_POINT_CASES)
+def test_hall_points_entry_matches_blocks_entry(dev, config, ns, its):
+    """Each stage's draws through the entry from the points against those
+    through the agent's blocks (``hall_stage_inputs_all`` +
+    ``sample_hall``) from the same eps: no farther from the float64
+    evaluation of the algorithm on those blocks than four times the blocks
+    entry, both of them cancelling the same float32 variances; and
+    following eps, with no more entries at the mean than the blocks
+    entry."""
+    from sampling_gpmpc_torch import agent
+    fills = []
+    for spec, hyp, gp, Xt, eps, kw in _hall_point_stages(dev, config, ns,
+                                                         its):
+        blocks = agent.hall_stage_inputs_all(spec, hyp, gp, Xt, eps)
+        got = gp_hall.sample_hall_points(**kw)
+        old = gp_hall.sample_hall(**blocks)
+        ex = gp_hall.sample_hall_plain_stacked(
+            **{k: v.double() if torch.is_tensor(v) else v
+               for k, v in blocks.items()})
+        mean = gp_hall.sample_hall_points(
+            **dict(kw, eps=torch.zeros_like(kw["eps"])))
+        old_mean = gp_hall.sample_hall(
+            **dict(blocks, eps=torch.zeros_like(blocks["eps"])))
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        scale = float(ex.abs().max())
+        err_new = float((got.double() - ex).abs().max())
+        err_old = float((old.double() - ex).abs().max())
+        assert err_new <= 4 * err_old + 1e-6 * scale, (kw["nh"], err_new,
+                                                       err_old)
+        # the car's float32 draws sit ~0.1 of their scale from float64 on
+        # both routes (variance cancellation): follow eps as the blocks
+        # entry does, no more entries at the mean (zero-variance rows go
+        # there on both routes: two thirds at the 2D pendulum)
+        at_mean = float((got == mean).double().mean())
+        assert at_mean <= float((old == old_mean).double().mean()) + 0.01
+        assert not torch.equal(got, mean)
+        fills.append(kw["nh"])
+    H, Ty = spec.H, spec.Ty
+    assert fills == [k * H * Ty for k in range(1, its)]
+
+
+def test_hall_points_launch_once_per_hall_stage(dev):
+    """On the main path each hall stage is one call of the entry from the
+    points: params_car's four-iteration solve launches the blocks kernel
+    and the hall launch set three times, the blocks entry never."""
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.parallel.worker import problem
+    spec, env, hyp, ocp, gp, X0, U0, st, eps = problem(
+        "params_car", 20, 4, dev, torch.float32)
+    routes.zero_launch_counts()
+    s = sqp.solve(spec, env, hyp, ocp, st, X0, U0, gp, eps)
+    torch.cuda.synchronize()
+    n = routes.launch_counts()
+    assert s.it == 4 and n["gp_hall_blocks"] == n["gp_hall"] == 3
+    assert n["gp_sample"] == 1
+    with routes.plain_route(gp=True, qp=False, glue=False):
+        routes.zero_launch_counts()
+        s = sqp.solve(spec, env, hyp, ocp, st, X0, U0, gp, eps)
+        torch.cuda.synchronize()
+        n = routes.launch_counts()
+    assert s.it == 4 and n["gp_hall_blocks"] == n["gp_hall"] == 0
