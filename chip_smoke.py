@@ -3390,10 +3390,11 @@ def glue_bound(spec):
     iterate and the OCP data read once, the QP tuple, T and Gamma written
     once (the workspace stays out: it is the kernel's own); the
     condensing's, the cost's and the rows' products."""
+    from sampling_gpmpc_torch.ocp.assemble import row_counts
     from sampling_gpmpc_torch.ops import glue
     ns, H, nx, nu = spec.ns, spec.H, spec.nx, spec.nu
     nU = H * nu
-    shapes = glue.layout(spec)[2][:13]
+    shapes = glue.layout(spec, row_counts(spec))[2][:13]
     out = sum(glue._numel(s) for s in shapes)
     inp = (ns * H * nx * (1 + nx + nu) + (H + 1) * ns * nx + H * nu + nx
            + 3 * nx * nx + nu * nu + 4 * (H + 1) * nx + 2 * H * nu + ns
@@ -3415,6 +3416,8 @@ def glue_phase(dev):
     from sampling_gpmpc_torch import bench
     from sampling_gpmpc_torch.microbench_linalg import cuda_ms
     from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.ocp.assemble import (assemble_iteration,
+                                                   condensed_qp, row_counts)
     from sampling_gpmpc_torch.ops import glue
     from sampling_gpmpc_torch.parallel.worker import glue_inputs, problem
     names = sqp.QP_KEYS + ("T", "Gamma")
@@ -3440,11 +3443,11 @@ def glue_phase(dev):
     worst, flagship, by_config = 0.0, None, {}
     for config, ns in GLUE_CONFIGS:
         args = glue_inputs(config, ns, dev, torch.float32)[0]
-        spec = args[0]
-        smem, gram = glue.layout(spec)[:2]
-        got = glue.assemble(*args)
-        again = glue.assemble(*args)
-        ref = glue.assemble_plain(*args)
+        spec, rows = args[0], row_counts(args[0])
+        smem, gram = glue.layout(spec, rows)[:2]
+        got = condensed_qp(*args)
+        again = condensed_qp(*args)
+        ref = assemble_iteration(*args)
         torch.cuda.synchronize()
         for name, a, c in zip(names, (*got[0], *got[1:]),
                               (*again[0], *again[1:])):
@@ -3452,8 +3455,8 @@ def glue_phase(dev):
                 fail(f"glue {config}: two launches differ in {name}")
         name, rel = rel_err(got, ref, config, "its branch")
         try:                            # the branch the shape does not pick
-            glue.layout(spec, not gram)
-            other = glue.launch(*args, gram=not gram)
+            glue.layout(spec, rows, not gram)
+            other = glue.launch(spec, rows, *args[1:], gram=not gram)
             o_name, o_rel = rel_err(other, ref, config, "other branch")
         except ValueError:              # its sums do not fit: not taken
             other = None
@@ -3469,10 +3472,10 @@ def glue_phase(dev):
         flagship = flagship or args
 
         # device ms: the shape's branch, the other one, the plain version
-        t_k = cuda_ms(lambda: glue.assemble(*args))
+        t_k = cuda_ms(lambda: condensed_qp(*args))
         t_o = None if other is None else cuda_ms(
-            lambda: glue.launch(*args, gram=not gram))
-        t_p = cuda_ms(lambda: glue.assemble_plain(*args), n=10, warm=2, k=1)
+            lambda: glue.launch(spec, rows, *args[1:], gram=not gram))
+        t_p = cuda_ms(lambda: assemble_iteration(*args), n=10, warm=2, k=1)
         nb, fl = glue_bound(spec)
         b, by = bound_ms(nb, fl)
         by_config[config] = dict(ns=ns, H=spec.H, nU=spec.H * spec.nu,
@@ -3523,7 +3526,7 @@ def glue_phase(dev):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(200):
-        glue.assemble(*flagship)
+        condensed_qp(*flagship)
     host_ms = (time.perf_counter() - t0) / 200 * 1e3
     torch.cuda.synchronize()
     print(f"[timing] glue wrapper's host time {host_ms:.4f} ms a call "
@@ -3564,7 +3567,7 @@ def main():
     sys.path.insert(0, HERE)
     import numpy as np
 
-    # the route swap and the launch counters the phases share with the bench
+    # the plain route and the launch counters the phases share with the bench
     global plain_route, launch_counts, wide_launch_counts, zero_launch_counts
     from sampling_gpmpc_torch.ops.routes import (launch_counts, plain_route,
                                                  wide_launch_counts,
@@ -3668,9 +3671,9 @@ def main():
     # ---- 4. closed loop -------------------------------------------------
     phase("loop")
     # Each teacher-forced step is solved twice on the same inputs: through
-    # the kernels, and through their plain versions (swapped in for the
-    # wrappers the main path calls).  Both share the float32 QP exit, so the
-    # per-step difference isolates the kernels; the f64 oracle bounds both.
+    # the kernels, and through their plain versions (every stage held plain
+    # by plain_route()).  Both share the float32 QP exit, so the per-step
+    # difference isolates the kernels; the f64 oracle bounds both.
     ex, eu, kx, ku = [], [], [], []
     for m in range(n_steps):
         if m == 0:

@@ -459,20 +459,3 @@ def posterior_value_moments(spec: ProblemSpec, hyp: GPHyperArrays,
         var.reshape(spec.ns, spec.g_ny, H, Ty)[..., 0], min=0.0))
     return mean_v, std_v
 
-
-def dyn_linearization(spec: ProblemSpec, combined: torch.Tensor, K_fb):
-    """Per-sample per-stage (value, A, B) from the rows of
-    ``Env.assemble_val_jac``, with the feedback chain rule A <- A + B K
-    (ref: src/agent.py:532-564).
-
-    Args:
-        combined: (ns, H, nx, 1+nx+nu) [value, d/dx, d/du] rows.
-    Returns:
-        val (ns, H, nx), A (ns, H, nx, nx), B (ns, H, nx, nu).
-    """
-    val = combined[..., 0]
-    A = combined[..., 1:1 + spec.nx]
-    B = combined[..., 1 + spec.nx:]
-    if spec.use_feedback:
-        A = A + B @ K_fb
-    return val, A, B

@@ -15,7 +15,8 @@ prefix before the first dot is its layer (``LAYERS``).
 Counters.  ``count(table, name)`` adds one to a module's table: the kernel
 launches (``LAUNCHES`` of ``ops/gp_sample.py``, ``ops/gp_hall.py``,
 ``ops/ipm.py``, ``ops/glue.py``, ``ops/batch_linalg.py``,
-``ops/batched_chol.py``, ``ipm.LAUNCHES_WIDE``), the QP routes (``ocp/qp.py`` ``ROUTES``), and here
+``ops/batched_chol.py``; ``ipm``'s by kernel and build), the QP routes
+(``ocp/qp.py`` ``ROUTES``), and here
 ``SYNCS``, by call site: each point on the MPC step's path where the host
 waits for the card, a read of a tensor's value or a copy from pageable host
 memory (a scalar or an index list), as torch's sync-debug mode finds them
@@ -301,12 +302,13 @@ def count(table: dict, name: str, tally: bool = True) -> None:
     """One event ``name`` (a kernel launch, a QP route, a host read):
     added to ``table`` under a lock (the blocked solve launches from one
     thread per block) and, with ``tally``, to the calling thread's
-    :func:`thread_tally`."""
+    :func:`thread_tally`, a (kernel, build) launch under its kernel."""
     with _COUNT_LOCK:
         table[name] += 1
     mine = getattr(_TALLY, "counts", None)
     if tally and mine is not None:
-        mine[name] = mine.get(name, 0) + 1
+        key = name[0] if isinstance(name, tuple) else name
+        mine[key] = mine.get(key, 0) + 1
 
 
 @contextlib.contextmanager

@@ -5,9 +5,9 @@ Linear algebra over the condensing maps ``dx_{i,k} = T[i,k] + Gamma[i,k] dU``
 per-sample state box, realized feedback-input rows) and the soft rows
 (terminal ellipse, obstacle ellipses) with acados' z/Z slack penalties.
 Replaces acados' OCP-QP interface + HPIPM condensing (ref: src/utils/ocp.py).
-On the card ``ocp/sqp.py`` runs this module's chain as one kernel
-(``ops/glue.py``, ``csrc/glue.cu``); these functions are its plain
-version.
+:func:`condensed_qp`, which ``ocp/sqp.py`` calls, launches this module's
+chain as one kernel (``ops/glue.py``) where ``build.kernel_route`` says,
+else runs it (:func:`assemble_iteration`).
 
 Shapes:  T (ns, H+1, nx),  Gamma (ns, H+1, nx, nU),  Xbar (H+1, ns, nx),
          Ubar (H, nu),  nU = H*nu.
@@ -19,8 +19,12 @@ from typing import NamedTuple
 
 import torch
 
+from sampling_gpmpc_torch import obs
 from sampling_gpmpc_torch.config import ProblemSpec
+from sampling_gpmpc_torch.ocp.condense import condense_parallel
+from sampling_gpmpc_torch.ocp.qp import boxes_to_rows
 from sampling_gpmpc_torch.ocp.spec import OCPData
+from sampling_gpmpc_torch.ops import build, glue
 from sampling_gpmpc_torch.parallel.collectives import make_reducers
 
 
@@ -201,3 +205,68 @@ def assemble_canonical(H_U, g_U, hard: Rows, soft: Rows, penalties):
     d = torch.cat([hard.hi, -hard.lo, soft.hi, -soft.lo,
                    torch.zeros(2 * m_s, dtype=dtype, device=dev)])
     return P, q, C, d
+
+
+def dyn_linearization(spec: ProblemSpec, combined: torch.Tensor, K_fb):
+    """Per-sample per-stage (value, A, B) from the rows of
+    ``Env.assemble_val_jac``, with the feedback chain rule A <- A + B K
+    (ref: src/agent.py:532-564).
+
+    Args:
+        combined: (ns, H, nx, 1+nx+nu) [value, d/dx, d/du] rows.
+    Returns:
+        val (ns, H, nx), A (ns, H, nx, nx), B (ns, H, nx, nu).
+    """
+    val = combined[..., 0]
+    A = combined[..., 1:1 + spec.nx]
+    B = combined[..., 1 + spec.nx:]
+    if spec.use_feedback:
+        A = A + B @ K_fb
+    return val, A, B
+
+
+def assemble_iteration(spec: ProblemSpec, ocp: OCPData, combined, X, U,
+                       st_curr, group=None, ordered: bool = False):
+    """The torch chain of one SQP iteration after the linearization rows.
+
+    Args:
+        combined: (ns, H, nx, 1+nx+nu) rows of ``Env.assemble_val_jac``.
+        X: (H+1, ns, nx) iterate; U: (H, nu); st_curr: (nx,) state.
+    Returns:
+        (qp, T, Gamma): ``qp`` the 11 arguments of ``solve_qp_soft``.
+    """
+    ns, nx = spec.ns, spec.nx
+    with obs.span("glue.linearize"):
+        val, A, B = dyn_linearization(spec, combined, ocp.K_fb)
+        # delta dynamics dx_{k+1} = A dx_k + B du_k + r_k,
+        # r = f_lin - x̄_{k+1}
+        r = val - X[1:].transpose(0, 1)
+        dx0 = st_curr[None].expand(ns, nx) - X[0]
+    with obs.span("glue.condense"):
+        T, Gamma = condense_parallel(A, B, r, dx0)
+    with obs.span("glue.assemble"):
+        H_U, g_U = build_cost(spec, ocp, T, Gamma, X, U, group, ordered)
+        hard = build_hard_rows(spec, ocp, T, Gamma, X, U)
+        soft, (zl, zu, Zl, Zu) = build_soft_rows(spec, ocp, T, Gamma, X)
+        C_h, d_h = boxes_to_rows(hard.G, hard.lo, hard.hi)
+    return (H_U, g_U, C_h, d_h, soft.G, soft.lo, soft.hi, zl, zu, Zl,
+            Zu), T, Gamma
+
+
+def condensed_qp(spec: ProblemSpec, ocp: OCPData, combined, X, U, st_curr,
+                 group=None, ordered: bool = False):
+    """:func:`assemble_iteration`'s result: one launch of the glue kernel
+    on ``build.kernel_route("glue", ...)``, the chain off it.  Under a
+    group the launch leaves the input block out, and it is added after the
+    psum, as :func:`build_cost` does."""
+    if not build.kernel_route("glue", combined.device):
+        return assemble_iteration(spec, ocp, combined, X, U, st_curr, group,
+                                  ordered)
+    with obs.span("glue.condense"):
+        qp, T, Gamma = glue.launch(spec, row_counts(spec), ocp, combined, X,
+                                   U, st_curr, with_block=group is None)
+    if group is not None:
+        H_U, g_U = make_reducers(group, ordered)[0](qp[:2])
+        H_in, g_in = input_cost(spec, ocp, U)
+        qp = (H_U + H_in, g_U + g_in) + qp[2:]
+    return qp, T, Gamma

@@ -23,7 +23,7 @@ import torch
 
 from sampling_gpmpc_torch import obs, setup
 from sampling_gpmpc_torch.ops import ipm
-from sampling_gpmpc_torch.ops.ipm import _precond_factor, _precond_solve
+from sampling_gpmpc_torch.ops.ipm import precond_factor, precond_solve
 from sampling_gpmpc_torch.parallel.collectives import (group_size,
                                                        make_reducers)
 
@@ -92,14 +92,14 @@ def solve_qp(P, q, C, d, tol: float = None, max_iter: int = 50,
     def factorize(z, lam, s):
         w = lam / s
         rd_s, M_s = psum((C.T @ lam, (C.T * w) @ C))
-        inv_s, L = _precond_factor(P + M_s, reg)
+        inv_s, L = precond_factor(P + M_s, reg)
         return w, P @ z + q + rd_s, C @ z + s - d, inv_s, L
 
     def direction(lam, s, aux, sigma_mu, corr):
         w, r_dual, r_prim, inv_s, L = aux
         r_cent = lam * s - sigma_mu + corr
         rhs = -r_dual + psum(C.T @ (r_cent / s - w * r_prim))
-        dz = _precond_solve(inv_s, L, rhs)
+        dz = precond_solve(inv_s, L, rhs)
         ds = -r_prim - C @ dz
         return dz, ds, -(r_cent + lam * ds) / s
 

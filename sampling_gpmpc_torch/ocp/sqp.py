@@ -36,10 +36,9 @@ from sampling_gpmpc_torch.agent import GPState
 from sampling_gpmpc_torch.config import ProblemSpec
 from sampling_gpmpc_torch.envs.base import Env
 from sampling_gpmpc_torch.gp.exact import GPHyperArrays
-from sampling_gpmpc_torch.ocp.assemble import row_counts
+from sampling_gpmpc_torch.ocp.assemble import condensed_qp, row_counts
 from sampling_gpmpc_torch.ocp.qp import solve_qp_soft
 from sampling_gpmpc_torch.ocp.spec import OCPData
-from sampling_gpmpc_torch.ops import glue
 from sampling_gpmpc_torch.parallel.collectives import make_reducers
 
 
@@ -183,8 +182,8 @@ def _assemble(spec, env, hyp, ocp, st_curr, X, U, gp, eps, hall_empty,
         combined = env.assemble_val_jac(xu, dg.transpose(1, 2))
     # the feedback chain rule, residuals, condensing and rows: one kernel
     # on the card (ops/glue.py)
-    qp, T, Gamma = glue.assemble(spec, ocp, combined, X, U, st_curr, group,
-                                 ordered)
+    qp, T, Gamma = condensed_qp(spec, ocp, combined, X, U, st_curr, group,
+                                ordered)
     return qp, T, Gamma, gp, dg, Xt
 
 

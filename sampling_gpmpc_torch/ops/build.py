@@ -10,7 +10,8 @@ parallel.  Libraries land in ``build/`` at
 the repository root, named by a hash of the source, the shared header and
 the flags, so an edited source rebuilds and an unchanged one is reused.
 Nothing is built when a module is imported: the first launch builds, or
-``build_all`` builds every library in parallel.
+``build_all`` builds every library in parallel.  :func:`kernel_route` is
+the one rule that picks a main-path stage's body, kernel or plain twin.
 """
 
 from __future__ import annotations
@@ -39,6 +40,15 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+# stages held to their plain twin (``routes.plain_route``)
+PLAIN = {"gp": False, "qp": False, "glue": False}
+
+
+def kernel_route(stage: str, device) -> bool:
+    """Whether ``stage`` ("gp", "qp" or "glue") on ``device`` launches its
+    kernel: off the CPU, unless the stage is held plain.  A wrapper on the
+    kernel route raises for a device or problem its kernel cannot take."""
+    return torch.device(device).type != "cpu" and not PLAIN[stage]
 
 
 def _nvcc() -> str:

@@ -7,14 +7,11 @@ rows of ``Env.assemble_val_jac`` and the iterate it forms the condensing
 maps T, Gamma and the QP of the iteration, ``solve_qp_soft``'s arguments
 (H, g, C_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu).
 
-:func:`assemble_plain` is the torch chain (``agent.dyn_linearization``,
-``ocp/condense.py``, ``ocp/assemble.py``, ``ocp/qp.py::boxes_to_rows``).
-:func:`assemble` runs it for CPU tensors and the CUDA kernel
-(``csrc/glue.cu``: one CTA per sample; one launch, or two for a QP wider
-than ``GRAM_NU``) for CUDA float32 tensors, and raises for anything else:
-no fallback.  The kernel's outputs are views of one buffer.  Under a sample-axis group the kernel leaves the
-replicated input block out of (H, g), and the wrapper adds it after the
-psum, as ``build_cost`` does.
+:func:`launch` runs the CUDA kernel (``csrc/glue.cu``: one CTA per
+sample; one launch, or two for a QP wider than ``GRAM_NU``) on CUDA
+float32 tensors, its outputs views of one buffer, and raises for anything
+else.  Its plain twin and the choice between them are ``ocp/assemble.py``'s
+(``assemble_iteration``, ``condensed_qp``).
 """
 
 from __future__ import annotations
@@ -23,14 +20,8 @@ import ctypes
 
 import torch
 
-from sampling_gpmpc_torch import agent, obs
-from sampling_gpmpc_torch.ocp.assemble import (build_cost, build_hard_rows,
-                                               build_soft_rows, input_cost,
-                                               row_counts)
-from sampling_gpmpc_torch.ocp.condense import condense_parallel
-from sampling_gpmpc_torch.ocp.qp import boxes_to_rows
+from sampling_gpmpc_torch import obs
 from sampling_gpmpc_torch.ops import build
-from sampling_gpmpc_torch.parallel.collectives import make_reducers
 
 LAUNCHES = {"glue_condense": 0, "glue_gram": 0}
 MAX_CTAS = 264      # two CTAs per SM of the H100's 132; CTAs loop past it
@@ -53,34 +44,6 @@ _TICKETS: dict = {}
 _FN: list = []
 
 
-def assemble_plain(spec, ocp, combined, X, U, st_curr, group=None,
-                   ordered: bool = False):
-    """The torch chain of one SQP iteration after the linearization rows.
-
-    Args:
-        combined: (ns, H, nx, 1+nx+nu) rows of ``Env.assemble_val_jac``.
-        X: (H+1, ns, nx) iterate; U: (H, nu); st_curr: (nx,) state.
-    Returns:
-        (qp, T, Gamma): ``qp`` the 11 arguments of ``solve_qp_soft``.
-    """
-    ns, nx = spec.ns, spec.nx
-    with obs.span("glue.linearize"):
-        val, A, B = agent.dyn_linearization(spec, combined, ocp.K_fb)
-        # delta dynamics dx_{k+1} = A dx_k + B du_k + r_k,
-        # r = f_lin - x̄_{k+1}
-        r = val - X[1:].transpose(0, 1)
-        dx0 = st_curr[None].expand(ns, nx) - X[0]
-    with obs.span("glue.condense"):
-        T, Gamma = condense_parallel(A, B, r, dx0)
-    with obs.span("glue.assemble"):
-        H_U, g_U = build_cost(spec, ocp, T, Gamma, X, U, group, ordered)
-        hard = build_hard_rows(spec, ocp, T, Gamma, X, U)
-        soft, (zl, zu, Zl, Zu) = build_soft_rows(spec, ocp, T, Gamma, X)
-        C_h, d_h = boxes_to_rows(hard.G, hard.lo, hard.hi)
-    return (H_U, g_U, C_h, d_h, soft.G, soft.lo, soft.hi, zl, zu, Zl,
-            Zu), T, Gamma
-
-
 def _numel(shape) -> int:
     n = 1
     for d in shape:
@@ -88,10 +51,11 @@ def _numel(shape) -> int:
     return n
 
 
-def layout(spec, gram=None):
-    """The kernel's layout for a problem: (smem_bytes, gram, shapes,
-    offsets, total floats, gram_grid).  ``gram``: the wide branch (None:
-    past ``GRAM_NU``, or where the narrow branch's sums do not fit).
+def layout(spec, rows, gram=None):
+    """The kernel's layout for a problem of ``rows`` = (m_h, m_s) hard and
+    soft QP rows (``ocp/assemble.py::row_counts``): (smem_bytes, gram,
+    shapes, offsets, total floats, gram_grid).  ``gram``: the wide branch
+    (None: past ``GRAM_NU``, or where the narrow branch's sums do not fit).
     Shared memory holds the sample's rows and iterate, the double-buffered
     carry, Hx Gamma_k, the stage's small vectors, the OCP data the stages
     read (csrc/glue.cu's order) and, narrow, the sample's cost sums.  The
@@ -119,7 +83,7 @@ def layout(spec, gram=None):
         raise ValueError(f"glue kernel: a sample's stage rows need {smem} B "
                          f"of shared memory, past {SMEM_LIMIT} (H={H}, "
                          f"nx={nx}, nu={nu}, gram={gram})")
-    m_h, m_s = row_counts(spec)
+    m_h, m_s = rows
     work = ns * (H + 1) * nx * (nU + 1) if gram else ns * acc
     shapes = ((nU, nU), (nU,), (m_h, nU), (m_h,), (m_s, nU)) + ((m_s,),) * 6 \
         + ((ns, H + 1, nx), (ns, H + 1, nx, nU), (work,))
@@ -176,14 +140,17 @@ def check_inputs(spec, ocp, combined, X, U, st_curr, dev):
     return [t for _, t, _ in ins]
 
 
-def launch(spec, ocp, combined, X, U, st_curr, with_block: bool = True,
+def launch(spec, rows, ocp, combined, X, U, st_curr, with_block: bool = True,
            gram=None):
-    """One launch of the kernel (CUDA float32 tensors), and the Gram
-    kernel's after it in the wide branch (``gram``, as :func:`layout`):
-    ((H, g, C_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu), T, Gamma), views of
-    one buffer; H and g without the input block unless ``with_block``."""
+    """One launch of the kernel (CUDA float32 tensors; ValueError for any
+    other device, dtype, shape or layout), and the Gram kernel's after it
+    in the wide branch (``rows`` and ``gram`` as :func:`layout`): ((H, g,
+    C_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu), T, Gamma), views of one
+    buffer; H and g without the input block unless ``with_block``."""
     dev = combined.device
-    smem, gram, shapes, offsets, total, gram_grid = layout(spec, gram)
+    if dev.type != "cuda":
+        raise ValueError(f"glue: unsupported device {dev}")
+    smem, gram, shapes, offsets, total, gram_grid = layout(spec, rows, gram)
     ins = check_inputs(spec, ocp, combined, X, U, st_curr, dev)
     buf = torch.empty((total,), dtype=torch.float32, device=dev)
     base = buf.data_ptr()
@@ -204,24 +171,3 @@ def launch(spec, ocp, combined, X, U, st_curr, with_block: bool = True,
     outs = [buf[o:o + _numel(s)].view(s) for o, s in zip(offsets, shapes)]
     return tuple(outs[:11]), outs[11], outs[12]
 
-
-def assemble(spec, ocp, combined, X, U, st_curr, group=None,
-             ordered: bool = False):
-    """:func:`assemble_plain`'s result: the plain chain for CPU tensors,
-    one :func:`launch` for CUDA float32 ones (ValueError for any other
-    dtype, shape or layout the kernel does not take).  Under a group the
-    launch leaves the input block out, and it is added after the psum."""
-    dev = combined.device
-    if dev.type == "cpu":
-        return assemble_plain(spec, ocp, combined, X, U, st_curr, group,
-                              ordered)
-    if dev.type != "cuda":
-        raise ValueError(f"glue: unsupported device {dev}")
-    with obs.span("glue.condense"):
-        qp, T, Gamma = launch(spec, ocp, combined, X, U, st_curr,
-                              with_block=group is None)
-    if group is not None:
-        H_U, g_U = make_reducers(group, ordered)[0](qp[:2])
-        H_in, g_in = input_cost(spec, ocp, U)
-        qp = (H_U + H_in, g_U + g_in) + qp[2:]
-    return qp, T, Gamma

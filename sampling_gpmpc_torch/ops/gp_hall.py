@@ -32,12 +32,12 @@ float64 reference path is ``gp/exact.py`` condition_update +
 predict_update + sample_with_overrides.
 
 :func:`sample_hall` takes every GP output at once (inputs stacked on a
-leading output axis) and runs the plain version for CPU tensors and the
-CUDA kernels (``csrc/gp_hall.cu``: two batched product launches and one
-factor launch, each over every (output, sample), the factor's tiles in
-shared memory or, where they do not fit, in the global workspace:
-:func:`factor_tiles_global`) for CUDA tensors;
-:func:`sample_hall_one` is its one-output case.
+leading output axis) and runs the CUDA kernels (``csrc/gp_hall.cu``: two
+batched product launches and one factor launch, each over every (output,
+sample), the factor's tiles in shared memory or, where they do not fit, in
+the global workspace: :func:`factor_tiles_global`) where
+``build.kernel_route`` says, else the plain version; :func:`sample_hall_one`
+is its one-output case.
 
 :func:`sample_hall_points` is the stage the agent calls: from the points
 (real, hall and test), the masks and the hyperparameters, it evaluates the
@@ -48,9 +48,9 @@ one call.  Its plain version :func:`sample_hall_points_plain` evaluates the
 same blocks in torch (:func:`hall_blocks_plain`, each output by
 :func:`hall_blocks_one`, which ``agent.hall_stage_inputs`` runs over the
 whole capacity) and runs :func:`sample_hall_plain_stacked`;
-:func:`hall_blocks` runs the blocks kernel alone.  None falls back: a CUDA
-stage the kernels cannot take raises (:func:`check_supported`,
-:func:`check_points_supported`).
+:func:`hall_blocks` runs the blocks kernel alone.  Each routes as
+:func:`sample_hall`, and none falls back: a kernel-route stage the kernels
+cannot take raises (:func:`check_supported`, :func:`check_points_supported`).
 """
 
 from __future__ import annotations
@@ -318,7 +318,7 @@ def sample_hall_one(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
     Returns:
         (ns, Ht) sampled rows.
     """
-    if Kxr.device.type == "cpu":
+    if not build.kernel_route("gp", Kxr.device):
         return sample_hall_plain(nh, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv,
                                  w_r, prior_var, jitter, beta, var_zero,
                                  rel_floor, ty=ty, close=close, ynear=ynear)
@@ -341,7 +341,7 @@ def sample_hall(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
     (no, Rr), prior_var (no, Ht), close/ynear (no, ns, Ht) or None; the
     scalars are shared.  Returns (no, ns, Ht) sampled rows.
     """
-    if Kxr.device.type == "cpu":
+    if not build.kernel_route("gp", Kxr.device):
         return sample_hall_plain_stacked(
             nh, jitter, beta, var_zero, rel_floor, ty, Kxr=Kxr, Kxh=Kxh,
             Ktt=Ktt, Arh=Arh, Ahh=Ahh, yh=yh, eps=eps, Linv=Linv, w_r=w_r,
@@ -429,7 +429,7 @@ def sample_hall_points(nh: int, real_Z, m_r, hall_Z, hall_Y, Xt, eps,
     Returns:
         (no, ns, Ht) sampled rows, Ht = H ty.
     """
-    if Xt.device.type == "cpu":
+    if not build.kernel_route("gp", Xt.device):
         return sample_hall_points_plain(
             nh, real_Z, m_r, hall_Z, hall_Y, Xt, eps, lengthscale,
             outputscale, noise_diag, Linv, w_r, jitter, beta, var_zero,
@@ -467,9 +467,9 @@ def hall_blocks(nh: int, real_Z, m_r, hall_Z, hall_Y, Xt, eps, lengthscale,
                 outputscale, noise_diag, ty: int = 1) -> dict:
     """``hall_blocks_kernel`` alone: the blocks :func:`sample_hall_points`
     evaluates, as views of one buffer under :func:`hall_blocks_plain`'s
-    keys and shapes (the plain version for CPU tensors).  Arguments as
+    keys and shapes (off the kernel route, the plain version).  Arguments as
     :func:`sample_hall_points`'."""
-    if Xt.device.type == "cpu":
+    if not build.kernel_route("gp", Xt.device):
         return hall_blocks_plain(nh, real_Z, m_r, hall_Z, hall_Y, Xt, eps,
                                  lengthscale, outputscale, noise_diag, ty)
     dims, ptrs = _checked_points(nh, real_Z, m_r, hall_Z, hall_Y, Xt, eps,

@@ -22,10 +22,10 @@ panel width 1 is the column sweep of the earlier design, the kernel runs
 width 32.
 
 :func:`sample_empty` takes every GP output at once (inputs stacked on a
-leading output axis) and runs the plain version for CPU tensors and the
-CUDA kernel (``csrc/gp_sample.cu``: one launch, one CTA per (output,
-sample)) for CUDA tensors; :func:`sample_empty_one` is its one-output case.
-Neither falls back: a CUDA stage the kernel cannot take raises
+leading output axis) and runs the CUDA kernel (``csrc/gp_sample.cu``: one
+launch, one CTA per (output, sample)) where ``build.kernel_route`` says,
+else the plain version; :func:`sample_empty_one` is its one-output case.
+Neither falls back: a kernel-route stage the kernel cannot take raises
 (:func:`check_supported`).
 """
 
@@ -231,7 +231,7 @@ def sample_empty_one(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
     Returns:
         (ns, Ht) sampled rows.
     """
-    if Kxm.device.type == "cpu":
+    if not build.kernel_route("gp", Kxm.device):
         return sample_empty_plain(Kxm, Ktt, eps, Linv, alpha, prior_var,
                                   jitter, beta, var_zero, rel_floor, ty=ty,
                                   close=close, ynear=ynear)
@@ -252,7 +252,7 @@ def sample_empty(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
     prior_var (no, Ht), close/ynear (no, ns, Ht) or None; the scalars are
     shared.  Returns (no, ns, Ht) sampled rows.
     """
-    if Kxm.device.type == "cpu":
+    if not build.kernel_route("gp", Kxm.device):
         return sample_empty_plain_stacked(
             jitter, beta, var_zero, rel_floor, ty, Kxm=Kxm, Ktt=Ktt, eps=eps,
             Linv=Linv, alpha=alpha, prior_var=prior_var, close=close,

@@ -26,9 +26,9 @@ with the soft slacks eliminated analytically, so every Newton system is the
 
 :func:`run_full` returns ``(best 11-tuple, best_res, iters, scale_h,
 scale_s)`` — the scaled best iterate ``(u, sl, su, th, lh, tU, lU, tL, lL,
-nl, nu)`` — for ``ocp/qp.py::_finish``.  It runs :func:`run_full_plain` for
-CPU tensors and the two kernels (``csrc/ipm.cu``) for CUDA tensors, never
-falling back: a CUDA problem the kernels cannot take (float64, no hard
+nl, nu)`` — for ``ocp/qp.py::_finish``.  It runs the two kernels
+(``csrc/ipm.cu``) where ``build.kernel_route`` says, else
+:func:`run_full_plain`, never falling back: a CUDA problem the kernels cannot take (float64, no hard
 rows, nU > 256) raises, naming the limit (:func:`check_supported`).  A QP
 with no soft rows (m_s = 0) runs the kernels' hard-only build, the
 counterpart of the JAX package's XLA body for it (``pallas_ipm.fused_ok``
@@ -49,9 +49,10 @@ from sampling_gpmpc_torch.ops import build
 from sampling_gpmpc_torch.parallel.collectives import (group_size,
                                                        make_reducers)
 
-LAUNCHES = {"ipm_prepare": 0, "ipm_mehrotra": 0}
-# the launches of LAUNCHES that went to the wide builds (nU > NU_NARROW)
-LAUNCHES_WIDE = {"ipm_prepare": 0, "ipm_mehrotra": 0}
+KERNELS = ("ipm_prepare", "ipm_mehrotra")
+BUILDS = ("ipm", "ipm_hard", "ipm_wide", "ipm_hard_wide")   # :func:`_library`
+# launches by (kernel, build); routes.launch_counts sums the builds
+LAUNCHES = {(k, b): 0 for k in KERNELS for b in BUILDS}
 NU_MAX = 256         # the wide builds' limit
 NU_NARROW = 128      # the narrow builds' limit
 
@@ -77,7 +78,7 @@ def check_supported(nU: int, m_h: int, m_s: int, dtype) -> None:
 # plain torch version
 # --------------------------------------------------------------------------
 
-def _precond_factor(M, reg):
+def precond_factor(M, reg):
     """Jacobi-preconditioned Cholesky of the Schur matrix (load-bearing in
     f32: the symmetric diagonal scaling keeps the factorization alive when
     penalty-weighted rows push the condition number past single range)."""
@@ -89,7 +90,7 @@ def _precond_factor(M, reg):
     return inv_s, torch.where(info != 0, torch.full_like(L, float("nan")), L)
 
 
-def _precond_solve(inv_s, L, rhs):
+def precond_solve(inv_s, L, rhs):
     return inv_s * torch.cholesky_solve((inv_s * rhs)[:, None], L)[:, 0]
 
 
@@ -321,7 +322,7 @@ def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
             r1_s, Mh = psum((_dual_rows(p, st), Mh))
             M = H + Mh
         r1 = H @ u + g + r1_s
-        inv_s, L = _precond_factor(M, reg)
+        inv_s, L = precond_factor(M, reg)
         return w_h, rp_h, r1, soft, inv_s, L
 
     def direction(st, aux, sig_mu, corr):
@@ -344,7 +345,7 @@ def mehrotra_plain(p: Prepared, tol: float, reg: float, max_iter: int,
             rhs = -r1 + rhs_h - rhs_s
         else:
             rhs = -r1 + psum(rhs_h)
-        du = _precond_solve(inv_s, L, rhs)
+        du = precond_solve(inv_s, L, rhs)
         dth = -(G_h @ du) - rp_h
         dlh = -b_h - w_h * dth
         if m_s:
@@ -679,9 +680,7 @@ def prepare(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu, ws, ws_valid,
                   lay.chunk, int(lay.resident), lay.smem,
                   torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "ipm_prepare launch")
-    obs.count(LAUNCHES, "ipm_prepare")
-    if nU > NU_NARROW:
-        obs.count(LAUNCHES_WIDE, "ipm_prepare", tally=False)
+    obs.count(LAUNCHES, ("ipm_prepare", _library(m_s, nU)))
     return Device(H=H, g=g, Gth=buf["Gth"].view(nU, m_h),
                   Gts=buf["Gts"].view(nU, m_s), dh=buf["dh"].view(2, m_h),
                   sd=buf["sd"].view(8, m_s), h0=buf["h0"].view(2, m_h),
@@ -740,9 +739,7 @@ def mehrotra(d: Device, tol: float, reg: float, max_iter: int,
                   lay.chunk, int(lay.resident), lay.group, lay.smem,
                   torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "ipm_mehrotra launch")
-    obs.count(LAUNCHES, "ipm_mehrotra")
-    if nU > NU_NARROW:
-        obs.count(LAUNCHES_WIDE, "ipm_mehrotra", tally=False)
+    obs.count(LAUNCHES, ("ipm_mehrotra", _library(m_s, nU)))
     best = (bu, bs[2], bs[3], bh[0], bh[1], bs[0], bs[4], bs[1], bs[5],
             bs[6], bs[7])
     return best, bres[0], bit[0]
@@ -753,13 +750,13 @@ def run_full(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
              stall_iters: int = 10, stall_rtol: float = 0.01,
              mu_grind: float = 1e-6, ws_band=(1e-8, 1e12)):
     """Prepare kernel then Mehrotra kernel, back to back on the current
-    stream, with no host synchronization; CPU tensors take
-    :func:`run_full_plain`.
+    stream, with no host synchronization; off ``build.kernel_route``
+    (CPU tensors, or the QP held plain) :func:`run_full_plain`.
 
     Returns ``(best_state_11tuple_scaled, best_res, iters, scale_h,
     scale_s)``.
     """
-    if g.device.type == "cpu":
+    if not build.kernel_route("qp", g.device):
         return run_full_plain(H, g, G_h, d_h, G_s, lo_s, hi_s, zl, zu, Zl, Zu,
                               ws, ws_valid, tol, reg, max_iter, stall_iters,
                               stall_rtol, mu_grind, ws_band)

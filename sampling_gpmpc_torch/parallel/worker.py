@@ -40,7 +40,7 @@ from sampling_gpmpc_torch.gp.exact import GPHyperArrays
 from sampling_gpmpc_torch.ocp import qp as qp_mod
 from sampling_gpmpc_torch.ocp import sqp
 from sampling_gpmpc_torch.ocp.spec import make_ocp_data
-from sampling_gpmpc_torch.ops import glue, gp_hall, gp_sample, ipm
+from sampling_gpmpc_torch.ops import routes
 from sampling_gpmpc_torch.parallel import distributed
 from sampling_gpmpc_torch.parallel.collectives import all_gather
 from sampling_gpmpc_torch.parallel.mesh import sample_mesh
@@ -78,10 +78,10 @@ def problem(config: str, ns: int, max_sqp: int, device, dtype,
 
 
 def glue_inputs(config: str, ns: int, device, dtype, **spec_over):
-    """One SQP iteration's inputs to ``ops/glue.assemble`` at ``ns``
-    samples, from a seeded perturbation of :func:`problem`'s start iterate
-    and state (so T and every row is nonzero): ((spec, ocp, combined, X, U,
-    st), (env, hyp, gp, eps0)), ``combined`` the rows of
+    """One SQP iteration's inputs to ``ocp/assemble.py::condensed_qp`` at
+    ``ns`` samples, from a seeded perturbation of :func:`problem`'s start
+    iterate and state (so T and every row is nonzero): ((spec, ocp,
+    combined, X, U, st), (env, hyp, gp, eps0)), ``combined`` the rows of
     ``Env.assemble_val_jac`` at the iterate."""
     spec, env, hyp, ocp, gp, X0, U0, st, eps = problem(
         config, ns, 1, device, dtype, **spec_over)
@@ -124,17 +124,14 @@ def hall_inputs(config: str, ns: int, max_sqp: int, device, dtype,
 
 
 def counters() -> dict:
-    return {**gp_sample.LAUNCHES, **gp_hall.LAUNCHES, **ipm.LAUNCHES,
-            **glue.LAUNCHES,
+    return {**routes.launch_counts(),
             "qp_group": qp_mod.ROUTES["group"],
             "qp_run_full": qp_mod.ROUTES["run_full"]}
 
 
 def zero_counters() -> None:
-    for table in (gp_sample.LAUNCHES, gp_hall.LAUNCHES, ipm.LAUNCHES,
-                  ipm.LAUNCHES_WIDE, qp_mod.ROUTES, glue.LAUNCHES):
-        for k in table:
-            table[k] = 0
+    routes.zero_launch_counts()
+    qp_mod.ROUTES.update(dict.fromkeys(qp_mod.ROUTES, 0))
 
 
 def main(argv=None) -> int:

@@ -1,9 +1,11 @@
-"""``ops/glue.py``: the plain version of the condensing and assembly
-kernel against the SQP solve's CPU route, the kernel wrapper's refusals,
-its layout and the Gram kernel's tiles, and ``plain_route(glue=True)``.
+"""``ops/glue.py``: the condensing and assembly kernel's wrapper, its
+refusals, its layout and the Gram kernel's tiles, and the body that
+``ocp/assemble.py::condensed_qp`` runs in and out of
+``plain_route(glue=True)``.
 
 The kernel itself runs only on the card (``tests/test_torch_kernels_cuda.py``
-holds it against :func:`glue.assemble_plain`).
+holds it against its plain twin ``ocp/assemble.py::assemble_iteration``,
+which ``tests/test_torch_assemble.py`` holds to the SQP solve's CPU route).
 """
 
 import dataclasses
@@ -13,33 +15,18 @@ import pytest
 import torch
 
 from sampling_gpmpc_torch.config import load_problem
-from sampling_gpmpc_torch.ocp import sqp
+from sampling_gpmpc_torch.ocp import assemble
+from sampling_gpmpc_torch.ocp.assemble import assemble_iteration, row_counts
 from sampling_gpmpc_torch.ops import glue, routes
 from sampling_gpmpc_torch.parallel.worker import glue_inputs
 
 PARAMS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "params")
 CPU = torch.device("cpu")
 
-CASES = [("params_pendulum1D_samples", 5),   # feedback rows, terminal ellipse
-         ("params_pendulum", 3),             # hard rows only
-         ("params_car", 3),                  # ellipses: soft state box
-         ("params_car_residual", 1)]         # feedback with nu = 2
 
-
-@pytest.mark.parametrize("config,ns", CASES)
-def test_plain_twin_is_the_chain_before_the_kernel(config, ns):
-    """assemble_plain returns bit for bit what the SQP solve's CPU route
-    (``sqp.assemble_qp``, the chain the JAX-parity tests hold) returns."""
-    args, (env, hyp, gp, eps0) = glue_inputs(config, ns, CPU, torch.float64)
-    spec, ocp, _, X, U, st = args
-    got_qp, got_T, got_G = glue.assemble_plain(*args)
-    want_qp, want_T, want_G, _ = sqp.assemble_qp(spec, env, hyp, ocp, st, X,
-                                                 U, gp, eps0, hall_empty=True)
-    assert len(got_qp) == len(want_qp) == 11
-    for name, a, b in zip(sqp.QP_KEYS + ("T", "Gamma"),
-                          tuple(got_qp) + (got_T, got_G),
-                          tuple(want_qp) + (want_T, want_G)):
-        assert torch.equal(a, b), name
+def layout(spec, gram=None):
+    """The kernel's layout for the spec's own row counts."""
+    return glue.layout(spec, row_counts(spec), gram)
 
 
 @pytest.mark.parametrize("config,ns,over", [
@@ -56,13 +43,13 @@ def test_layout_views_have_the_plain_shapes(config, ns, over):
     workspace instead."""
     args = glue_inputs(config, ns, CPU, torch.float32, **over)[0]
     spec = args[0]
-    qp, T, Gamma = glue.assemble_plain(*args)
-    smem, gram, shapes, offsets, total, gram_grid = glue.layout(spec)
+    qp, T, Gamma = assemble_iteration(*args)
+    smem, gram, shapes, offsets, total, gram_grid = layout(spec)
     nU = spec.H * spec.nu
     assert not gram and gram_grid == 0 and 0 < smem <= glue.SMEM_LIMIT
     assert list(shapes[:13]) == [tuple(t.shape) for t in (*qp, T, Gamma)]
     assert shapes[13] == (ns * (nU * nU + nU),)
-    wide = glue.layout(spec, gram=True)
+    wide = layout(spec, gram=True)
     assert wide[0] < smem and wide[2][:13] == shapes[:13]
     assert wide[2][13] == (ns * (spec.H + 1) * spec.nx * (nU + 1),)
     assert all(o % glue.ALIGN == 0 for o in offsets)
@@ -80,16 +67,16 @@ def test_layout_of_the_widest_qp_keeps_the_cost_sums_global():
     params, spec, data = load_problem(os.path.join(PARAMS,
                                                    "params_car_samples.yaml"))
     wide = dataclasses.replace(spec, H=128)
-    smem, gram = glue.layout(wide)[:2]
+    smem, gram = layout(wide)[:2]
     assert gram and smem <= glue.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
-        glue.layout(wide, gram=False)
-    assert glue.layout(spec)[1]
-    assert glue.layout(dataclasses.replace(spec, ns=1, H=50))[1]
-    assert not glue.layout(dataclasses.replace(spec, H=glue.GRAM_NU //
+        layout(wide, gram=False)
+    assert layout(spec)[1]
+    assert layout(dataclasses.replace(spec, ns=1, H=50))[1]
+    assert not layout(dataclasses.replace(spec, H=glue.GRAM_NU //
                                                    spec.nu))[1]
     with pytest.raises(ValueError, match="shared memory"):
-        glue.layout(dataclasses.replace(spec, H=3000))
+        layout(dataclasses.replace(spec, H=3000))
 
 
 @pytest.mark.parametrize("nU", [1, 17, 31, 32, 33, 63, 64, 65, 100, 200,
@@ -100,7 +87,7 @@ def test_gram_grid_covers_the_upper_triangle_once(nU):
     exactly once over layout's gram_grid blocks."""
     spec = dataclasses.replace(load_problem(os.path.join(
         PARAMS, "params_pendulum1D_samples.yaml"))[1], H=nU, ns=2)
-    grid = glue.layout(spec, gram=True)[5]
+    grid = layout(spec, gram=True)[5]
     ts, ntv = glue.TS, (nU + glue.TS) // glue.TS
     seen = []
     for blk in range(grid):
@@ -123,8 +110,8 @@ def test_gram_grid_covers_the_upper_triangle_once(nU):
 def test_wrapper_refuses_what_the_kernel_does_not_take(what):
     """check_inputs (run before every launch) names the input the kernel
     cannot take: float64, a wrong shape, a non-contiguous tensor, an OCP
-    field of another dtype; assemble raises on a device that is neither
-    the CPU nor CUDA.  Nothing falls back to the plain chain."""
+    field of another dtype; the launch raises on a device that is not
+    CUDA.  Nothing falls back to the plain chain."""
     spec, ocp, combined, X, U, st = glue_inputs(
         "params_pendulum1D_samples", 4, CPU, torch.float32)[0]
     dev = CPU
@@ -144,21 +131,31 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(what):
                                  combined, X, U, st, dev)) == 4 + 17 + 8
     meta = combined.to("meta")
     with pytest.raises(ValueError, match="unsupported device meta"):
-        glue.assemble(spec, ocp, meta, X, U, st)
+        glue.launch(spec, row_counts(spec), ocp, meta, X, U, st)
 
 
 @pytest.mark.parametrize("glue_plain", [True, False])
-def test_plain_route_swaps_the_glue_and_puts_it_back(glue_plain):
-    """plain_route(glue=True) sends the SQP solve's glue.assemble to
-    assemble_plain inside the block; glue=False leaves it; both restore
-    it on exit, also when the block raises."""
-    kernel_route = glue.assemble
+def test_plain_route_swaps_the_glue_and_puts_it_back(glue_plain,
+                                                     monkeypatch):
+    """Off the CPU, condensed_qp launches the kernel; inside
+    plain_route(glue=True) it runs the chain instead, and glue=False
+    leaves the launch; on exit the launch is back, also when the block
+    raises.  The body that runs is seen through spies on the launch and
+    the chain (on meta tensors, which neither could take)."""
+    args = list(glue_inputs("params_pendulum1D_samples", 2, CPU,
+                            torch.float32)[0])
+    args[2] = args[2].to("meta")
+    ran = []
+    monkeypatch.setattr(glue, "launch",
+                        lambda *a, **k: ran.append("launch") or (a, 0, 0))
+    monkeypatch.setattr(assemble, "assemble_iteration",
+                        lambda *a: ran.append("chain") or (a, 0, 0))
     with pytest.raises(RuntimeError):
         with routes.plain_route(gp=False, qp=False, glue=glue_plain):
-            want = glue.assemble_plain if glue_plain else kernel_route
-            assert glue.assemble is want
+            assemble.condensed_qp(*args)
             raise RuntimeError
-    assert glue.assemble is kernel_route
+    assemble.condensed_qp(*args)
+    assert ran == ["chain" if glue_plain else "launch", "launch"]
     assert routes.launch_counts()["glue_condense"] == \
         glue.LAUNCHES["glue_condense"]
     routes.zero_launch_counts()

@@ -15,8 +15,9 @@ columns by ``gp_hall.hall_blocks_plain``, then the plain factor).
 * the blocks ``hall_blocks_plain`` returns are the first nh hall columns
   of the agent's, laid out as ``block_views`` reads the kernel's buffer;
 * the agent's hall stage on the kernel route takes the entry from the
-  points under its spans; ``routes.plain_route()`` swaps the entry for its
-  plain version; the entry refuses what its kernel cannot take.
+  points under its spans; inside ``routes.plain_route()`` the entry runs
+  its plain version on every device; the entry refuses what its kernel
+  cannot take.
 """
 
 import pytest
@@ -150,12 +151,28 @@ def test_agent_hall_stage_takes_the_points_entry(one_thread, monkeypatch):
 
 
 @pytest.mark.parametrize("gp_plain", [True, False])
-def test_plain_route_swaps_the_points_entry(gp_plain):
-    orig = gp_hall.sample_hall_points
+def test_plain_route_swaps_the_points_entry(gp_plain, monkeypatch):
+    """Off the CPU the entry launches (on meta points: refused, naming the
+    device); inside plain_route(gp=True) it runs its plain version, and
+    gp=False leaves the launch; on exit the launch is back."""
+    ran = []
+    monkeypatch.setattr(gp_hall, "sample_hall_points_plain",
+                        lambda *a, **k: ran.append(a[0]) or "plain")
+    no, ns, N, Mh, H, D, ty = 3, 2, 5, 6, 4, 3, 4
+    meta = lambda *s: torch.empty(*s, device="meta")  # noqa: E731
+    pts = (meta(N, D), meta(no, N * ty), meta(ns, no, Mh, D),
+           meta(ns, no, Mh, ty), meta(ns, H, D), meta(ns, no, H, ty),
+           meta(no, D), meta(no), meta(ty), meta(no, N * ty, N * ty),
+           meta(no, N * ty), 1e-6, 2.5, -1.0, 1e-5)
     with routes.plain_route(gp=gp_plain, qp=False, glue=False):
-        assert (gp_hall.sample_hall_points is
-                (gp_hall.sample_hall_points_plain if gp_plain else orig))
-    assert gp_hall.sample_hall_points is orig
+        if gp_plain:
+            assert gp_hall.sample_hall_points(8, *pts, ty=ty) == "plain"
+        else:
+            with pytest.raises(ValueError, match="unsupported device"):
+                gp_hall.sample_hall_points(8, *pts, ty=ty)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gp_hall.sample_hall_points(8, *pts, ty=ty)
+    assert ran == ([8] if gp_plain else [])
 
 
 @pytest.mark.parametrize("N,Rr,D,ty,nh,Mh,what", [

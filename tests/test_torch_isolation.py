@@ -4,8 +4,11 @@
   whose import system refuses ``jax`` and ``sampling_gpmpc_tpu``;
   ``chip_smoke.py`` imports neither either;
 * entry points called without a device on a host without CUDA raise;
-* the kernel wrappers take their plain version only for CPU tensors: any
-  other device launches the kernel or raises.
+* the kernel wrappers take their plain version only where
+  ``build.kernel_route`` says so (CPU tensors, or a stage that
+  ``routes.plain_route`` holds plain, also for a wrapper bound by name):
+  any other device launches the kernel or raises;
+* ``ops/`` imports neither ``agent`` nor ``ocp/``.
 """
 
 import ast
@@ -20,8 +23,15 @@ import pytest
 import torch
 
 from sampling_gpmpc_torch import setup
-from sampling_gpmpc_torch.ops import (batch_linalg, batched_chol, gp_hall,
-                                      gp_sample, ipm)
+from sampling_gpmpc_torch.ocp import assemble
+from sampling_gpmpc_torch.ocp.assemble import condensed_qp
+from sampling_gpmpc_torch.ops import (batch_linalg, batched_chol, build,
+                                      glue, gp_hall, gp_sample, ipm, routes)
+from sampling_gpmpc_torch.ops.gp_hall import (hall_blocks, sample_hall,
+                                              sample_hall_one,
+                                              sample_hall_points)
+from sampling_gpmpc_torch.ops.gp_sample import sample_empty, sample_empty_one
+from sampling_gpmpc_torch.ops.ipm import run_full
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -184,19 +194,68 @@ def _refuse(*a, **k):
     raise AssertionError("plain version taken for a non-CPU tensor")
 
 
+def _plain_where_the_rule_says(monkeypatch, mod, plain, stage, call):
+    """On the same meta tensors, the wrapper's plain body runs once the
+    stage is held plain (``build.kernel_route`` false), and not before."""
+    assert build.kernel_route(stage, "meta")
+    ran = []
+    monkeypatch.setattr(mod, plain, lambda *a, **k: ran.append(1) or "plain")
+    with routes.plain_route(**{s: s == stage for s in ("gp", "qp",
+                                                        "glue")}):
+        assert not build.kernel_route(stage, "meta")
+        assert call() == "plain"
+    assert ran == [1] and build.kernel_route(stage, "meta")
+
+
+def _meta(*s):
+    return torch.empty(*s, device="meta")
+
+
+def _empty_args(no=None):
+    ns, Ht, R = 2, 6, 4
+    lead = () if no is None else (no,)
+    return (_meta(*lead, ns, Ht, R), _meta(*lead, ns, Ht, Ht),
+            _meta(*lead, ns, Ht), _meta(*lead, R, R), _meta(*lead, R),
+            _meta(*lead, Ht), 1e-6, 2.5, -1.0, 1e-5)
+
+
+def _hall_args(no=None):
+    ns, Ht, Rr, Rh = 2, 6, 4, 8
+    lead = () if no is None else (no,)
+    return (4, _meta(*lead, ns, Ht, Rr), _meta(*lead, ns, Ht, Rh),
+            _meta(*lead, ns, Ht, Ht), _meta(*lead, ns, Rr, Rh),
+            _meta(*lead, ns, Rh, Rh), _meta(*lead, ns, Rh),
+            _meta(*lead, ns, Ht), _meta(*lead, Rr, Rr), _meta(*lead, Rr),
+            _meta(*lead, Ht), 1e-6, 2.5, -1.0, 1e-5)
+
+
+def _points_args():
+    no, ns, N, Mh, H, D, ty = 3, 2, 5, 6, 4, 3, 4
+    return (8, _meta(N, D), _meta(no, N * ty), _meta(ns, no, Mh, D),
+            _meta(ns, no, Mh, ty), _meta(ns, H, D), _meta(ns, no, H, ty),
+            _meta(no, D), _meta(no), _meta(ty))
+
+
+def _qp_args():
+    nU, m_h, m_s = 3, 4, 2
+    return (_meta(nU, nU), _meta(nU), _meta(m_h, nU), _meta(m_h),
+            _meta(m_s, nU), *[_meta(m_s) for _ in range(6)], None, None,
+            3e-5, 1e-7, 150)
+
+
 def test_gp_wrapper_never_falls_back(monkeypatch):
     monkeypatch.setattr(gp_sample, "sample_empty_plain", _refuse)
-    ns, Ht, R = 2, 6, 4
-    meta = lambda *s: torch.empty(*s, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        gp_sample.sample_empty_one(meta(ns, Ht, R), meta(ns, Ht, Ht),
-                                   meta(ns, Ht), meta(R, R), meta(R),
-                                   meta(Ht), 1e-6, 2.5, -1.0, 1e-5, ty=3)
-    # the CPU branch is the only one that calls the plain version, and no
-    # exception handler can turn a failed launch into a plain result
+        gp_sample.sample_empty_one(*_empty_args(), ty=3)
+    # the route rule's branch is the only one that calls the plain
+    # version, and no exception handler can turn a failed launch into a
+    # plain result
     src = inspect.getsource(gp_sample.sample_empty_one)
     assert "try:" not in src and src.count("sample_empty_plain(") == 1
-    assert 'Kxm.device.type == "cpu"' in src
+    assert src.count("build.kernel_route(") == 1
+    _plain_where_the_rule_says(
+        monkeypatch, gp_sample, "sample_empty_plain", "gp",
+        lambda: gp_sample.sample_empty_one(*_empty_args(), ty=3))
 
 
 def test_gp_sample_stacked_wrapper_never_falls_back(monkeypatch):
@@ -204,15 +263,14 @@ def test_gp_sample_stacked_wrapper_never_falls_back(monkeypatch):
     only for CPU tensors, a raise for any other device; the agent makes
     one call of it per stage."""
     monkeypatch.setattr(gp_sample, "sample_empty_plain_stacked", _refuse)
-    no, ns, Ht, R = 3, 2, 6, 4
-    meta = lambda *s: torch.empty(*s, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        gp_sample.sample_empty(meta(no, ns, Ht, R), meta(no, ns, Ht, Ht),
-                               meta(no, ns, Ht), meta(no, R, R), meta(no, R),
-                               meta(no, Ht), 1e-6, 2.5, -1.0, 1e-5, ty=3)
+        gp_sample.sample_empty(*_empty_args(3), ty=3)
     src = inspect.getsource(gp_sample.sample_empty)
     assert "try:" not in src and src.count("sample_empty_plain_stacked(") == 1
-    assert 'Kxm.device.type == "cpu"' in src
+    assert src.count("build.kernel_route(") == 1
+    _plain_where_the_rule_says(
+        monkeypatch, gp_sample, "sample_empty_plain_stacked", "gp",
+        lambda: gp_sample.sample_empty(*_empty_args(3), ty=3))
     from sampling_gpmpc_torch import agent
     src = inspect.getsource(agent._fused_sample_empty)
     assert src.count("gp_sample.sample_empty(") == 1 and "for j" not in src
@@ -220,34 +278,28 @@ def test_gp_sample_stacked_wrapper_never_falls_back(monkeypatch):
 
 def test_gp_hall_wrapper_never_falls_back(monkeypatch):
     monkeypatch.setattr(gp_hall, "sample_hall_plain", _refuse)
-    ns, Ht, Rr, Rh = 2, 6, 4, 8
-    meta = lambda *s: torch.empty(*s, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        gp_hall.sample_hall_one(4, meta(ns, Ht, Rr), meta(ns, Ht, Rh),
-                                meta(ns, Ht, Ht), meta(ns, Rr, Rh),
-                                meta(ns, Rh, Rh), meta(ns, Rh), meta(ns, Ht),
-                                meta(Rr, Rr), meta(Rr), meta(Ht), 1e-6, 2.5,
-                                -1.0, 1e-5, ty=3)
+        gp_hall.sample_hall_one(*_hall_args(), ty=3)
     src = inspect.getsource(gp_hall.sample_hall_one)
     assert "try:" not in src and src.count("sample_hall_plain(") == 1
-    assert 'Kxr.device.type == "cpu"' in src
+    assert src.count("build.kernel_route(") == 1
+    _plain_where_the_rule_says(
+        monkeypatch, gp_hall, "sample_hall_plain", "gp",
+        lambda: gp_hall.sample_hall_one(*_hall_args(), ty=3))
 
 
 def test_gp_hall_stacked_wrapper_never_falls_back(monkeypatch):
     """The every-output stage the agent calls: the plain version only for
     CPU tensors, a raise for any other device."""
     monkeypatch.setattr(gp_hall, "sample_hall_plain_stacked", _refuse)
-    no, ns, Ht, Rr, Rh = 3, 2, 6, 4, 8
-    meta = lambda *s: torch.empty(*s, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        gp_hall.sample_hall(4, meta(no, ns, Ht, Rr), meta(no, ns, Ht, Rh),
-                            meta(no, ns, Ht, Ht), meta(no, ns, Rr, Rh),
-                            meta(no, ns, Rh, Rh), meta(no, ns, Rh),
-                            meta(no, ns, Ht), meta(no, Rr, Rr), meta(no, Rr),
-                            meta(no, Ht), 1e-6, 2.5, -1.0, 1e-5, ty=3)
+        gp_hall.sample_hall(*_hall_args(3), ty=3)
     src = inspect.getsource(gp_hall.sample_hall)
     assert "try:" not in src and src.count("sample_hall_plain_stacked(") == 1
-    assert 'Kxr.device.type == "cpu"' in src
+    assert src.count("build.kernel_route(") == 1
+    _plain_where_the_rule_says(
+        monkeypatch, gp_hall, "sample_hall_plain_stacked", "gp",
+        lambda: gp_hall.sample_hall(*_hall_args(3), ty=3))
     # the agent's hall stage is one call of its entry from the points
     from sampling_gpmpc_torch import agent
     src = inspect.getsource(agent._fused_sample_hall)
@@ -256,41 +308,121 @@ def test_gp_hall_stacked_wrapper_never_falls_back(monkeypatch):
 
 def test_gp_hall_points_wrappers_never_fall_back(monkeypatch):
     """The stage from the points and its blocks launch: the plain versions
-    only for CPU tensors, a raise for any other device."""
+    only where the route rule says so, a raise for any other device."""
     monkeypatch.setattr(gp_hall, "sample_hall_points_plain", _refuse)
     monkeypatch.setattr(gp_hall, "hall_blocks_plain", _refuse)
-    no, ns, N, Mh, H, D, ty = 3, 2, 5, 6, 4, 3, 4
-    meta = lambda *s: torch.empty(*s, device="meta")
-    pts = (meta(N, D), meta(no, N * ty), meta(ns, no, Mh, D),
-           meta(ns, no, Mh, ty), meta(ns, H, D), meta(ns, no, H, ty),
-           meta(no, D), meta(no), meta(ty))
+    pts, ty = _points_args(), 4
+    no, N = 3, 5
+    fac = (_meta(no, N * ty, N * ty), _meta(no, N * ty), 1e-6, 2.5, -1.0,
+           1e-5)
     with pytest.raises(ValueError, match="unsupported device"):
-        gp_hall.sample_hall_points(8, *pts, meta(no, N * ty, N * ty),
-                                   meta(no, N * ty), 1e-6, 2.5, -1.0, 1e-5,
-                                   ty=ty)
+        gp_hall.sample_hall_points(*pts, *fac, ty=ty)
     with pytest.raises(ValueError, match="unsupported device"):
-        gp_hall.hall_blocks(8, *pts, ty=ty)
-    for fn, plain in (
-            (gp_hall.sample_hall_points, "sample_hall_points_plain("),
-            (gp_hall.hall_blocks, "hall_blocks_plain(")):
+        gp_hall.hall_blocks(*pts, ty=ty)
+    for fn, plain, call in (
+            (gp_hall.sample_hall_points, "sample_hall_points_plain",
+             lambda: gp_hall.sample_hall_points(*pts, *fac, ty=ty)),
+            (gp_hall.hall_blocks, "hall_blocks_plain",
+             lambda: gp_hall.hall_blocks(*pts, ty=ty))):
         src = inspect.getsource(fn)
-        assert "try:" not in src and src.count(plain) == 1
-        assert 'Xt.device.type == "cpu"' in src
+        assert "try:" not in src and src.count(plain + "(") == 1
+        assert src.count("build.kernel_route(") == 1
+        _plain_where_the_rule_says(monkeypatch, gp_hall, plain, "gp", call)
 
 
 def test_ipm_wrapper_never_falls_back(monkeypatch):
     monkeypatch.setattr(ipm, "run_full_plain", _refuse)
-    nU, m_h, m_s = 3, 4, 2
-    meta = lambda *s: torch.empty(*s, device="meta")
-    args = (meta(nU, nU), meta(nU), meta(m_h, nU), meta(m_h), meta(m_s, nU),
-            *[meta(m_s) for _ in range(6)])
     with pytest.raises(ValueError, match="not CUDA"):
-        ipm.run_full(*args, None, None, 3e-5, 1e-7, 150)
+        ipm.run_full(*_qp_args())
     src = inspect.getsource(ipm.run_full)
     assert "try:" not in src and src.count("run_full_plain(") == 1
-    assert 'g.device.type == "cpu"' in src
+    assert src.count("build.kernel_route(") == 1
     for fn in (ipm.prepare, ipm.mehrotra):
         assert "try:" not in inspect.getsource(fn)
+    _plain_where_the_rule_says(monkeypatch, ipm, "run_full_plain", "qp",
+                               lambda: ipm.run_full(*_qp_args()))
+
+
+def _glue_args():
+    from sampling_gpmpc_torch.parallel.worker import glue_inputs
+    args = list(glue_inputs("params_pendulum1D_samples", 2,
+                            torch.device("cpu"), torch.float32)[0])
+    args[2] = args[2].to("meta")
+    return args
+
+
+# wrappers bound by name at import, before any plain_route: (wrapper, its
+# module, its plain body, stage, arguments)
+BOUND_BY_NAME = {
+    "sample_empty_one": lambda: (sample_empty_one, gp_sample,
+                                 "sample_empty_plain", "gp",
+                                 _empty_args()),
+    "sample_empty": lambda: (sample_empty, gp_sample,
+                             "sample_empty_plain_stacked", "gp",
+                             _empty_args(3)),
+    "sample_hall_one": lambda: (sample_hall_one, gp_hall,
+                                "sample_hall_plain", "gp", _hall_args()),
+    "sample_hall": lambda: (sample_hall, gp_hall,
+                            "sample_hall_plain_stacked", "gp",
+                            _hall_args(3)),
+    "sample_hall_points": lambda: (
+        sample_hall_points, gp_hall, "sample_hall_points_plain", "gp",
+        _points_args() + (_meta(3, 20, 20), _meta(3, 20), 1e-6, 2.5, -1.0,
+                          1e-5)),
+    "hall_blocks": lambda: (hall_blocks, gp_hall, "hall_blocks_plain", "gp",
+                            _points_args()),
+    "run_full": lambda: (run_full, ipm, "run_full_plain", "qp", _qp_args()),
+    "condensed_qp": lambda: (condensed_qp, assemble, "assemble_iteration",
+                             "glue", _glue_args()),
+}
+
+
+@pytest.mark.parametrize("name", list(BOUND_BY_NAME))
+def test_a_wrapper_bound_by_name_follows_plain_route(name, monkeypatch):
+    """A wrapper imported by name before ``plain_route`` takes its plain
+    body inside the block (the rule is read at the call, not swapped into
+    the module), and its kernel route again after it: on meta tensors,
+    which the kernel route refuses."""
+    fn, mod, plain, stage, args = BOUND_BY_NAME[name]()
+    kw = {"ty": 4} if name in ("sample_hall_points", "hall_blocks") else {}
+    monkeypatch.setattr(mod, plain, lambda *a, **k: "plain")
+    with routes.plain_route(**{s: s == stage for s in ("gp", "qp",
+                                                        "glue")}):
+        assert fn(*args, **kw) == "plain"
+    with pytest.raises(ValueError):
+        fn(*args, **kw)
+
+
+def test_ops_import_neither_agent_nor_ocp():
+    """The kernel layer imports no layer above it: no module of ops/
+    imports ``sampling_gpmpc_torch.agent`` or anything under
+    ``sampling_gpmpc_torch.ocp`` (by AST, imports inside functions
+    included)."""
+    ops_dir = os.path.join(ROOT, "sampling_gpmpc_torch", "ops")
+    above = ("sampling_gpmpc_torch.agent", "sampling_gpmpc_torch.ocp")
+    for name in sorted(os.listdir(ops_dir)):
+        if not name.endswith(".py"):
+            continue
+        with open(os.path.join(ops_dir, name)) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            mods = []
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = node.module or ""
+                if node.level:
+                    pkg = "sampling_gpmpc_torch.ops".split(".")
+                    base = ".".join(pkg[:len(pkg) - node.level + 1]
+                                    + ([base] if base else []))
+                mods = [base] + [f"{base}.{a.name}" for a in node.names]
+            for m in mods:
+                assert not any(m == a or m.startswith(a + ".")
+                               for a in above), (name, m)
+    # the chain and the linearization live in ocp/assemble.py alone
+    from sampling_gpmpc_torch import agent
+    assert not hasattr(glue, "assemble_plain")
+    assert not hasattr(agent, "dyn_linearization")
 
 
 def test_fused_gates_need_cuda_float32(monkeypatch):

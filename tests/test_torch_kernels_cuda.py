@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from sampling_gpmpc_torch.ocp import qp as qp_mod
+from sampling_gpmpc_torch.ocp.assemble import (assemble_iteration,
+                                               condensed_qp, row_counts)
 from sampling_gpmpc_torch.ops import (batch_linalg, batched_chol, glue,
                                       gp_hall, gp_sample, ipm, routes)
 
@@ -472,7 +474,7 @@ def _solve_vs_plain(dev, nU, mh, ms):
     kw = (3e-5, 1e-7, 150, qp_mod.STALL_ITERS, qp_mod.STALL_RTOL,
           qp_mod.MU_GRIND, qp_mod.WS_BAND)
     kw64 = (1e-12, 1e-13) + kw[2:]
-    before = dict(ipm.LAUNCHES)
+    before = routes.launch_counts()
     ws = wv = ws64 = None
     for dg in (0.0, 1e-3):
         a = list(args)
@@ -490,7 +492,8 @@ def _solve_vs_plain(dev, nU, mh, ms):
         assert err_k <= 2.0 * err_p + 1e-3 * scale, (dg, err_k, err_p)
         ws, ws64 = sol.state, ex.state
         wv = torch.ones((), dtype=torch.bool, device=dev)
-    assert {k: ipm.LAUNCHES[k] - before[k] for k in before} == {
+    after = routes.launch_counts()
+    assert {k: after[k] - before[k] for k in ipm.KERNELS} == {
         "ipm_prepare": 2, "ipm_mehrotra": 2}
 
 
@@ -689,14 +692,12 @@ def test_solve_recorded_matches_solve_bitwise(dev):
     counts = []
     out = []
     for recorded in (False, True):
-        for d in (gp_sample.LAUNCHES, gp_hall.LAUNCHES, ipm.LAUNCHES):
-            for k in d:
-                d[k] = 0
+        routes.zero_launch_counts()
         st = (sqp.solve_recorded(*args)[0] if recorded
               else sqp.solve(*args))
         torch.cuda.synchronize()
-        counts.append({**gp_sample.LAUNCHES, **gp_hall.LAUNCHES,
-                       **ipm.LAUNCHES})
+        counts.append({k: v for k, v in routes.launch_counts().items()
+                       if k not in glue.LAUNCHES})
         out.append(st)
     a, b = out
     assert a.it == b.it == spec.max_sqp_iter
@@ -850,8 +851,8 @@ def test_glue_kernel_matches_plain(dev, config, ns, over):
     """The condensing and assembly kernel against its plain version on
     every output: the QP tuple, T and Gamma (GLUE_RTOL)."""
     spec, ocp, comb, X, U, st = _glue_problem(dev, config, ns, **over)
-    got = glue.assemble(spec, ocp, comb, X, U, st)
-    ref = glue.assemble_plain(spec, ocp, comb, X, U, st)
+    got = condensed_qp(spec, ocp, comb, X, U, st)
+    ref = assemble_iteration(spec, ocp, comb, X, U, st)
     torch.cuda.synchronize()
     _glue_close(got, ref)
 
@@ -867,9 +868,9 @@ def test_glue_other_branch_matches_plain(dev, config, ns, gram):
     the narrow shapes, the sums in shared memory at nU = 100; both agree
     with the plain version (GLUE_RTOL)."""
     spec, ocp, comb, X, U, st = _glue_problem(dev, config, ns)
-    assert glue.layout(spec)[1] != gram
-    got = glue.launch(spec, ocp, comb, X, U, st, gram=gram)
-    ref = glue.assemble_plain(spec, ocp, comb, X, U, st)
+    assert glue.layout(spec, row_counts(spec))[1] != gram
+    got = glue.launch(spec, row_counts(spec), ocp, comb, X, U, st, gram=gram)
+    ref = assemble_iteration(spec, ocp, comb, X, U, st)
     torch.cuda.synchronize()
     _glue_close(got, ref)
 
@@ -882,8 +883,8 @@ def test_glue_kernel_is_deterministic(dev, config, ns, over):
     atomics (the flagship, the Gram launch at nU = 200 and 256, CTAs
     looping over samples)."""
     spec, ocp, comb, X, U, st = _glue_problem(dev, config, ns, **over)
-    a = glue.launch(spec, ocp, comb, X, U, st)
-    b = glue.launch(spec, ocp, comb, X, U, st)
+    a = glue.launch(spec, row_counts(spec), ocp, comb, X, U, st)
+    b = glue.launch(spec, row_counts(spec), ocp, comb, X, U, st)
     torch.cuda.synchronize()
     for x, y in zip((*a[0], a[1], a[2]), (*b[0], b[1], b[2])):
         assert torch.equal(x, y)
@@ -894,14 +895,15 @@ def test_glue_kernel_is_deterministic(dev, config, ns, over):
                                        ("params_car_samples", 10)])
 def test_glue_group_route_adds_the_input_block_after(dev, config, ns):
     """Under a sample-axis group the launch leaves the input block out of
-    (H, g) and the wrapper adds ``input_cost`` after the psum: with the
+    (H, g) and ``condensed_qp`` adds ``input_cost`` after the psum: with the
     block added so, the result equals the ungrouped launch (H bit for bit,
     g to the float32 rounding of 2 Ubar Qu's sum over nu), every row
     bit for bit."""
     from sampling_gpmpc_torch.ocp.assemble import input_cost
     spec, ocp, comb, X, U, st = _glue_problem(dev, config, ns)
-    whole = glue.launch(spec, ocp, comb, X, U, st)
-    part = glue.launch(spec, ocp, comb, X, U, st, with_block=False)
+    whole = glue.launch(spec, row_counts(spec), ocp, comb, X, U, st)
+    part = glue.launch(spec, row_counts(spec), ocp, comb, X, U, st,
+                       with_block=False)
     H_in, g_in = input_cost(spec, ocp, U)
     torch.cuda.synchronize()
     assert torch.equal(part[0][0] + H_in, whole[0][0])
@@ -920,8 +922,8 @@ def test_glue_refuses_float64_on_the_card(dev):
     ocp64 = type(ocp)(*(t.double() for t in ocp))
     before = glue.LAUNCHES["glue_condense"]
     with pytest.raises(ValueError, match="need float32"):
-        glue.assemble(spec, ocp64, comb.double(), X.double(), U.double(),
-                      st.double())
+        condensed_qp(spec, ocp64, comb.double(), X.double(), U.double(),
+                     st.double())
     assert glue.LAUNCHES["glue_condense"] == before
 
 

@@ -12,7 +12,7 @@ from torch.profiler import ProfilerActivity, profile
 from perfbench import cell
 from sampling_gpmpc_torch import bench, obs
 from sampling_gpmpc_torch.ocp import sqp
-from sampling_gpmpc_torch.ops import build
+from sampling_gpmpc_torch.ops import build, ipm
 
 GLUE, GP, QP, LOOP = obs.GLUE, obs.GP, obs.QP, obs.LOOP
 
@@ -209,6 +209,19 @@ def test_counters_live_in_obs_alone():
     assert table == {"k": 1} and tally == {"k": 1}
     obs.count(table, "k")
     assert table == {"k": 2} and tally == {"k": 1}
+
+
+def test_thread_tally_counts_ipm_launches_by_kernel():
+    """A block's tally (``BlockGroup.launches``) names an IPM launch by its
+    kernel, as ``routes.launch_counts`` does, whatever build it ran."""
+    table = dict.fromkeys(ipm.LAUNCHES, 0)
+    with obs.thread_tally() as tally:
+        obs.count(table, ("ipm_prepare", "ipm"))
+        obs.count(table, ("ipm_prepare", "ipm_hard_wide"))
+        obs.count(table, ("ipm_mehrotra", "ipm_wide"))
+    assert tally == {"ipm_prepare": 2, "ipm_mehrotra": 1}
+    assert table[("ipm_prepare", "ipm_hard_wide")] == 1
+    assert sum(table.values()) == 3
 
 
 # the CPU's plain GP and QP bodies, which the card's kernels replace, and

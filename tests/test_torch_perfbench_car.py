@@ -54,9 +54,12 @@ def tiny_car(tmp_path, ns=4, H=8) -> str:
     return path
 
 
-def run_car(tmp_path, fault=None, seconds=0.8, seed=2 ** 33 + 7):
+def run_car(tmp_path, fault=None, seconds=3.0, seed=2 ** 33 + 7):
     """One run of the cell on the CPU, float64, with ``fault`` planted
-    (None: sound); the result line as a dict."""
+    (None: sound); the result line as a dict.  The window ends with the
+    first step that ends past ``seconds``: a step takes ~0.3 s alone and
+    ~0.9 s with three busy processes a core, so 3 s leaves room for the
+    two steps the test asks for on a loaded host."""
     c = cell.load(WORKLOAD)
     c.config_path = tiny_car(tmp_path)
     c.mix = dataclasses.replace(c.mix, **MIX)
