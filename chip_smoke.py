@@ -241,6 +241,17 @@ the condensing and assembly kernel (csrc/glue.cu):
              at every shape the device time of both branches beside the
              bound (bytes) and the plain version's; the wrapper's host time
              a call;
+the step's consumption (csrc/glue.cu, glue_advance_kernel):
+31. advance — the kernel against the torch chain it replaces (ocp/sqp.py::
+             consume_step on the candidate) at the same shapes, a solve's
+             first step and a stalled one: counters, alpha, done, qp_valid
+             and qp_iters equal, X and U within two dot products' float32
+             bound (gamma_nU) of their terms' magnitude, the norms within
+             ADVANCE_NORM_RTOL, two launches bit for
+             bit; one launch per SQP iteration in phase 30's solves and none
+             under plain_route(glue=True); at every shape its device time
+             beside the bound (bytes), sqp._advance's on the kernel route
+             and the torch chain's; the wrapper's host time a call;
 then one JSON line listing the kernels, the card line, and the contract
 line {"ok": true, "device": {...}}.
 """
@@ -821,7 +832,7 @@ def f1_stages(dev, seed=0):
     for nh in F1_FILLS:
         refs = [gp_hall.bordered_factor(
             nh, **{k: kw[k] for k in ("Kxr", "Kxh", "Ktt", "Arh", "Ahh",
-                                      "yh", "Linv", "w_r")},
+                                      "yh", "Linv", "w_r", "prior_var")},
             jitter=scal["jitter"])[1:] for kw in hall[nh]]
         out[nh] = (dict(to32(stack(hall[nh])), nh=nh, **scal),
                    torch.stack([r[0] for r in refs]).to(dev),
@@ -1605,8 +1616,9 @@ def stage_ref64(st, nh=None):
         return (f64("Kxm") @ f64("alpha")[:, None, :, None])[..., 0], var
     refs = [gp_hall.bordered_factor(
         nh, *(st[k][j].to(torch.float64) for k in (
-            "Kxr", "Kxh", "Ktt", "Arh", "Ahh", "yh", "Linv", "w_r")),
-        jitter=st["jitter"])[1:] for j in range(st["Kxr"].shape[0])]
+            "Kxr", "Kxh", "Ktt", "Arh", "Ahh", "yh", "Linv", "w_r",
+            "prior_var")), jitter=st["jitter"])[1:]
+        for j in range(st["Kxr"].shape[0])]
     return (torch.stack([r[0] for r in refs]),
             torch.stack([r[1] for r in refs]))
 
@@ -3261,7 +3273,7 @@ def bench_phase(dev, checks, results):
               f"{r['launches_per_step']}", flush=True)
     one = {"gp_sample": 1.0, "gp_hall": 0.0, "gp_hall_blocks": 0.0,
            "ipm_prepare": 1.0, "ipm_mehrotra": 1.0, "glue_condense": 1.0,
-           "glue_gram": 0.0}
+           "glue_gram": 0.0, "glue_advance": 1.0}
     for name in ("ns64", "ns512"):
         if rows[name]["launches_per_step"] != one:
             fail(f"bench {name}: launches per step "
@@ -3271,7 +3283,8 @@ def bench_phase(dev, checks, results):
     want = {"gp_sample": car["steps"], "gp_hall": sum(its) - len(its),
             "gp_hall_blocks": sum(its) - len(its),
             "ipm_prepare": sum(its), "ipm_mehrotra": sum(its),
-            "glue_condense": sum(its), "glue_gram": 0}
+            "glue_condense": sum(its), "glue_gram": 0,
+            "glue_advance": sum(its)}
     if car["launches"] != want:
         fail(f"bench car: launches {car['launches']}, expected {want}")
     print(f"[bench] idle share (ns=64, 5 traced steps, busy over their "
@@ -3517,10 +3530,18 @@ def glue_phase(dev):
           f"{pend['glue_condense']}, {pend['glue_gram']} in {its}; "
           f"params_car_residual {res['glue_condense']}, {res['glue_gram']} "
           f"in {s_r.it}", flush=True)
+    print(f"[advance] launches (glue_advance): params_car solve "
+          f"{car['glue_advance']} in {s.it} SQP iterations; 5 params_"
+          f"pendulum1D_samples steps {pend['glue_advance']} in {its}; "
+          f"params_car_residual {res['glue_advance']} in {s_r.it}",
+          flush=True)
     if (car["glue_condense"], car["glue_gram"]) != (s.it, 0) or \
             (pend["glue_condense"], pend["glue_gram"]) != (its, 0) or \
             (res["glue_condense"], res["glue_gram"]) != (s_r.it, s_r.it):
         fail("glue: not one launch per SQP iteration on the main path")
+    if (car["glue_advance"], pend["glue_advance"], res["glue_advance"]) != \
+            (s.it, its, s_r.it):
+        fail("advance: not one launch per SQP iteration on the main path")
 
     # the wrapper's host time a call at the flagship's shape
     torch.cuda.synchronize()
@@ -3541,6 +3562,147 @@ def glue_phase(dev):
                 launches_pendulum_steps=pend["glue_condense"],
                 launches_car_residual=(res["glue_condense"],
                                        res["glue_gram"]))
+
+
+# the step's consumption against the torch chain it replaces (consume_step
+# on the candidate): float32 rounding of the norms' sums in two orders; the
+# iterate within the float32 bound of a dot of nU terms (gamma_n = n u) for
+# each of the two orders, on the magnitude of what is summed
+ADVANCE_NORM_RTOL = 1e-6
+
+
+def advance_bound(spec):
+    """Bytes and float32 operations of one advance launch: Gamma, T, the
+    iterate and dU read once, the new iterate written once (the scalars
+    aside); the row dots, the candidate and the four squared norms."""
+    rows = spec.ns * (spec.H + 1) * spec.nx
+    nU = spec.H * spec.nu
+    return 4 * (rows * nU + 3 * rows + 3 * nU), 2 * rows * nU + 6 * rows \
+        + 6 * nU
+
+
+def advance_phase(dev):
+    """Phase 31 (module docstring).  Returns the kernel's results for the
+    report."""
+    import torch
+    from sampling_gpmpc_torch.microbench_linalg import cuda_ms
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.ocp.assemble import condensed_qp
+    from sampling_gpmpc_torch.ocp.qp import QPSolution
+    from sampling_gpmpc_torch.ops import glue
+    from sampling_gpmpc_torch.parallel.worker import glue_inputs
+    i32, f32 = torch.int32, torch.float32
+    by_config, worst, flagship = {}, 0.0, None
+    for config, ns in GLUE_CONFIGS:
+        args = glue_inputs(config, ns, dev, f32)[0]
+        spec, X, U = args[0], args[3], args[4]
+        _, T, Gamma = condensed_qp(*args)
+        g = torch.Generator().manual_seed(ns)
+        z = (0.5 * torch.randn(spec.H * spec.nu, generator=g)).to(dev)
+        # a solve's first step, and a stalled one (alpha halves: both
+        # passes of the kernel run)
+        for label, best, stall in (("first", float("inf"), 0),
+                                   ("stall", 0.0, sqp.STALL_WINDOW - 1)):
+            ins = (X, U, T, Gamma, z, torch.tensor(0, device=dev),
+                   torch.tensor(9, dtype=i32, device=dev),
+                   torch.tensor(best, dtype=f32, device=dev),
+                   torch.tensor(stall, dtype=i32, device=dev),
+                   torch.zeros((), dtype=i32, device=dev),
+                   torch.ones((), dtype=f32, device=dev),
+                   torch.tensor(31, dtype=i32, device=dev))
+            got = glue.advance(spec, *ins, sqp.STALL)
+            again = glue.advance(spec, *ins, sqp.STALL)
+            ok = ins[5] == 0
+            ref = sqp.consume_step(
+                spec, X, U, *sqp.candidate(spec, X, U, T, Gamma, z), ok,
+                *ins[7:11]) + (ok, ins[11] + ins[6])
+            terms = T.abs() + torch.einsum("ikau,u->ika", Gamma.abs(),
+                                           z.abs())
+            scale = {"X": float((X.abs() + terms.transpose(0, 1)).max()),
+                     "U": float((U.abs() + z.abs().reshape(U.shape)).max())}
+            gamma = 2 * (spec.H * spec.nu + 2) * 2.0 ** -24
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, b, c in zip(glue.ADVANCE_OUTPUTS, got, ref, again):
+                if not torch.equal(a, c):
+                    fail(f"advance {config}: two launches differ in {name}")
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    fail(f"advance {config}: {name} {a.dtype} "
+                         f"{tuple(a.shape)} against {b.dtype} "
+                         f"{tuple(b.shape)}")
+                if name in ("X", "U"):
+                    errs[name] = float((a - b).abs().max()) / max(
+                        scale[name], 1e-30)
+                    if errs[name] > gamma:
+                        fail(f"advance {config} ({label}): {name} off by "
+                             f"{errs[name]:.3e} of its terms' scale")
+                elif name in ("x_diff", "u_diff", "best_step"):
+                    errs[name] = abs(float(a) - float(b)) / max(
+                        abs(float(b)), 1e-30)
+                    if errs[name] > ADVANCE_NORM_RTOL:
+                        fail(f"advance {config} ({label}): {name} "
+                             f"{float(a)!r} against {float(b)!r}")
+                elif not torch.equal(a, b):
+                    fail(f"advance {config} ({label}): {name} {a} against "
+                         f"{b}")
+            if label == "stall" and float(got[8]) != 0.5:
+                fail(f"advance {config}: the stall branch left alpha "
+                     f"{float(got[8])}")
+            w = max(errs.values())
+            worst = max(worst, w)
+            print(f"[advance] {config} (ns={ns}, H={spec.H}, nx={spec.nx}, "
+                  f"nU={spec.H * spec.nu}; {label}): largest relative "
+                  f"difference from the torch chain {w:.3e} (X, U to "
+                  f"{gamma:.2e} of their terms, norms to "
+                  f"{ADVANCE_NORM_RTOL}); "
+                  f"counters, alpha, done, qp_valid, qp_iters equal; two "
+                  f"launches bit for bit", flush=True)
+        # device ms: the kernel alone; sqp._advance on each route, the
+        # plain one (the torch chain) through plain_route(glue=True)
+        st = sqp.SolveState(
+            X=X, U=U, X_prev=X, U_prev=U, gp=None, it=0, status=ins[5],
+            done=ok, qp_ws=(), qp_valid=ok, qp_iters=ins[11],
+            qp_gap=ins[10], best_step=ins[7], stall_count=ins[8],
+            mono_count=ins[9], alpha=ins[10])
+        sol = QPSolution(z=z, lam=None, s=None, iters=ins[6],
+                         status=ins[5], gap=ins[10], state=())
+        t_k = cuda_ms(lambda: glue.advance(spec, *ins, sqp.STALL))
+        t_r = cuda_ms(lambda: sqp._advance(spec, st, T, Gamma, None, sol))
+        with plain_route(gp=False, qp=False, glue=True):
+            zero_launch_counts()
+            t_p = cuda_ms(lambda: sqp._advance(spec, st, T, Gamma, None,
+                                               sol), n=10, warm=2, k=1)
+            if launch_counts()["glue_advance"]:
+                fail("advance: launched under plain_route(glue=True)")
+        nb, fl = advance_bound(spec)
+        b, by = bound_ms(nb, fl)
+        by_config[config] = dict(ns=ns, H=spec.H, nU=spec.H * spec.nu,
+                                 ms=t_k, route_ms=t_r, plain_ms=t_p,
+                                 bound_ms=b, bound_by=by, max_rel_err=w)
+        print(f"[timing] advance {config}: {t_k:.4f} ms (sqp._advance on "
+              f"the kernel route {t_r:.4f}), plain {t_p:.4f} ms (the torch "
+              f"chain, host-bound); bound {b:.6f} ms ({by}: {nb} B, "
+              f"{fl:.3e} flop)", flush=True)
+        flagship = flagship or (spec, ins)
+
+    # the wrapper's host time a call at the flagship's shape
+    spec, ins = flagship
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        glue.advance(spec, *ins, sqp.STALL)
+    host_ms = (time.perf_counter() - t0) / 200 * 1e3
+    torch.cuda.synchronize()
+    print(f"[timing] advance wrapper's host time {host_ms:.4f} ms a call "
+          f"(params_pendulum1D_samples)", flush=True)
+    flag = by_config[GLUE_CONFIGS[0][0]]
+    return dict(max_abs_err=worst, err_relative_to="X and U: their terms' "
+                "largest magnitude; x_diff, u_diff, best_step: their own "
+                "value",
+                ms=flag["ms"], plain_ms=flag["plain_ms"],
+                bound_ms=flag["bound_ms"], bound_by=flag["bound_by"],
+                library_ms=None, host_ms_per_call=host_ms,
+                by_config=by_config)
 
 
 def free_port():
@@ -4092,6 +4254,8 @@ def main():
     # ==== the condensing and assembly kernel ===============================
     phase("glue")
     glue_res = glue_phase(dev)
+    phase("advance")
+    advance_res = advance_phase(dev)
     results["gp_sample"]["car_samples"] = car_s["timing"]["gp_sample"]
     results["gp_hall"]["car_samples_by_fill"] = car_s["timing"]["gp_hall"]
     results["ipm_prepare"]["drone_pessimistic"] = \
@@ -4184,6 +4348,15 @@ def main():
         "launches_pendulum": launches_pend["glue_condense"],
         **{k: glue_res[k] for k in keys},
         **{k: v for k, v in glue_res.items() if k not in keys}})
+    kernels.append({
+        "name": "glue_advance", "route": "cuda",
+        "source": "sampling_gpmpc_torch/csrc/glue.cu",
+        "replaces": "none: the JAX package leaves the step "
+                    "(sampling_gpmpc_tpu/ocp/sqp.py) to XLA",
+        "launches": launches_car["glue_advance"],
+        "launches_pendulum": launches_pend["glue_advance"],
+        **{k: advance_res[k] for k in keys},
+        **{k: v for k, v in advance_res.items() if k not in keys}})
     # kernels 5-7: launches from the microbench (their entry point), times
     # at the forward-sampling shape, every shape under "by_shape"
     meta_linalg = {

@@ -206,46 +206,67 @@ __device__ void factor_panel(const Tiles& M, int k, int nrows) {
   __syncthreads();
 }
 
+// The first jitter on row t of a GP stage's covariance: the configured
+// jitter, or jitter_rel times the prior variance of the row's task where
+// that is larger, so that it stays above the float32 rounding of the
+// covariance (ops/gp_sample.py::row_jitter).
+__device__ __forceinline__ float row_jitter(float jitter, float jitter_rel,
+                                            const float* pv, int t) {
+  return fmaxf(jitter, jitter_rel * pv[t]);
+}
+
 // exact.safe_cholesky's float32 retry of a covariance factored in the
 // tiles M by factor_panel, its block from row and column c0 (a tile
-// boundary) to row n: while the factor failed (a non-positive pivot leaves
-// the last diagonal entry M(n-1, n-1) non-finite) and ten times the jitter
-// stays within max(1e-3 x the mean of var[0, n - c0), 1e-2), the block is
-// rebuilt from base(a, c) (its lower entries before the factor, a, c
-// counted from c0, holding `added` of the jitter on the diagonal) with the
-// larger jitter and factored again.  A block that fails at every jitter is
-// rebuilt at the first jitter and factored once more: the first factor,
-// NaN from the failing column on, for the non-finite -> mean backstop.  A
-// rebuild writes the block's tiles whole, zero above the diagonal and past
-// row n (factor_panel reads them and needs them finite).  Every thread
-// calls it after the first factor's closing barrier; the loop's condition
-// is the same in every thread (shared values read after a barrier, the
-// mean summed in one order).  The plain version is
-// ops/gp_sample.py::factor_retried.
-template <class Base>
-__device__ void factor_retry(const Tiles& M, int c0, int n, const Base& base,
-                             float added, const float* var, float jitter) {
+// boundary) to row n, each row a counted from c0 factored with its first
+// jitter jit0(a) on the diagonal: while the factor failed (a non-positive
+// pivot leaves the last diagonal entry M(n-1, n-1) non-finite) and ten
+// times the jitter stays within max(1e-3 x the mean of var[0, n - c0),
+// 1e-2) (the largest row's jitter, ten times that of the last try), the
+// block is rebuilt from base(a, c) (its lower entries before the factor,
+// holding jit0 on the diagonal where `added`) with every row's jitter
+// multiplied by ten and factored again.  A block that fails at every
+// jitter is rebuilt at the first jitter and factored once more: the first
+// factor, NaN from the failing column on, for the non-finite -> mean
+// backstop.  A rebuild writes the block's tiles whole, zero above the
+// diagonal and past row n (factor_panel reads them and needs them finite).
+// Every thread calls it after the first factor's closing barrier; the
+// loop's condition is the same in every thread (shared values read after a
+// barrier, the sums in one order).  The products are rounded on their own
+// (__fmul_rn), never fused with the sums, as the plain version
+// ops/gp_sample.py::factor_retried rounds them.
+template <class Base, class Jit>
+__device__ void factor_retry(const Tiles& M, int c0, int n, const Base& base, bool added,
+                             const float* var, const Jit& jit0) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int t0 = c0 / TB, tl = (n + TB - 1) / TB, m = n - c0;
   const int ntile = (tl - t0) * (tl - t0 + 1) / 2;
-  float jit = jitter, cap = -1.f;
+  float mult = 1.f, cap = -1.f, jmax = 0.f;
   // a NaN or an infinity fails the comparison
   while (!(fabsf(M.at(n - 1, n - 1)) <= 3.402823466e38f)) {
     if (cap < 0.f) {
       float s = 0.f;
-      for (int t = 0; t < m; ++t) s += var[t];
+      for (int t = 0; t < m; ++t) {
+        s += var[t];
+        jmax = fmaxf(jmax, jit0(t));
+      }
       cap = fmaxf(1e-3f * (s / (float)m), 1e-2f);
     }
-    const bool more = jit * 10.f <= cap;
-    if (!more && jit == jitter) return;
-    jit = more ? jit * 10.f : jitter;
+    const bool more = __fmul_rn(__fmul_rn(mult, 10.f), jmax) <= cap;
+    if (!more && mult == 1.f) return;
+    mult = more ? __fmul_rn(mult, 10.f) : 1.f;
     for (int e = tid; e < ntile * TILE_FLOATS; e += nt) {
       int I, J;
       lower_tile(e / TILE_FLOATS, I, J);
       const int r = (e % TILE_FLOATS) / TLD, cc = (e % TILE_FLOATS) % TLD;
       const int a = I * TB + r, c = J * TB + cc;
       float v = 0.f;
-      if (cc < TB && a < m && c <= a) v = base(a, c) + (a == c ? jit - added : 0.f);
+      if (cc < TB && a < m && c <= a) {
+        v = base(a, c);
+        if (a == c) {
+          const float j = jit0(a);
+          v = v + (__fmul_rn(mult, j) - (added ? j : 0.f));
+        }
+      }
       M.tile(t0 + I, t0 + J)[r * TLD + cc] = v;
     }
     __syncthreads();

@@ -1,4 +1,5 @@
-// Condensing and QP assembly of one SQP iteration in one launch.
+// Condensing and QP assembly of one SQP iteration in one launch, and
+// (glue_advance_kernel, at the end) the consumption of its step.
 //
 // Replaces no Pallas TPU kernel: the JAX package leaves condensing and
 // assembly (sampling_gpmpc_tpu/ocp/condense.py, ocp/assemble.py) to XLA's
@@ -521,7 +522,232 @@ __global__ void __launch_bounds__(NT) glue_gram_kernel(const GlueArgs a) {
   }
 }
 
+
+// The SQP step's consumption (ocp/sqp.py::consume_step), from the QP's
+// solution to the next iterate and scalars, in one launch.  Replaces no
+// Pallas TPU kernel: the JAX package leaves the step to XLA's fusion.  In
+// the port it ran as ~57 small torch ops an SQP iteration (the candidate
+// X + (T + Gamma dU)', two pairs of norms, the stall / recover rules of the
+// under-relaxation, the selections under the QP's status), each a launch
+// the host issued while the card idled; consume_step stays as its plain
+// version (the CPU and a sample-axis group take it).
+//
+// What bounds it on the H100: latency.  It reads Gamma once (~170 KB at
+// the 1D pendulum's shape, 154 KB in the car, most of it still in L2 from
+// glue_condense_kernel) and writes the iterate (~10 KB), but no element of
+// the new iterate can be chosen before the two norms over all of dX are
+// summed.  So one CTA of ADV_NT threads:
+//   1. the state's scalars are loaded first; each thread forms the
+//      candidate of its rows straight from global memory: the row's dot
+//      with dU (the same dU entry in every lane at a time: one broadcast
+//      load), then T + it, then X + that, each rounded as torch rounds them
+//      (__f*_rn: nvcc contracts nothing); it writes the candidate to the
+//      output, which doubles as the workspace, and adds its squares of dX =
+//      X_cand - X and of X over the first H stages, and of dU and U, to
+//      four float32 sums;
+//   2. a fixed tree (warp shuffles, then one warp over the warps' sums)
+//      reduces them: the same bits every launch, no atomics;
+//   3. every thread applies the stall / recover rules to the sums, and
+//      where the step is not taken whole (alpha < 1) or the QP failed
+//      rewrites the iterate: X + alpha dX, or X itself.  Thread 0 writes
+//      the scalars.
+// The inputs are never written: the caller keeps the entering iterate.
+constexpr int ADV_NT = 1024;
+
+struct AdvanceArgs {
+  const float* X;      // (H + 1, ns, nx) the iterate entering the iteration
+  const float* U;      // (H, nu)
+  const float* T;      // (ns, H + 1, nx)
+  const float* Gamma;  // (ns, H + 1, nx, nU)
+  const float* z;      // (nU,) the QP's step dU
+  const long long* status;  // () the QP's status, 0 = solved
+  const void* iters;        // () the QP's iterations, int32 or int64
+  const float* best_step;   // () the state's scalars
+  const int* stall_count;
+  const int* mono_count;
+  const float* alpha;
+  const void* qp_iters;     // () int32 or int64
+  // outputs
+  float* X_out;
+  float* U_out;
+  float* x_diff;
+  float* u_diff;
+  unsigned char* done;
+  float* best_out;
+  int* stall_out;
+  int* mono_out;
+  float* alpha_out;
+  unsigned char* valid;
+  void* qp_iters_out;  // int64 where either input is
+  int ns, H, nx, nu;
+  int stall_window, recover_window;
+  int iters64, qp_iters64;
+  float tol, shrink, min_alpha;
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ long long read_int(const void* p, int wide) {
+  return wide ? *(const long long*)p : (long long)*(const int*)p;
+}
+
+__global__ void __launch_bounds__(ADV_NT) glue_advance_kernel(const AdvanceArgs a) {
+  __shared__ float s_part[4][ADV_NT / 32];
+  __shared__ float s_sum[4];
+  const int ns = a.ns, H = a.H, nx = a.nx, nU = a.H * a.nu;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rows = (H + 1) * ns * nx;
+  // the state's scalars, loaded first: their latency hides behind 1
+  const float best = *a.best_step, alpha = *a.alpha;
+  const bool ok = *a.status == 0;
+  const int stall_in = *a.stall_count, mono_in = *a.mono_count;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};  // |dX|^2, |X|^2, |dU|^2, |U|^2
+
+  // 1. the candidate, written to the outputs
+  for (int e = tid; e < nU; e += ADV_NT) {
+    const float u = a.U[e];
+    const float uc = __fadd_rn(u, a.z[e]);
+    a.U_out[e] = uc;
+    const float du = __fsub_rn(uc, u);
+    acc[2] = fmaf(du, du, acc[2]);
+    acc[3] = fmaf(u, u, acc[3]);
+  }
+  for (int row = tid; row < rows; row += ADV_NT) {  // (i, k, p) in Gamma's order
+    const int ik = row / nx, p = row - ik * nx;
+    const int i = ik / (H + 1), k = ik - i * (H + 1);
+    const int e = (k * ns + i) * nx + p;  // X's (k, i, p)
+    const float x = a.X[e], t = a.T[row];
+    const float* g = a.Gamma + (size_t)row * nU;
+    float d = 0.f;
+#pragma unroll 8
+    for (int u = 0; u < nU; ++u) d = fmaf(g[u], a.z[u], d);
+    const float xc = __fadd_rn(x, __fadd_rn(t, d));
+    a.X_out[e] = xc;
+    if (k < H) {
+      const float dx = __fsub_rn(xc, x);
+      acc[0] = fmaf(dx, dx, acc[0]);
+      acc[1] = fmaf(x, x, acc[1]);
+    }
+  }
+
+  // 2. the four sums, in a fixed order
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float v = warp_sum(acc[j]);
+    if (lane == 0) s_part[j][warp] = v;
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v = warp_sum(s_part[j][lane]);
+      if (lane == 0) s_sum[j] = v;
+    }
+  }
+  __syncthreads();
+
+  // 3. consume_step's rules on the sums, then the iterate chosen
+  const float x_diff = __fdiv_rn(__fsqrt_rn(s_sum[0]),
+                                 __fadd_rn(__fsqrt_rn(s_sum[1]), 1e-6f));
+  const float u_diff = __fdiv_rn(__fsqrt_rn(s_sum[2]),
+                                 __fadd_rn(__fsqrt_rn(s_sum[3]), 1e-6f));
+  const float sn = __fadd_rn(x_diff, u_diff);
+  const bool improved = sn < __fmul_rn(a.shrink, best);
+  int count = improved ? 0 : stall_in + 1;
+  const bool engage = count >= a.stall_window && sn >= best;
+  int mono = sn < best ? mono_in + 1 : 0;
+  const bool recover = !engage && mono >= a.recover_window && alpha < 1.f;
+  const float alpha_new =
+      engage ? fmaxf(__fmul_rn(alpha, 0.5f), a.min_alpha)
+             : (recover ? fminf(__fmul_rn(alpha, 2.f), 1.f) : alpha);
+  if (engage) count = 0;
+  if (engage || recover) mono = 0;
+  if (!ok || alpha_new != 1.f) {
+    // the candidate back (2's barriers made every thread's writes seen)
+    for (int e = tid; e < rows; e += ADV_NT) {
+      const float x = a.X[e];
+      a.X_out[e] = ok ? __fadd_rn(x, __fmul_rn(alpha_new, __fsub_rn(a.X_out[e], x))) : x;
+    }
+    for (int e = tid; e < nU; e += ADV_NT) {
+      const float u = a.U[e];
+      a.U_out[e] = ok ? __fadd_rn(u, __fmul_rn(alpha_new, __fsub_rn(a.U_out[e], u))) : u;
+    }
+  }
+  if (tid == 0) {
+    *a.x_diff = x_diff;
+    *a.u_diff = u_diff;
+    *a.done = x_diff < a.tol && u_diff < a.tol;
+    // torch.minimum: NaN if either is
+    const float lo = (sn != sn || best != best) ? __fadd_rn(sn, best) : fminf(best, sn);
+    *a.best_out = ok ? lo : best;
+    *a.stall_out = ok ? count : stall_in;
+    *a.mono_out = ok ? mono : mono_in;
+    *a.alpha_out = ok ? alpha_new : alpha;
+    *a.valid = ok;
+    const long long n = read_int(a.qp_iters, a.qp_iters64) + read_int(a.iters, a.iters64);
+    if (a.iters64 || a.qp_iters64)
+      *(long long*)a.qp_iters_out = n;
+    else
+      *(int*)a.qp_iters_out = (int)n;
+  }
+}
+
 }  // namespace
+
+// ptrs: AdvanceArgs' 12 inputs and 11 outputs in order; dims: ns, H, nx, nu,
+// stall_window, recover_window, iters64, qp_iters64, the CUDA device; fargs:
+// tol, shrink, min_alpha.  One launch on the stream, on its device.
+extern "C" int glue_advance(void* const* ptrs, const int* dims,
+                            const float* fargs, void* stream) {
+  AdvanceArgs a;
+  a.X = (const float*)ptrs[0];
+  a.U = (const float*)ptrs[1];
+  a.T = (const float*)ptrs[2];
+  a.Gamma = (const float*)ptrs[3];
+  a.z = (const float*)ptrs[4];
+  a.status = (const long long*)ptrs[5];
+  a.iters = ptrs[6];
+  a.best_step = (const float*)ptrs[7];
+  a.stall_count = (const int*)ptrs[8];
+  a.mono_count = (const int*)ptrs[9];
+  a.alpha = (const float*)ptrs[10];
+  a.qp_iters = ptrs[11];
+  a.X_out = (float*)ptrs[12];
+  a.U_out = (float*)ptrs[13];
+  a.x_diff = (float*)ptrs[14];
+  a.u_diff = (float*)ptrs[15];
+  a.done = (unsigned char*)ptrs[16];
+  a.best_out = (float*)ptrs[17];
+  a.stall_out = (int*)ptrs[18];
+  a.mono_out = (int*)ptrs[19];
+  a.alpha_out = (float*)ptrs[20];
+  a.valid = (unsigned char*)ptrs[21];
+  a.qp_iters_out = ptrs[22];
+  a.ns = dims[0];
+  a.H = dims[1];
+  a.nx = dims[2];
+  a.nu = dims[3];
+  a.stall_window = dims[4];
+  a.recover_window = dims[5];
+  a.iters64 = dims[6];
+  a.qp_iters64 = dims[7];
+  a.tol = fargs[0];
+  a.shrink = fargs[1];
+  a.min_alpha = fargs[2];
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess) return (int)err;
+  if (cur != dims[8] && (err = cudaSetDevice(dims[8])) != cudaSuccess)
+    return (int)err;
+  glue_advance_kernel<<<1, ADV_NT, 0, (cudaStream_t)stream>>>(a);
+  err = cudaGetLastError();
+  if (cur != dims[8]) cudaSetDevice(cur);
+  return (int)err;
+}
 
 // ptrs: GlueArgs' 21 inputs in order, its 8 penalties, its 14 outputs (the
 // workspace last) and the ticket; dims: ns, H, nx, nu, n_ell, feedback, terminal,

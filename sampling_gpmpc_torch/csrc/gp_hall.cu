@@ -7,11 +7,11 @@
 // Ht x Rh, Ktt, Arh Rr x Rh, Ahh Rh x Rh with noise and identity fill, yh)
 // and the fixed real factor of output o as Linv = L_r^-1 and w_r = L_r^-1 y_r:
 //   C = Linv Arh,  V_r = Linv Kxr',  S = Ahh - C'C + jitter I,
-//   B = [Kxh - V_r'C; yh - w_r C],   K = [[Ktt - V_r'V_r + jitter I, -V_r'w_r],
+//   B = [Kxh - V_r'C; yh - w_r C],   K = [[Ktt - V_r'V_r + J, -V_r'w_r],
 //                                         [-w_r'V_r, 0]]
 // and one blocked Cholesky of the bordered matrix M = [[S, B'], [B, K]]:
 //   its first nh columns give L_s and, below them, B L_s^-T = [Vh'; w_h];
-//   their trailing update leaves cov = Ktt - V_r'V_r - Vh'Vh + jitter I in
+//   their trailing update leaves cov = Ktt - V_r'V_r - Vh'Vh + J in
 //   the K block and -mean (mean = w_r V_r + w_h Vh) in its bordering row;
 //   the next Ht columns, bordering row left out, give L = chol(cov);
 // then y = mean + L eps and the override tail (sgp::draw_override_tail_at).
@@ -19,12 +19,16 @@
 // fill are identity rows of S with zero couplings (empty slots are masked),
 // whose elimination steps are exact no-ops for everything read later
 // (pallas_gp.py:315-319).  A non-positive pivot gives NaN, which spreads
-// through the later columns exactly as in a column-by-column sweep; a
-// covariance factor that fails so is retried with ten times the jitter, as
-// gp/exact.py's safe_cholesky does in float32 (sgp::factor_retry, from the
-// covariance block as the hall columns left it, kept in the workspace's
-// Ktt - V_r'V_r region; the TPU kernel has no retry), and one that fails
-// at every jitter, or a Schur pivot's NaN, lands on the non-finite -> mean
+// through the later columns exactly as in a column-by-column sweep.  J is
+// diagonal: row t's jitter is the configured jitter, or jitter_rel times
+// the prior variance of the row's task where that is larger
+// (sgp::row_jitter), above the float32 rounding of the covariance, so that
+// rounding does not decide whether its factor fails.  A covariance factor
+// that fails is retried with ten times the jitter, as gp/exact.py's
+// safe_cholesky does in float32 (sgp::factor_retry, from the covariance
+// block as the hall columns left it, kept in the workspace's Ktt -
+// V_r'V_r region; the TPU kernel has no retry), and one that fails at
+// every jitter, or a Schur pivot's NaN, lands on the non-finite -> mean
 // backstop.
 //
 // What bounds it on the H100.  At the car shape (3 outputs x ns=20, Ht=60,
@@ -198,7 +202,8 @@ gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww
                       const float* __restrict__ pv, const float* __restrict__ close,
                       const float* __restrict__ ynear, float* __restrict__ dg,
                       float* __restrict__ gtiles, int ns, int Ht, int nh, int ty,
-                      float jitter, float beta, float var_zero, float rel_floor) {
+                      float jitter, float jitter_rel, float beta, float var_zero,
+                      float rel_floor) {
   extern __shared__ float sm[];
   const int b = blockIdx.x, o = b / ns, tid = threadIdx.x, nt = blockDim.x;
   const int nhp = (nh + TB - 1) / TB * TB;     // S padded to whole tiles
@@ -217,6 +222,8 @@ gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww
   float* G_i = Gw + (size_t)b * Ht * Ht;
   const float* B_i = Bw + (size_t)b * nh;
   const float* MR_i = MRw + (size_t)b * Ht;
+  const float* pvo = pv + (size_t)o * Ht;
+  const auto jit0 = [&](int t) { return sgp::row_jitter(jitter, jitter_rel, pvo, t); };
   for (int e = tid; e < ntile * TILE_FLOATS; e += nt) T[e] = 0.f;
   for (int t = tid; t < Ht; t += nt) sEps[t] = eps[(size_t)b * Ht + t];
   __syncthreads();
@@ -228,7 +235,7 @@ gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww
   for (int e = tid; e < Ht * nh; e += nt) M.at(nhp + e / nh, e % nh) = W_i[e];
   for (int e = tid; e < Ht * Ht; e += nt) {
     const int a = e / Ht, c = e % Ht;
-    if (c <= a) M.at(nhp + a, nhp + c) = G_i[e] + (a == c ? jitter : 0.f);
+    if (c <= a) M.at(nhp + a, nhp + c) = G_i[e] + (a == c ? jit0(a) : 0.f);
   }
   // the bordering row: yh - w_r C under S, -V_r'w_r under the covariance
   for (int c = tid; c < nh; c += nt) M.at(n2, c) = B_i[c];
@@ -239,7 +246,7 @@ gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww
   for (int k = 0; k < nhp / TB; ++k) factor_panel(M, k, ntot);
   for (int t = tid; t < Ht; t += nt) {
     sMean[t] = -M.at(n2, nhp + t);
-    sVar[t] = M.at(nhp + t, nhp + t) - jitter;
+    sVar[t] = M.at(nhp + t, nhp + t) - jit0(t);
   }
   // the covariance as the hall columns left it, for a retry, over G_i
   // (read into the tiles above)
@@ -252,10 +259,10 @@ gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww
   // jitter while the factor fails
   for (int k = nhp / TB; k * TB < n2; ++k) factor_panel(M, k, n2);
   sgp::factor_retry(M, nhp, n2, [&](int a, int c) { return G_i[(size_t)a * Ht + c]; },
-                    jitter, sVar, jitter);
+                    true, sVar, jit0);
 
   const size_t row = (size_t)b * Ht;
-  sgp::draw_override_tail_at(sgp::TiledAt{M, nhp}, sMean, sVar, sEps, pv + (size_t)o * Ht,
+  sgp::draw_override_tail_at(sgp::TiledAt{M, nhp}, sMean, sVar, sEps, pvo,
                              close ? close + row : nullptr,
                              ynear ? ynear + row : nullptr, dg + row, Ht, ty, beta,
                              var_zero, rel_floor);
@@ -432,9 +439,9 @@ int launch_stage(const float* Kxr, const float* Kxh, const float* Ktt, const flo
                  const float* Ahh, const float* yh, const float* eps, const float* Linv,
                  const float* w_r, const float* pv, const float* close,
                  const float* ynear, float* dg, float* work, int no, int ns, int Ht,
-                 int Rr, int Rh, int nh, int ty, float jitter, float beta,
-                 float var_zero, float rel_floor, int smem_bytes, int global_tiles,
-                 cudaStream_t stream) {
+                 int Rr, int Rh, int nh, int ty, float jitter, float jitter_rel,
+                 float beta, float var_zero, float rel_floor, int smem_bytes,
+                 int global_tiles, cudaStream_t stream) {
   const int nb = no * ns;
   float* C = work;
   float* VT = C + (size_t)nb * Rr * nh;
@@ -484,8 +491,8 @@ int launch_stage(const float* Kxr, const float* Kxh, const float* Ktt, const flo
   if (err != cudaSuccess) return (int)err;
   factor<<<nb, FACTOR_THREADS, smem_bytes, stream>>>(
       S, W, G, Bl, MR, eps, pv, close, ynear, dg,
-      global_tiles ? MR + (size_t)nb * Ht : nullptr, ns, Ht, nh, ty, jitter, beta,
-      var_zero, rel_floor);
+      global_tiles ? MR + (size_t)nb * Ht : nullptr, ns, Ht, nh, ty, jitter,
+      jitter_rel, beta, var_zero, rel_floor);
   return (int)cudaGetLastError();
 }
 
@@ -538,12 +545,13 @@ extern "C" int gp_hall_sample(const float* Kxr, const float* Kxh, const float* K
                               const float* eps, const float* Linv, const float* w_r,
                               const float* pv, const float* close, const float* ynear,
                               float* dg, float* work, int no, int ns, int Ht, int Rr,
-                              int Rh, int nh, int ty, float jitter, float beta,
-                              float var_zero, float rel_floor, int smem_bytes,
-                              int global_tiles, void* stream) {
+                              int Rh, int nh, int ty, float jitter, float jitter_rel,
+                              float beta, float var_zero, float rel_floor,
+                              int smem_bytes, int global_tiles, void* stream) {
   return launch_stage(Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r, pv, close, ynear, dg,
-                      work, no, ns, Ht, Rr, Rh, nh, ty, jitter, beta, var_zero,
-                      rel_floor, smem_bytes, global_tiles, (cudaStream_t)stream);
+                      work, no, ns, Ht, Rr, Rh, nh, ty, jitter, jitter_rel, beta,
+                      var_zero, rel_floor, smem_bytes, global_tiles,
+                      (cudaStream_t)stream);
 }
 
 // The blocks of the stage from the points, into blocks: real_Z (N, D), m_r
@@ -574,8 +582,9 @@ extern "C" int gp_hall_points(const float* real_Z, const float* m_r, const float
                               const float* Linv, const float* w_r, const float* close,
                               const float* ynear, float* dg, float* work, int no, int ns,
                               int N, int Mh, int H, int D, int ty, int hn, float jitter,
-                              float beta, float var_zero, float rel_floor,
-                              int smem_bytes, int global_tiles, void* stream_) {
+                              float jitter_rel, float beta, float var_zero,
+                              float rel_floor, int smem_bytes, int global_tiles,
+                              void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   const HallPoints p = hall_points(real_Z, m_r, hall_Z, hall_Y, Xt, eps, ls, os, noise,
                                    work, no, ns, N, Mh, H, D, ty, hn);
@@ -584,6 +593,6 @@ extern "C" int gp_hall_points(const float* real_Z, const float* m_r, const float
   const int nh = hn * ty, Ht = H * ty;
   return launch_stage(p.Kxr, p.Kxh, p.Ktt, p.Arh, p.Ahh, p.yh, p.eps_o, Linv, w_r, p.pv,
                       close, ynear, dg, p.pv + (size_t)no * Ht, no, ns, Ht, N * ty, nh,
-                      nh, ty, jitter, beta, var_zero, rel_floor, smem_bytes,
-                      global_tiles, stream);
+                      nh, ty, jitter, jitter_rel, beta, var_zero, rel_floor,
+                      smem_bytes, global_tiles, stream);
 }

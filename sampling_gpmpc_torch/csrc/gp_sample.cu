@@ -6,17 +6,21 @@
 // sample i, with the kernel blocks Kx_i (Ht x R, masked) and Ktt_i (Ht x
 // Ht) evaluated outside:
 //   V = Linv Kx_i'          mean = Kx_i alpha
-//   cov = Ktt_i - V'V + jitter I,  var = diag(cov) - jitter
+//   cov = Ktt_i - V'V + J,  var = diag(cov) - diag(J)
 //   L = chol(cov)           y = mean + L eps_i
 //   override tail (sgp::draw_override_tail_at, common.cuh), in exactly
 //   _override_tail's order: relative variance floor, zero variance -> mean
 //   (Ty>1: all tasks of the point), min-dist -> nearest train row, beta
 //   clip, non-finite -> mean.
 // The triangular solve against the fixed real factor is a matmul with
-// Linv.  A failed factorization is retried with ten times the jitter, as
-// gp/exact.py's safe_cholesky does in float32 (sgp::factor_retry; the TPU
-// kernel has no retry); one that fails at every jitter propagates NaN
-// into the sample and lands on the non-finite -> mean backstop.
+// Linv.  J is diagonal: row t's jitter is the configured jitter, or
+// jitter_rel times the prior variance of the row's task where that is
+// larger (sgp::row_jitter), above the float32 rounding of Ktt_i - V'V, so
+// that rounding does not decide whether the factor fails.  A failed
+// factorization is retried with ten times the jitter, as gp/exact.py's
+// safe_cholesky does in float32 (sgp::factor_retry; the TPU kernel has no
+// retry); one that fails at every jitter propagates NaN into the sample
+// and lands on the non-finite -> mean backstop.
 //
 // What bounds it on the H100.  At the car shape (3 outputs x ns=20, Ht=60,
 // R=180) the products are ~4.6 MFLOP per (output, sample), ~0.28 GFLOP a
@@ -43,7 +47,7 @@
 //      kernel follows its plain version's order where it can).  Neither
 //      all of V nor all of Kx_i is ever held: shared memory grows with
 //      Ht^2, not with Ht*R, so any R runs.
-//   3. cov = (Ktt_i - V'V) + jitter I and var = diag(cov) - jitter, in the
+//   3. cov = (Ktt_i - V'V) + J and var = diag(cov) - diag(J), in the
 //      plain version's order, then sgp::factor_panel per 32 columns (the
 //      blocked Cholesky of gp_hall and the batched Cholesky kernels; about
 //      three barriers a panel: 6 at Ht=60 where the earlier column sweep
@@ -119,8 +123,8 @@ gp_sample_kernel(const float* __restrict__ Kx, const float* __restrict__ Ktt,
                  const float* __restrict__ alpha, const float* __restrict__ pv,
                  const float* __restrict__ close, const float* __restrict__ ynear,
                  float* __restrict__ dg, float* __restrict__ work, int ns, int Ht,
-                 int R, int ty, float jitter, float beta, float var_zero,
-                 float rel_floor, int rows_global, int p_global, int tiles_global,
+                 int R, int ty, float jitter, float jitter_rel, float beta,
+                 float var_zero, float rel_floor, int rows_global, int p_global, int tiles_global,
                  int ktt_global, long long work_stride) {
   extern __shared__ float sm[];
   const int b = blockIdx.x, o = b / ns, tid = threadIdx.x;
@@ -262,28 +266,30 @@ gp_sample_kernel(const float* __restrict__ Kx, const float* __restrict__ Ktt,
                         + mpart[3 * PT + tid];
   }
 
-  // 3. cov = (Ktt_i - V'V) + jitter I and the variance, in the plain
+  // 3. cov = (Ktt_i - V'V) + J and the variance, in the plain
   // version's order (each thread adds the Ktt_i entries it copied), Ktt_i
   // - V'V kept in the tiles K for a retry; the blocked factor, retried with
   // more jitter while it fails (sgp::factor_retry), the draw and the
   // override tail
+  const float* pvo = pv + (size_t)o * Ht;
   for (int a = warp; a < Ht; a += nw)
     for (int c = lane; c <= a; c += 32) {
       float v = K.at(a, c) - M.at(a, c);
       K.at(a, c) = v;
       if (a == c) {
-        v = v + jitter;
-        sVar[a] = v - jitter;
+        const float j = sgp::row_jitter(jitter, jitter_rel, pvo, a);
+        v = v + j;
+        sVar[a] = v - j;
       }
       M.at(a, c) = v;
     }
   __syncthreads();
   for (int k = 0; k < nt_t; ++k) sgp::factor_panel(M, k, Ht);   // ends in a barrier
-  sgp::factor_retry(M, 0, Ht, [&](int a, int c) { return K.at(a, c); }, 0.f, sVar,
-                    jitter);
+  sgp::factor_retry(M, 0, Ht, [&](int a, int c) { return K.at(a, c); }, false, sVar,
+                    [&](int a) { return sgp::row_jitter(jitter, jitter_rel, pvo, a); });
   const size_t row = (size_t)b * Ht;
   sgp::draw_override_tail_at(sgp::TiledAt{M, 0}, sMean, sVar, sEps,
-                             pv + (size_t)o * Ht, close ? close + row : nullptr,
+                             pvo, close ? close + row : nullptr,
                              ynear ? ynear + row : nullptr, dg + row, Ht, ty, beta,
                              var_zero, rel_floor);
 }
@@ -300,8 +306,8 @@ extern "C" int gp_sample_empty(const float* Kx, const float* Ktt, const float* e
                                const float* Linv, const float* alpha, const float* pv,
                                const float* close, const float* ynear, float* dg,
                                float* work, int no, int ns, int Ht, int R, int ty,
-                               float jitter, float beta, float var_zero,
-                               float rel_floor, int rows_global, int p_global,
+                               float jitter, float jitter_rel, float beta,
+                               float var_zero, float rel_floor, int rows_global, int p_global,
                                int tiles_global, int ktt_global,
                                long long work_stride, int smem_bytes,
                                void* stream) {
@@ -312,7 +318,7 @@ extern "C" int gp_sample_empty(const float* Kx, const float* Ktt, const float* e
   if (err != cudaSuccess) return (int)err;
   kernel<<<no * ns, NT, smem_bytes, (cudaStream_t)stream>>>(
       Kx, Ktt, eps, Linv, alpha, pv, close, ynear, dg, work, ns, Ht, R, ty, jitter,
-      beta, var_zero, rel_floor, rows_global, p_global, tiles_global, ktt_global,
+      jitter_rel, beta, var_zero, rel_floor, rows_global, p_global, tiles_global, ktt_global,
       work_stride);
   return (int)cudaGetLastError();
 }

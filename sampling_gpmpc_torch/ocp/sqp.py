@@ -8,7 +8,9 @@ and of the JAX package's ``ocp/sqp.py``.  Each iteration:
   2. per-sample affine linearization (A, B, value) with the ancillary
      feedback chain rule,
   3. condensing onto dU, QP assembly, structured soft QP,
-  4. step consumption and the relative-change convergence test.
+  4. step consumption and the relative-change convergence test (one
+     launch of ops/glue.py::advance on the kernel route, else
+     consume_step).
 
 Iteration 0 is peeled (its GP stage runs on an empty buffer).  With
 ``max_sqp_iter == 1`` (SQP-RTI) the solve is that one iteration.
@@ -39,6 +41,7 @@ from sampling_gpmpc_torch.gp.exact import GPHyperArrays
 from sampling_gpmpc_torch.ocp.assemble import condensed_qp, row_counts
 from sampling_gpmpc_torch.ocp.qp import solve_qp_soft
 from sampling_gpmpc_torch.ocp.spec import OCPData
+from sampling_gpmpc_torch.ops import build, glue
 from sampling_gpmpc_torch.parallel.collectives import make_reducers
 
 
@@ -66,6 +69,8 @@ STALL_WINDOW = 6
 STALL_SHRINK = 0.95
 RECOVER_WINDOW = 4
 MIN_ALPHA = 1.0 / 16.0
+# the four as ops/glue.py::advance takes them
+STALL = (STALL_WINDOW, STALL_SHRINK, RECOVER_WINDOW, MIN_ALPHA)
 
 
 def consume_step(spec: ProblemSpec, X_it, U_it, X_cand, U_cand, ok,
@@ -191,27 +196,44 @@ QP_KEYS = ("H", "g", "C_h", "d_h", "G_s", "lo_s", "hi_s", "zl", "zu",
            "Zl", "Zu")
 
 
-def sqp_iteration(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
-                  ocp: OCPData, st_curr, X, U, gp: GPState, eps,
-                  qp_ws=None, qp_valid=None, return_debug: bool = False,
-                  hall_empty: bool = False, group=None,
-                  ordered: bool = False):
-    """One SQP-RTI iteration; returns (X_new, U_new, gp, QPSolution), and
-    with ``return_debug`` also {"dg", "Xt", "qp"}: the sampled GP rows,
-    the GP inputs and the assembled QP (``QP_KEYS``)."""
-    H, nu = spec.H, spec.nu
+def _qp_step(spec, env, hyp, ocp, st_curr, X, U, gp, eps, qp_ws, qp_valid,
+             hall_empty, group, ordered):
+    """An SQP iteration up to its QP: (T, Gamma, gp, QPSolution, debug),
+    debug = {"dg", "Xt", "qp"} as :func:`sqp_iteration` returns it."""
     qp, T, Gamma, gp, dg, Xt = _assemble(spec, env, hyp, ocp, st_curr, X, U,
                                          gp, eps, hall_empty, group, ordered)
     sol = solve_qp_soft(*qp, tol=(spec.qp_tol if spec.qp_tol > 0 else None),
                         ws=qp_ws, ws_valid=qp_valid, group=group,
                         ordered=ordered)
+    return T, Gamma, gp, sol, {"dg": dg, "Xt": Xt,
+                               "qp": dict(zip(QP_KEYS, qp))}
+
+
+def candidate(spec: ProblemSpec, X, U, T, Gamma, z):
+    """The full step's iterate (X + (T + Gamma dU)', U + dU), dU = z[:nU]."""
+    H, nu = spec.H, spec.nu
+    dU = z[:H * nu]
+    dX = T + torch.einsum("ikau,u->ika", Gamma, dU)          # (ns, H+1, nx)
+    return X + dX.transpose(0, 1), U + dU.reshape(H, nu)
+
+
+def sqp_iteration(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
+                  ocp: OCPData, st_curr, X, U, gp: GPState, eps,
+                  qp_ws=None, qp_valid=None, return_debug: bool = False,
+                  hall_empty: bool = False, group=None,
+                  ordered: bool = False):
+    """One SQP-RTI iteration; returns (X_new, U_new, gp, QPSolution), the
+    full step's candidate, and with ``return_debug`` also {"dg", "Xt",
+    "qp"}: the sampled GP rows, the GP inputs and the assembled QP
+    (``QP_KEYS``).  ``solve`` consumes the step through :func:`_advance`
+    instead."""
+    T, Gamma, gp, sol, dbg = _qp_step(spec, env, hyp, ocp, st_curr, X, U,
+                                      gp, eps, qp_ws, qp_valid, hall_empty,
+                                      group, ordered)
     with obs.span("sqp.advance"):
-        dU = sol.z[:H * nu]
-        dX = T + torch.einsum("ikau,u->ika", Gamma, dU)      # (ns, H+1, nx)
-        X_new, U_new = X + dX.transpose(0, 1), U + dU.reshape(H, nu)
+        X_new, U_new = candidate(spec, X, U, T, Gamma, sol.z)
     if return_debug:
-        return X_new, U_new, gp, sol, {"dg": dg, "Xt": Xt,
-                                       "qp": dict(zip(QP_KEYS, qp))}
+        return X_new, U_new, gp, sol, dbg
     return X_new, U_new, gp, sol
 
 
@@ -237,22 +259,34 @@ def _initial_state(spec: ProblemSpec, X0, U0, gp0: GPState, qp_ws,
         alpha=torch.ones((), dtype=dtype, device=dev))
 
 
-def _advance(spec: ProblemSpec, s: SolveState, X_cand, U_cand, gp, sol,
+def _advance(spec: ProblemSpec, s: SolveState, T, Gamma, gp, sol,
              group=None, ordered=False):
-    """The state after one iteration from its candidate step: the one
-    update of ``solve`` and ``solve_recorded``.  Returns (SolveState,
-    x_diff, u_diff)."""
-    ok = sol.status == 0
-    (X, U, x_diff, u_diff, done, best_step, stall_count, mono_count,
-     alpha) = consume_step(spec, s.X, s.U, X_cand, U_cand, ok, s.best_step,
-                           s.stall_count, s.mono_count, s.alpha, group,
-                           ordered)
+    """The state after one iteration from its QP's solution and the
+    iteration's T, Gamma: the one update of ``solve`` and
+    ``solve_recorded``.  One launch of ``ops/glue.py::advance`` where
+    ``build.kernel_route("glue", ...)`` holds and no group is given (the
+    group's norms need a psum); else :func:`consume_step` on
+    :func:`candidate`.  Returns (SolveState, x_diff, u_diff)."""
+    with obs.span("sqp.advance"):
+        if group is None and build.kernel_route("glue", s.X.device):
+            (X, U, x_diff, u_diff, done, best_step, stall_count, mono_count,
+             alpha, ok, qp_iters) = glue.advance(
+                spec, s.X, s.U, T, Gamma, sol.z, sol.status, sol.iters,
+                s.best_step, s.stall_count, s.mono_count, s.alpha,
+                s.qp_iters, STALL)
+        else:
+            X_cand, U_cand = candidate(spec, s.X, s.U, T, Gamma, sol.z)
+            ok = sol.status == 0
+            (X, U, x_diff, u_diff, done, best_step, stall_count, mono_count,
+             alpha) = consume_step(spec, s.X, s.U, X_cand, U_cand, ok,
+                                   s.best_step, s.stall_count, s.mono_count,
+                                   s.alpha, group, ordered)
+            qp_iters = s.qp_iters + sol.iters
     return SolveState(X=X, U=U, X_prev=s.X, U_prev=s.U, gp=gp, it=s.it + 1,
                       status=sol.status, done=done, qp_ws=sol.state,
-                      qp_valid=ok, qp_iters=s.qp_iters + sol.iters,
-                      qp_gap=sol.gap, best_step=best_step,
-                      stall_count=stall_count, mono_count=mono_count,
-                      alpha=alpha), x_diff, u_diff
+                      qp_valid=ok, qp_iters=qp_iters, qp_gap=sol.gap,
+                      best_step=best_step, stall_count=stall_count,
+                      mono_count=mono_count, alpha=alpha), x_diff, u_diff
 
 
 def _go_on(spec: ProblemSpec, s: SolveState) -> bool:
@@ -287,14 +321,11 @@ def solve(spec: ProblemSpec, env: Env, hyp: GPHyperArrays, ocp: OCPData,
         s = _initial_state(spec, X0, U0, gp0, qp_ws, qp_valid)
         while True:
             with obs.span("sqp.iteration"):
-                out = sqp_iteration(spec, env, hyp, ocp, st_curr, s.X, s.U,
-                                    s.gp, eps_iters[s.it], qp_ws=s.qp_ws,
-                                    qp_valid=s.qp_valid,
-                                    hall_empty=s.it == 0, group=group,
-                                    ordered=ordered)
-                with obs.span("sqp.advance"):
-                    s = _advance(spec, s, *out, group=group,
-                                 ordered=ordered)[0]
+                T, Gamma, gp, sol, _ = _qp_step(
+                    spec, env, hyp, ocp, st_curr, s.X, s.U, s.gp,
+                    eps_iters[s.it], s.qp_ws, s.qp_valid, s.it == 0, group,
+                    ordered)
+                s = _advance(spec, s, T, Gamma, gp, sol, group, ordered)[0]
             with obs.span("sqp.go_on"):
                 go_on = _go_on(spec, s)
             if not go_on:
@@ -341,12 +372,11 @@ def solve_recorded(spec: ProblemSpec, env: Env, hyp: GPHyperArrays,
             Xt = _linearization_inputs(spec, ocp, s.X, s.U)[
                 ..., list(spec.g_idx_inputs)]
             mean, std = probe_fn(s.gp, Xt)
-        X_cand, U_cand, gp, sol, dbg = sqp_iteration(
+        T, Gamma, gp, sol, dbg = _qp_step(
             spec, env, hyp, ocp, st_curr, s.X, s.U, s.gp, eps_iters[s.it],
-            qp_ws=s.qp_ws, qp_valid=s.qp_valid, return_debug=True,
-            hall_empty=s.it == 0, group=group, ordered=ordered)
-        s, x_diff, u_diff = _advance(spec, s, X_cand, U_cand, gp, sol,
-                                     group, ordered)
+            s.qp_ws, s.qp_valid, s.it == 0, group, ordered)
+        s, x_diff, u_diff = _advance(spec, s, T, Gamma, gp, sol, group,
+                                     ordered)
         records.append({
             "X": s.X, "U": s.U, "dg": dbg["dg"], "mean": mean, "std": std,
             "x_diff": float(x_diff), "u_diff": float(u_diff),

@@ -130,10 +130,12 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-def check_tensor(name, t, shape, device) -> None:
-    """What a kernel takes: float32, on ``device``, this shape, contiguous."""
-    if t.device != device or t.dtype != torch.float32:
-        raise ValueError(f"{name}: need float32 on {device}, got {t.dtype} "
+def check_tensor(name, t, shape, device, dtype=torch.float32) -> None:
+    """What a kernel takes: ``dtype`` (float32 unless said), on ``device``,
+    this shape, contiguous."""
+    if t.device != device or t.dtype != dtype:
+        want = str(dtype).removeprefix("torch.")
+        raise ValueError(f"{name}: need {want} on {device}, got {t.dtype} "
                          f"on {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")

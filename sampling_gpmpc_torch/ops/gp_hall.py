@@ -9,8 +9,11 @@ factor (``Linv`` = L_r^-1, ``w_r`` = L_r^-1 y_r):
 
     C = Linv Arh_i,  V_r = Linv Kxr_i',  S = Ahh_i - C'C + jitter I,
     L_s = chol(S),   [Vh'; w_h] = [Kxh_i - V_r'C; yh_i - w_r C] L_s^-T,
-    cov = Ktt_i - V_r'V_r - Vh'Vh + jitter I,  mean = w_r V_r + w_h Vh,
-    y = mean + chol(cov) eps_i,  then the override tail.
+    cov = Ktt_i - V_r'V_r - Vh'Vh + J,  mean = w_r V_r + w_h Vh,
+    y = mean + chol(cov) eps_i,  then the override tail,
+
+J diagonal, each row's jitter ``gp_sample.row_jitter`` (in float32 at
+least ``gp_sample.JITTER_REL`` of the row's prior variance).
 
 All of it is one right-looking blocked Cholesky of the bordered matrix
 (:func:`bordered_matrix`) in panels of ``panel`` columns
@@ -24,7 +27,7 @@ Only the first ``nh`` (= hall_n * Ty, the fill) hall rows take part: the
 rows past the fill are masked empty slots, identity rows of S with zero
 couplings, whose elimination steps are exact no-ops.  As in ``gp_sample``,
 the solves against the fixed real factor are matmuls with ``Linv``, and a
-covariance factor that fails is retried with more jitter
+covariance factor that fails is retried with ten times each row's jitter
 (``gp_sample.factor_retried``, from the covariance block as the hall
 columns left it); a Schur pivot that fails, or a covariance that fails at
 every jitter, gives NaN, and NaN entries fall back to the mean.  The
@@ -64,9 +67,10 @@ from sampling_gpmpc_torch import obs
 from sampling_gpmpc_torch.gp.exact import prior_task_variances
 from sampling_gpmpc_torch.gp.kernel import kernel_matrix
 from sampling_gpmpc_torch.ops import build
-from sampling_gpmpc_torch.ops.gp_sample import (PANEL, TILE_FLOATS,
-                                                factor_panels, factor_retried,
-                                                override_tail)
+from sampling_gpmpc_torch.ops.gp_sample import (JITTER_REL, PANEL,
+                                                TILE_FLOATS, factor_panels,
+                                                factor_retried, override_tail,
+                                                row_jitter)
 
 # gp_hall: the stage's launch set (either entry); gp_hall_blocks: the
 # blocks kernel (sample_hall_points, hall_blocks)
@@ -74,8 +78,8 @@ LAUNCHES = {"gp_hall": 0, "gp_hall_blocks": 0}
 MAX_D = 8           # GP input dimensions of csrc/gp_hall.cu's blocks kernel
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of csrc/gp_hall.cu's C entries
-_ARGTYPES = {"gp_hall_sample": [_P] * 14 + [_I] * 7 + [_F] * 4 + [_I, _I, _P],
-             "gp_hall_points": [_P] * 15 + [_I] * 8 + [_F] * 4 + [_I, _I, _P],
+_ARGTYPES = {"gp_hall_sample": [_P] * 14 + [_I] * 7 + [_F] * 5 + [_I, _I, _P],
+             "gp_hall_points": [_P] * 15 + [_I] * 8 + [_F] * 5 + [_I, _I, _P],
              "gp_hall_blocks": [_P] * 10 + [_I] * 8 + [_P]}
 _FNS: dict = {}
 # per-output arguments of sample_hall_one, stacked on a leading axis by
@@ -227,11 +231,11 @@ def hall_blocks_plain(nh: int, real_Z, m_r, hall_Z, hall_Y, Xt, eps,
 
 
 def bordered_matrix(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r,
-                    jitter: float):
+                    prior_var, jitter: float):
     """The bordered matrix [[S, B'], [B, K]] of every sample, (ns, n, n)
     with n = nh + Ht + 1: S = Ahh - C'C + jitter I (nh x nh), B = [Kxh -
-    V_r'C; yh - w_r C], K = [[Ktt - V_r'V_r + jitter I, -V_r'w_r],
-    [-w_r'V_r, 0]]."""
+    V_r'C; yh - w_r C], K = [[Ktt - V_r'V_r + J, -V_r'w_r], [-w_r'V_r,
+    0]], J = diag(row_jitter(jitter, prior_var))."""
     nh = int(nh)
     ns, Ht = Kxr.shape[:2]
     dt, dev = Kxr.dtype, Kxr.device
@@ -243,8 +247,8 @@ def bordered_matrix(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r,
     B = torch.cat([Kxh[..., :nh] - Vrt @ C,
                    (yh[:, :nh] - (w_r @ C))[:, None]], dim=1)  # (ns, Ht+1, nh)
     K = torch.zeros((ns, Ht + 1, Ht + 1), dtype=dt, device=dev)
-    K[:, :Ht, :Ht] = Ktt - Vrt @ Vr + jitter * torch.eye(Ht, dtype=dt,
-                                                         device=dev)
+    K[:, :Ht, :Ht] = Ktt - Vrt @ Vr + torch.diag(row_jitter(jitter,
+                                                            prior_var))
     mean_r = (Vrt @ w_r[:, None])[..., 0]
     K[:, :Ht, Ht] = -mean_r
     K[:, Ht, :Ht] = -mean_r
@@ -253,19 +257,21 @@ def bordered_matrix(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r,
 
 
 def bordered_factor(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r,
-                    jitter: float, panel: int = PANEL):
-    """The covariance factor L, the mean and the variance (diag(cov) -
-    jitter) of every sample, from one blocked Cholesky of the bordered
-    matrix: its first nh columns with the bordering row, then the next Ht
-    without it, retried with more jitter where they fail."""
+                    prior_var, jitter: float, panel: int = PANEL):
+    """The covariance factor L, the mean and the variance (diag(cov) - J)
+    of every sample, from one blocked Cholesky of the bordered matrix: its
+    first nh columns with the bordering row, then the next Ht without it,
+    retried with more jitter where they fail."""
     nh = int(nh)
     Ht = Kxr.shape[1]
     n2 = nh + Ht
-    M = bordered_matrix(nh, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r, jitter)
+    M = bordered_matrix(nh, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv, w_r,
+                        prior_var, jitter)
     factor_panels(M, 0, nh, n2 + 1, panel)
     mean = -M[:, n2, nh:n2].clone()
-    var = torch.diagonal(M[:, nh:n2, nh:n2], dim1=-2, dim2=-1) - jitter
-    factor_retried(M, nh, n2, M[:, nh:n2, nh:n2].clone(), jitter, var, jitter,
+    jit0 = row_jitter(jitter, prior_var)
+    var = torch.diagonal(M[:, nh:n2, nh:n2], dim1=-2, dim2=-1) - jit0
+    factor_retried(M, nh, n2, M[:, nh:n2, nh:n2].clone(), True, var, jit0,
                    panel)
     return torch.tril(M[:, nh:n2, nh:n2]), mean, var
 
@@ -278,7 +284,7 @@ def sample_hall_plain(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
     and result as :func:`sample_hall_one`, ``panel`` the blocked
     factorization's panel width (1: the column sweep)."""
     L, mean, var = bordered_factor(nh, Kxr, Kxh, Ktt, Arh, Ahh, yh, Linv,
-                                   w_r, jitter, panel)
+                                   w_r, prior_var, jitter, panel)
     y = mean + (L @ eps[..., None])[..., 0]
     return override_tail(mean, y, var, prior_var, beta, var_zero, rel_floor,
                          ty, close, ynear)
@@ -375,7 +381,8 @@ def sample_hall(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
                 Arh.data_ptr(), Ahh.data_ptr(), yh.data_ptr(), eps.data_ptr(),
                 Linv.data_ptr(), w_r.data_ptr(), prior_var.data_ptr(),
                 ptr(close), ptr(ynear), dg.data_ptr(), work.data_ptr(), no,
-                ns, Ht, Rr, Rh, nh, int(ty), float(jitter), float(beta),
+                ns, Ht, Rr, Rh, nh, int(ty), float(jitter), JITTER_REL,
+                float(beta),
                 float(var_zero), float(rel_floor), smem, int(glob),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "gp_hall_sample launch")
@@ -455,7 +462,7 @@ def sample_hall_points(nh: int, real_Z, m_r, hall_Z, hall_Y, Xt, eps,
     with torch.cuda.device(dev):
         rc = fn(*ptrs, Linv.data_ptr(), w_r.data_ptr(), ptr(close), ptr(ynear),
                 dg.data_ptr(), work.data_ptr(), *dims, float(jitter),
-                float(beta), float(var_zero), float(rel_floor), smem,
+                JITTER_REL, float(beta), float(var_zero), float(rel_floor), smem,
                 int(glob), torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "gp_hall_points launch")
     obs.count(LAUNCHES, "gp_hall_blocks")

@@ -4,15 +4,20 @@ Port of ``sampling_gpmpc_tpu/ops/pallas_gp.py`` (``_kernel`` and
 ``sample_empty_one``).  For one GP output and every sample i it computes,
 from the masked cross-covariance rows Kx_i and the test block Ktt_i:
 
-    V = Linv Kx_i',  G = V'V,  mean = Kx_i alpha,  cov = Ktt_i - G + jitter I,
-    L = chol(cov),   y = mean + L eps_i,   then the override tail.
+    V = Linv Kx_i',  G = V'V,  mean = Kx_i alpha,  cov = Ktt_i - G + J,
+    L = chol(cov),   y = mean + L eps_i,   then the override tail,
+
+J diagonal, each row's jitter :func:`row_jitter`: in float32 at least
+``JITTER_REL`` of the prior variance of the row's task, so that it stays
+above the float32 rounding of Ktt_i - G and rounding does not decide
+whether the factor fails.
 
 One deliberate difference from the float64 reference path
 (``gp/exact.py`` predict_real + sample_with_overrides), shared by the kernel
 and its plain version: the triangular solve against the fixed real-data
 factor is a matmul with the precomputed ``Linv``.  As there, a covariance
-factor that fails (a non-positive pivot) is retried with ten times the
-jitter within ``safe_cholesky``'s float32 cap (:func:`factor_retried`;
+factor that fails (a non-positive pivot) is retried with ten times each
+row's jitter within ``safe_cholesky``'s float32 cap (:func:`factor_retried`;
 the TPU kernel has no retry, and at ``params_car``'s GP its float32
 covariance fails at the first jitter); one that fails at every jitter
 gives NaN, and NaN entries fall back to the mean.  The Cholesky is the
@@ -49,6 +54,14 @@ STACKED = ("Kxm", "Ktt", "eps", "Linv", "alpha", "prior_var", "close",
 # chunk of Kx_i, of Linv and of alpha) and the mean's partial sums
 _PT, _PK = 64, 32
 _STAGE_FLOATS = 2 * (2 * _PT * (_PK + 1) + _PK) + 4 * _PT
+# The float32 covariance's first jitter on a row is at least this share of
+# the prior variance of the row's task: at params_car's GP stages the
+# float32 rounding of the covariance gives it smallest eigenvalues down to
+# -1.7e-6 in those units, which the configured jitter (1e-6 absolute)
+# does not cover, so that whether a factor failed, and the draw, which
+# differs by 0.2-0.7 of the tube between the first jitter and the second,
+# was decided by rounding
+JITTER_REL = 1e-5
 
 
 def sample_layout(Ht: int):
@@ -128,32 +141,45 @@ def factor_panels(A, c0: int, c1: int, n: int, panel: int):
     return A
 
 
-def factor_retried(M, c0: int, n: int, base, added: float, var,
-                   jitter: float, panel: int):
+def row_jitter(jitter: float, prior_var):
+    """The first jitter on each row of a stage's covariance, (..., Ht) as
+    ``prior_var``: in float32 the larger of ``jitter`` and ``JITTER_REL``
+    times the row's prior variance (the kernels' ``sgp::row_jitter``), in
+    float64 ``jitter`` alone."""
+    if prior_var.dtype != torch.float32:
+        return torch.full_like(prior_var, jitter)
+    return torch.clamp(JITTER_REL * prior_var, min=jitter)
+
+
+def factor_retried(M, c0: int, n: int, base, added: bool, var, jit0,
+                   panel: int):
     """Columns [c0, n) of M factored by :func:`factor_panels`, in place,
-    their block M[..., c0:n, c0:n] holding the covariance plus ``jitter``
-    on its diagonal.  A sample whose factor failed (a non-positive pivot:
-    its last diagonal entry is not finite) is factored again from ``base``
-    (that block before the factor, holding ``added`` of the jitter) with
-    ten times the jitter, while that stays within max(1e-3 x the mean of
-    ``var``, 1e-2): ``exact.safe_cholesky``'s float32 rule, as the kernels
-    retry.  A sample that fails at every jitter keeps its first factor,
-    NaN from the failing column on, for the non-finite -> mean backstop."""
+    their block M[..., c0:n, c0:n] holding the covariance plus each row's
+    first jitter ``jit0`` (n - c0,) on its diagonal.  A sample whose factor
+    failed (a non-positive pivot: its last diagonal entry is not finite)
+    is factored again from ``base`` (that block before the factor, holding
+    ``jit0`` on its diagonal where ``added``) with ten times every row's
+    jitter, while ten times the largest stays within max(1e-3 x the mean
+    of ``var``, 1e-2): ``exact.safe_cholesky``'s float32 rule, as the
+    kernels retry.  A sample that fails at every jitter keeps its first
+    factor, NaN from the failing column on, for the non-finite -> mean
+    backstop."""
     factor_panels(M, c0, n, n, panel)
     first = M.clone()
     cap = torch.clamp(1e-3 * var.mean(-1), min=1e-2)
-    j = torch.full_like(cap, jitter)
-    eye = torch.eye(n - c0, dtype=M.dtype, device=M.device)
+    mult = torch.ones_like(cap)
+    jmax = jit0.max()
     while True:
         failed = ~torch.isfinite(M[..., n - 1, n - 1])
-        retry = failed & (j * 10.0 <= cap)
+        retry = failed & (mult * 10.0 * jmax <= cap)
         if not bool(retry.any()):
             M[failed] = first[failed]
             return M
-        j = torch.where(retry, j * 10.0, j)
+        mult = torch.where(retry, mult * 10.0, mult)
+        d = mult[retry][:, None] * jit0
         Mr = M[retry]
-        Mr[..., c0:n, c0:n] = base[retry] + (j[retry] - added)[
-            ..., None, None] * eye
+        Mr[..., c0:n, c0:n] = base[retry] + torch.diag_embed(
+            d - jit0 if added else d)
         M[retry] = factor_panels(Mr, c0, n, n, panel)
 
 
@@ -169,11 +195,11 @@ def sample_empty_plain(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
     G = V.transpose(1, 2) @ V
     G = torch.tril(G) + torch.tril(G, -1).transpose(1, 2)  # exactly symmetric
     mean = (Kxm @ alpha[:, None])[..., 0]                  # (ns, Ht)
-    eye = torch.eye(Ht, dtype=Kxm.dtype, device=Kxm.device)
+    jit0 = row_jitter(jitter, prior_var)
     cov = Ktt - G
-    S = cov + jitter * eye
-    var = torch.diagonal(S, dim1=-2, dim2=-1) - jitter
-    L = torch.tril(factor_retried(S, 0, Ht, cov, 0.0, var, jitter, panel))
+    S = cov + torch.diag(jit0)
+    var = torch.diagonal(S, dim1=-2, dim2=-1) - jit0
+    L = torch.tril(factor_retried(S, 0, Ht, cov, False, var, jit0, panel))
     y = mean + (L @ eps[..., None])[..., 0]
     return override_tail(mean, y, var, prior_var, beta, var_zero, rel_floor,
                          ty, close, ynear)
@@ -272,7 +298,7 @@ def sample_empty(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
     smem, stride, glob = sample_layout(Ht)
     fn = build.load("gp_sample").gp_sample_empty
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([P] * 10 + [I] * 5 + [F] * 4 + [I] * 4
+    fn.argtypes = ([P] * 10 + [I] * 5 + [F] * 5 + [I] * 4
                    + [ctypes.c_longlong, I, P])
     fn.restype = I
     dg = torch.empty((no, ns, Ht), dtype=torch.float32, device=dev)
@@ -283,7 +309,7 @@ def sample_empty(Kxm, Ktt, eps, Linv, alpha, prior_var, jitter: float,
         rc = fn(Kxm.data_ptr(), Ktt.data_ptr(), eps.data_ptr(),
                 Linv.data_ptr(), alpha.data_ptr(), prior_var.data_ptr(),
                 ptr(close), ptr(ynear), dg.data_ptr(), work.data_ptr(), no,
-                ns, Ht, R, int(ty), float(jitter), float(beta),
+                ns, Ht, R, int(ty), float(jitter), JITTER_REL, float(beta),
                 float(var_zero), float(rel_floor), *map(int, glob), stride,
                 smem, torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "gp_sample_empty launch")

@@ -160,3 +160,140 @@ def test_plain_route_swaps_the_glue_and_puts_it_back(glue_plain,
         glue.LAUNCHES["glue_condense"]
     routes.zero_launch_counts()
     assert glue.LAUNCHES["glue_condense"] == 0
+
+
+# the step's consumption (glue.advance) at every shape the port solves on
+# the card, as published: (config, ns)
+ADVANCE_SHAPES = [("params_pendulum1D_samples", 70), ("params_pendulum", 20),
+                  ("params_car", 20), ("params_car_residual", 1),
+                  ("params_car_samples", 10), ("params_pendulum_samples", 500)]
+
+
+def _spec(config, ns):
+    spec = load_problem(os.path.join(PARAMS, config + ".yaml"))[1]
+    return dataclasses.replace(spec, ns=ns)
+
+
+def _solve_state(spec, dev, dtype=torch.float32, seed=0):
+    """A state entering an SQP iteration on ``dev`` and its iteration's
+    T, Gamma and QP solution, all seeded: (SolveState, T, Gamma, sol)."""
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.ocp.qp import QPSolution
+    ns, H, nx, nu = spec.ns, spec.H, spec.nx, spec.nu
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, dtype=dtype).to(dev)  # noqa
+    X, i32 = r(H + 1, ns, nx), torch.int32
+    zero = torch.zeros((), dtype=i32, device=dev)
+    s = sqp.SolveState(
+        X=X, U=r(H, nu), X_prev=X, U_prev=r(H, nu), gp="gp", it=0,
+        status=zero, done=torch.zeros((), dtype=torch.bool, device=dev),
+        qp_ws=(r(H * nu),), qp_valid=torch.zeros((), dtype=torch.bool,
+                                                 device=dev),
+        qp_iters=torch.tensor(12, dtype=i32, device=dev), qp_gap=r(),
+        best_step=torch.tensor(float("inf"), dtype=dtype, device=dev),
+        stall_count=zero, mono_count=zero,
+        alpha=torch.ones((), dtype=dtype, device=dev))
+    sol = QPSolution(z=r(H * nu), lam=None, s=None,
+                     iters=torch.tensor(5, dtype=torch.int32, device=dev),
+                     status=torch.tensor(0, device=dev), gap=r(),
+                     state=(r(H * nu),))
+    return s, r(ns, H + 1, nx), r(ns, H + 1, nx, H * nu), sol
+
+
+@pytest.mark.parametrize("where", ["cpu", "plain_route", "group", "card"])
+def test_advance_takes_consume_step_off_the_kernel_route(where,
+                                                         monkeypatch):
+    """``sqp._advance`` launches ``glue.advance`` only on the kernel route
+    with no group: on the CPU, inside plain_route(glue=True) and under a
+    sample-axis group it runs ``consume_step`` on the candidate and counts
+    no ``glue_advance`` launch.  On the CPU the state is consume_step's,
+    bit for bit; elsewhere (meta tensors, which neither body could take)
+    spies show the body that ran."""
+    from sampling_gpmpc_torch.ocp import sqp
+    spec = _spec("params_car", 3)
+    dev = CPU if where == "cpu" else torch.device("meta")
+    s, T, Gamma, sol = _solve_state(spec, dev)
+    before = glue.LAUNCHES["glue_advance"]
+    if where == "cpu":
+        got = sqp._advance(spec, s, T, Gamma, "gp", sol)
+        X_c, U_c = sqp.candidate(spec, s.X, s.U, T, Gamma, sol.z)
+        ref = sqp.consume_step(spec, s.X, s.U, X_c, U_c, sol.status == 0,
+                               s.best_step, s.stall_count, s.mono_count,
+                               s.alpha)
+        st = got[0]
+        for k, v in zip(("X", "U", "x_diff", "u_diff", "done", "best_step",
+                         "stall_count", "mono_count", "alpha"), ref):
+            a = got[1] if k == "x_diff" else got[2] if k == "u_diff" \
+                else getattr(st, k)
+            assert torch.equal(a, v), k
+        assert torch.equal(st.qp_iters, s.qp_iters + sol.iters)
+        assert bool(st.qp_valid) and st.X_prev is s.X and st.it == 1
+        assert glue.LAUNCHES["glue_advance"] == before
+        return
+    ran = []
+    monkeypatch.setattr(sqp, "consume_step",
+                        lambda *a, **k: ran.append("chain") or (0,) * 9)
+    monkeypatch.setattr(glue, "advance",
+                        lambda *a, **k: ran.append("kernel") or (0,) * 11)
+    if where == "plain_route":
+        with routes.plain_route(gp=False, qp=False, glue=True):
+            sqp._advance(spec, s, T, Gamma, "gp", sol)
+    else:
+        sqp._advance(spec, s, T, Gamma, "gp", sol,
+                     group=object() if where == "group" else None)
+    assert ran == ["kernel" if where == "card" else "chain"]
+    assert glue.LAUNCHES["glue_advance"] == before
+
+
+def test_advance_refuses_cpu_tensors():
+    """The wrapper raises for tensors off CUDA, before any check or
+    build, and counts nothing; nothing falls back to the torch chain."""
+    from sampling_gpmpc_torch.ocp import sqp
+    spec = _spec("params_pendulum1D_samples", 4)
+    s, T, Gamma, sol = _solve_state(spec, CPU)
+    before = glue.LAUNCHES["glue_advance"]
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        glue.advance(spec, s.X, s.U, T, Gamma, sol.z, sol.status, sol.iters,
+                     s.best_step, s.stall_count, s.mono_count, s.alpha,
+                     s.qp_iters, sqp.STALL)
+    assert glue.LAUNCHES["glue_advance"] == before
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("config,ns", ADVANCE_SHAPES)
+def test_advance_layout_gives_each_output_its_place(config, ns, wide):
+    """The advance kernel's buffer holds every output at the shape and
+    dtype of the torch chain's (consume_step, ok, qp_iters + iters; int64
+    qp_iters where ``wide``), each starting 256-byte aligned, apart from
+    the others and inside the buffer; advance_views cuts them there."""
+    from sampling_gpmpc_torch.ocp import sqp
+    spec = _spec(config, ns)
+    s, T, Gamma, sol = _solve_state(spec, CPU)
+    if wide:
+        sol = sol._replace(iters=sol.iters.long())
+    X_c, U_c = sqp.candidate(spec, s.X, s.U, T, Gamma, sol.z)
+    ok = sol.status == 0
+    ref = sqp.consume_step(spec, s.X, s.U, X_c, U_c, ok, s.best_step,
+                           s.stall_count, s.mono_count, s.alpha) + (
+        ok, s.qp_iters + sol.iters)
+    lay = glue.advance_layout(spec, wide)
+    shapes, dtypes, offsets, total = lay[:4]
+    assert len(shapes) == len(glue.ADVANCE_OUTPUTS) == len(ref)
+    assert [tuple(t.shape) for t in ref] == list(shapes)
+    assert [t.dtype for t in ref] == list(dtypes)
+    buf = torch.zeros((total,), dtype=torch.float32)
+    views = glue.advance_views(buf, lay)
+    base = buf.data_ptr()
+    spans = []
+    for v, shape, dt, o in zip(views, shapes, dtypes, offsets):
+        assert tuple(v.shape) == shape and v.dtype == dt
+        assert v.is_contiguous() and v.data_ptr() == base + 4 * o
+        assert (v.data_ptr() - base) % 256 == 0
+        spans.append((4 * o, 4 * o + v.numel() * v.element_size()))
+    assert all(e <= b for (_, e), (b, _) in zip(spans, spans[1:]))
+    assert spans[-1][1] <= 4 * total
+    for n, v in enumerate(views):      # each view writes only its place
+        v.fill_(n + 1)
+    for n, v in enumerate(views):
+        assert bool((v == (n + 1)).all()) if v.dtype != torch.bool \
+            else bool(v)

@@ -94,6 +94,7 @@ def test_blocked_factor_matches_column_sweep(nh, panel):
     sweep in float64 at rounding level."""
     kw = _problem(nh, seed=nh + panel)
     L, mean, var = gp_hall.bordered_factor(nh, **_factor_args(kw),
+                                           prior_var=kw["prior_var"],
                                            jitter=SCAL["jitter"], panel=panel)
     L0, mean0, var0 = _column_sweep(nh, **_factor_args(kw),
                                     jitter=SCAL["jitter"])
@@ -120,6 +121,7 @@ def test_nonpositive_pivot_same_nan_pattern_and_backstop(panel):
     kw["Ktt"][0, j0, j0] -= 10.0
     kw["Ahh"][1, h0, h0] = -1.0
     L, mean, var = gp_hall.bordered_factor(nh, **_factor_args(kw),
+                                           prior_var=kw["prior_var"],
                                            jitter=SCAL["jitter"], panel=panel)
     L0, mean0, var0 = _column_sweep(nh, **_factor_args(kw),
                                     jitter=SCAL["jitter"])

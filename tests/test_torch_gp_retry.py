@@ -14,11 +14,16 @@ non-finite -> mean backstop put those entries of the draw at the mean.
   every panel width, give the factor of cov + 1e-5 I and draws that follow
   eps, as ``safe_cholesky`` does;
 * at ``params_car``'s published GP (Ht = 60, R = 180, noise 7e-9) the
-  float32 covariance of the first output fails at the first jitter on
-  every hall stage: with the retry no entry of a draw sits at the mean,
-  and the draws' spread along the float64 posterior's principal directions
-  (``hall_var_gap``, perfbench/check.py) moves toward float64 against the
-  first factor alone.
+  float32 covariance of the first output fails at the configured jitter
+  (1e-6) on every hall stage, and the float32 rounding of each output's
+  covariance reaches the configured jitter: its smallest eigenvalue, in
+  units of the rows' prior variances, reads down to -1.7e-6.  With each
+  row's first jitter at least ``gp_sample.JITTER_REL`` of its prior
+  variance the first factor holds on every stage with room to spare, so
+  rounding does not decide which jitter a sample is drawn at; no entry of
+  a draw sits at the mean, and the draws' spread along the float64
+  posterior's principal directions (``hall_var_gap``, perfbench/check.py)
+  moves toward float64 against the configured jitter's first factor alone.
 """
 
 import dataclasses
@@ -92,6 +97,7 @@ def _stage(stage, panel, nh=30):
             # the last block of the bordered matrix once the hall columns
             # (with the jitter on S) are eliminated, less the jitter
             M = gp_hall.bordered_matrix(nh, **{k: kw[k] for k in FACTOR},
+                                        prior_var=kw["prior_var"],
                                         jitter=SCAL["jitter"])
             gp_sample.factor_panels(M, 0, nh, nh + HT + 1, 1)
             cov = M[:, nh:nh + HT, nh:nh + HT] - SCAL["jitter"] * torch.eye(
@@ -122,6 +128,7 @@ def test_failed_covariance_factor_is_retried_with_more_jitter(stage, panel):
                                L10.numpy(), rtol=0, atol=1e-9)
     if stage == "hall":
         L, _, _ = gp_hall.bordered_factor(30, **{k: kw[k] for k in FACTOR},
+                                          prior_var=kw["prior_var"],
                                           jitter=SCAL["jitter"], panel=panel)
         np.testing.assert_allclose(L.numpy(), L10.numpy(), rtol=0,
                                    atol=1e-9)
@@ -174,7 +181,8 @@ def _whitened(dg, kw, ref):
     cov, mean = [], []
     for o in range(dg.shape[0]):
         L, m, _ = gp_hall.bordered_factor(
-            kw["nh"], **{k: k64[k][o] for k in FACTOR}, jitter=kw["jitter"])
+            kw["nh"], **{k: k64[k][o] for k in FACTOR + ("prior_var",)},
+            jitter=kw["jitter"])
         cov.append(L @ L.transpose(1, 2))
         mean.append(m)
     cov, mean = torch.stack(cov, 1), torch.stack(mean, 1)    # (ns, no, ...)
@@ -192,11 +200,14 @@ def _var_gap(pairs):
 
 
 def test_car_hall_draws_keep_their_spread_in_float32(car_stages):
-    """params_car's first GP output, float32: the covariance fails at the
-    first jitter on every hall stage.  The first factor alone leaves most
-    of that output's entries at the mean; with the retry none is, and
-    hall_var_gap against float64, pooled over the step's hall stages as
-    check.py pools it, falls at least fourfold."""
+    """params_car's hall stages, float32: at the configured jitter alone
+    the first output's covariance fails on every stage and its first
+    factor leaves most of that output's entries at the mean.  At each
+    row's first jitter (``gp_sample.row_jitter``) the first factor holds
+    for every sample of every output, so the retry changes nothing; no
+    entry sits at the mean, and hall_var_gap against float64, pooled over
+    the step's hall stages as check.py pools it, is at least fourfold
+    below the configured jitter's first factor alone."""
     _, stages = car_stages
     new, old = [], []
     for kw in stages:
@@ -210,6 +221,9 @@ def test_car_hall_draws_keep_their_spread_in_float32(car_stages):
             mp.setattr(gp_hall, "factor_retried",
                        lambda M, c0, n, *a: gp_sample.factor_panels(
                            M, c0, n, n, a[-1]))
+            assert torch.equal(gp_hall.sample_hall(**kw), dg)
+            mp.setattr(gp_hall, "row_jitter",
+                       lambda jitter, pv: torch.full_like(pv, jitter))
             first = gp_hall.sample_hall(**kw)
         assert float((first[0] == mean[0]).double().mean()) > 0.3
         assert not bool((dg == mean).any())
@@ -217,3 +231,33 @@ def test_car_hall_draws_keep_their_spread_in_float32(car_stages):
         new.append(_whitened(dg, kw, ref))
         old.append(_whitened(first, kw, ref))
     assert _var_gap(new) * 4 < _var_gap(old)
+
+
+def test_car_row_jitter_clears_the_float32_rounding(car_stages):
+    """params_car's hall stages, float32: the covariance each sample's
+    factor starts from (the bordered matrix after the hall columns, less
+    its jitter), scaled by the rows' prior standard deviations, has a
+    smallest eigenvalue (float64) below zero by float32 rounding, down to
+    about -1.7e-6, which reaches the configured jitter; the rows' first
+    jitter clears it at least threefold, so the first factor's success
+    does not rest on rounding."""
+    _, stages = car_stages
+    worst = 0.0
+    for kw in stages:
+        nh, Ht = kw["nh"], kw["Ktt"].shape[-1]
+        for o in range(kw["Kxr"].shape[0]):
+            M = gp_hall.bordered_matrix(
+                nh, **{k: kw[k][o] for k in FACTOR + ("prior_var",)},
+                jitter=kw["jitter"])
+            gp_sample.factor_panels(M, 0, nh, nh + Ht + 1, gp_sample.PANEL)
+            jit0 = gp_sample.row_jitter(kw["jitter"], kw["prior_var"][o])
+            cov = (M[:, nh:nh + Ht, nh:nh + Ht].double()
+                   - torch.diag(jit0.double()))
+            cov = torch.tril(cov) + torch.tril(cov, -1).transpose(1, 2)
+            d = kw["prior_var"][o].double().rsqrt()
+            lam = torch.linalg.eigvalsh(cov * d[:, None] * d[None, :])[:, 0]
+            worst = min(worst, float(lam.min()))
+            assert bool((jit0 >= gp_sample.JITTER_REL * kw["prior_var"][o])
+                        .all())
+    assert -1e-5 < worst < -1e-7, worst
+    assert 3 * -worst < gp_sample.JITTER_REL

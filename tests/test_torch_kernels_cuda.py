@@ -169,8 +169,8 @@ def _indefinite_by(kw, stage, neg, nh=0):
     else:
         Ht = t["Ktt"].shape[-1]
         M = gp_hall.bordered_matrix(nh, *(t[k] for k in (
-            "Kxr", "Kxh", "Ktt", "Arh", "Ahh", "yh", "Linv", "w_r")),
-            jitter=1e-6)
+            "Kxr", "Kxh", "Ktt", "Arh", "Ahh", "yh", "Linv", "w_r",
+            "prior_var")), jitter=1e-6)
         gp_sample.factor_panels(M, 0, nh, nh + Ht + 1, 32)
         cov = M[:, nh:nh + Ht, nh:nh + Ht] - 1e-6 * torch.eye(
             Ht, dtype=M.dtype)
@@ -185,9 +185,10 @@ def _indefinite_by(kw, stage, neg, nh=0):
 def test_gp_kernels_retry_a_failed_covariance_factor(dev, stage):
     """At the car's shape (ns = 20, Ht = 60, R = 180; the hall stage at nh
     = 180), covariances whose smallest eigenvalue is -3e-5 fail at the
-    first jitter (1e-6) and at the second (1e-5): the kernels factor them
-    again at 1e-4, as the plain versions do (2e-4 relative), and every
-    entry of every draw follows eps (none fell back to the mean)."""
+    first jitter (1e-5 on every row: gp_sample.JITTER_REL times the rows'
+    prior variance 1): the kernels factor them again at 1e-4, as the plain
+    versions do (2e-4 relative), and every entry of every draw follows eps
+    (none fell back to the mean)."""
     ns, Ht, ty, nh = 20, 60, 4, 180
     if stage == "empty":
         kw = _indefinite_by(_empty_problem(ns, Ht, 180, seed=31), stage,
@@ -1067,3 +1068,205 @@ def test_hall_points_launch_once_per_hall_stage(dev):
         torch.cuda.synchronize()
         n = routes.launch_counts()
     assert s.it == 4 and n["gp_hall_blocks"] == n["gp_hall"] == 0
+
+
+# the step's consumption (ops/glue.py::advance) at every shape the port
+# solves on the card, as published
+ADVANCE_CASES = [("params_pendulum1D_samples", 70), ("params_pendulum", 20),
+                 ("params_car", 20), ("params_car_residual", 1),
+                 ("params_car_samples", 10), ("params_pendulum_samples", 500)]
+# the state each branch starts from, given the full step's sn (the raw
+# relative step norm x_diff + u_diff): (status, best_step / sn, stall_count,
+# mono_count, alpha) and the alpha it must leave; every threshold at least
+# 5 % away.  "done": a step of ~1e-6 of the iterate's scale, dU = 0.
+_ADVANCE_STATES = {
+    "first": (0, float("inf"), 0, 0, 1.0, 1.0),        # a solve's first step
+    "full": (0, 2.0, 3, 1, 1.0, 1.0),                  # a new minimum
+    "failed": (4, 0.5, 2, 1, 0.5, 0.5),                # nothing consumed
+    "stall": (0, 0.5, 5, 0, 1.0, 0.5),                 # alpha halves
+    "floor": (0, 0.5, 5, 0, 1.0 / 16.0, 1.0 / 16.0),   # ... not past 1/16
+    "recover": (0, 2.0, 0, 3, 0.25, 0.5),              # alpha doubles
+    "recover_full": (0, 2.0, 0, 3, 0.5, 1.0),          # ... back to 1
+    "done": (0, float("inf"), 0, 0, 1.0, 1.0),         # converged
+}
+_ADVANCE_BASE: dict = {}
+
+
+def _advance_base(dev, config, ns):
+    """A configuration's iterate and the glue kernel's T, Gamma on the
+    card (``_glue_problem``), with a seeded QP step z = 0.5 N(0, 1)."""
+    key = (config, ns)
+    if key not in _ADVANCE_BASE:
+        from sampling_gpmpc_torch.ocp import sqp
+        spec, ocp, comb, X, U, st = _glue_problem(dev, config, ns)
+        _, T, Gamma = condensed_qp(spec, ocp, comb, X, U, st)
+        g = torch.Generator().manual_seed(7)
+        z = (0.5 * torch.randn(spec.H * spec.nu, generator=g)).to(dev)
+        assert sqp.STALL == (6, 0.95, 4, 1.0 / 16.0)
+        _ADVANCE_BASE[key] = (spec, X, U, T.clone(), Gamma.clone(), z)
+    return _ADVANCE_BASE[key]
+
+
+def _advance_inputs(dev, config, ns, branch):
+    """(spec, args of ``glue.advance`` without ``stall``, the alpha the
+    branch leaves): status and iterations (int64 where the QP failed, as
+    the plain IPM counts) and the state's scalars as ``_ADVANCE_STATES``."""
+    from sampling_gpmpc_torch.ocp import sqp
+    spec, X, U, T, Gamma, z = _advance_base(dev, config, ns)
+    if branch == "done":
+        T = T * (1e-6 * float(X.abs().max()) / float(T.abs().max()))
+        z = torch.zeros_like(z)
+    X_c, U_c = sqp.candidate(spec, X, U, T, Gamma, z)
+    one = torch.ones((), dtype=torch.bool, device=dev)
+    inf = torch.tensor(float("inf"), device=dev)
+    sn = sum(float(v) for v in sqp.consume_step(
+        spec, X, U, X_c, U_c, one, inf, torch.zeros((), dtype=torch.int32,
+                                                     device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev),
+        torch.ones((), device=dev))[2:4])
+    status, best, stall, mono, alpha, alpha_new = _ADVANCE_STATES[branch]
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa
+    iters = torch.tensor(9, dtype=torch.int64 if status else torch.int32,
+                         device=dev)
+    args = (X, U, T, Gamma, z, torch.tensor(status, device=dev), iters,
+            f32(best * sn), i32(stall), i32(mono), f32(alpha), i32(31))
+    return spec, args, alpha_new
+
+
+def _advance_plain(spec, X, U, T, Gamma, z, status, iters, best_step,
+                   stall_count, mono_count, alpha, qp_iters):
+    """The torch chain the kernel replaces, on the same device."""
+    from sampling_gpmpc_torch.ocp import sqp
+    ok = status == 0
+    return sqp.consume_step(spec, X, U, *sqp.candidate(spec, X, U, T, Gamma,
+                                                       z), ok, best_step,
+                            stall_count, mono_count, alpha) + (
+        ok, qp_iters + iters)
+
+
+# the kernel's sums in another order than torch's: the four squared norms
+# to float32 rounding; the iterate within the float32 bound of a dot of nU
+# terms (gamma_n = n u, u = 2^-24) for each of the two orders, on the
+# magnitude of what is summed, |X| + |T| + |Gamma| |dU| (|U| + |dU|)
+ADVANCE_NORM_RTOL = 1e-6
+
+
+def _advance_scales(X, U, T, Gamma, z):
+    """The magnitude of the terms summed into each entry of X and U, the
+    largest of each."""
+    terms = T.abs() + torch.einsum("ikau,u->ika", Gamma.abs(), z.abs())
+    return (float((X.abs() + terms.transpose(0, 1)).max()),
+            float((U.abs() + z.abs().reshape(U.shape)).max()))
+
+
+@pytest.mark.parametrize("branch", list(_ADVANCE_STATES))
+@pytest.mark.parametrize("config,ns", ADVANCE_CASES)
+def test_glue_advance_matches_consume_step(dev, config, ns, branch):
+    """The step's consumption in one launch against ``consume_step`` on
+    the candidate X + (T + Gamma dU)', U + dU: counters, alpha, done and
+    qp_valid equal, qp_iters equal in value and dtype; X and U within two
+    dot products' float32 bound of their terms' scale, x_diff, u_diff and
+    best_step to ADVANCE_NORM_RTOL; the branch taken as set up, and the
+    inputs left as they were."""
+    from sampling_gpmpc_torch.ocp import sqp
+    spec, args, alpha_new = _advance_inputs(dev, config, ns, branch)
+    before = [a.clone() for a in args]
+    got = glue.advance(spec, *args, sqp.STALL)
+    ref = _advance_plain(spec, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(args, before):
+        assert torch.equal(a, b)
+    out = dict(zip(glue.ADVANCE_OUTPUTS, got))
+    want = dict(zip(glue.ADVANCE_OUTPUTS, ref))
+    scale = dict(zip(("X", "U"), _advance_scales(*args[:5])))
+    gamma = 2 * (spec.H * spec.nu + 2) * 2.0 ** -24
+    for k in glue.ADVANCE_OUTPUTS:
+        a, b = out[k], want[k]
+        assert a.shape == b.shape and a.dtype == b.dtype, k
+        if k in ("X", "U"):
+            err = float((a - b).abs().max())
+            assert err <= gamma * scale[k], (k, err, scale[k])
+        elif k in ("x_diff", "u_diff", "best_step"):
+            assert float(a) == pytest.approx(float(b), rel=ADVANCE_NORM_RTOL,
+                                             abs=0), k
+        else:
+            assert torch.equal(a, b), (k, a, b)
+    assert float(out["alpha"]) == alpha_new
+    assert bool(out["done"]) == (branch == "done")
+    assert bool(out["qp_valid"]) == (branch != "failed")
+    X, U = args[:2]
+    if branch == "failed":
+        assert torch.equal(out["X"], X) and torch.equal(out["U"], U)
+        assert int(out["stall_count"]) == 2 and int(out["mono_count"]) == 1
+    elif alpha_new == 1.0:
+        assert torch.equal(out["U"], U + args[4].reshape(U.shape))
+
+
+@pytest.mark.parametrize("config,ns", ADVANCE_CASES)
+def test_glue_advance_is_deterministic(dev, config, ns):
+    """Two launches on the same inputs give the same bits: the sums run
+    in a fixed tree, with no atomics (a partial step, so both passes
+    run)."""
+    from sampling_gpmpc_torch.ocp import sqp
+    spec, args, _ = _advance_inputs(dev, config, ns, "stall")
+    a = glue.advance(spec, *args, sqp.STALL)
+    b = glue.advance(spec, *args, sqp.STALL)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_glue_advance_refuses_float64_on_the_card(dev):
+    """A float64 iterate on the card raises, naming it; nothing is
+    launched and nothing falls back to the torch chain."""
+    from sampling_gpmpc_torch.ocp import sqp
+    spec, args, _ = _advance_inputs(dev, "params_car", 20, "first")
+    before = glue.LAUNCHES["glue_advance"]
+    with pytest.raises(ValueError, match="X: need float32"):
+        glue.advance(spec, args[0].double(), *args[1:], sqp.STALL)
+    assert glue.LAUNCHES["glue_advance"] == before
+
+
+def test_glue_advance_launches_once_per_sqp_iteration(dev):
+    """On the main path the step's consumption is one launch per SQP
+    iteration: params_car's four-iteration solve launches it 4 times and
+    three params_pendulum1D_samples steps as published (one RTI iteration
+    each) 3 times; under plain_route(glue=True) the torch chain runs
+    instead and the car's solve launches it never."""
+    from sampling_gpmpc_torch import bench
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.parallel.worker import problem
+    spec, env, hyp, ocp, gp, X0, U0, st, eps = problem(
+        "params_car", 20, 4, dev, torch.float32)
+    routes.zero_launch_counts()
+    s = sqp.solve(spec, env, hyp, ocp, st, X0, U0, gp, eps)
+    torch.cuda.synchronize()
+    assert s.it == 4 and routes.launch_counts()["glue_advance"] == 4
+    with routes.plain_route(gp=False, qp=False, glue=True):
+        routes.zero_launch_counts()
+        s = sqp.solve(spec, env, hyp, ocp, st, X0, U0, gp, eps)
+        torch.cuda.synchronize()
+        n = routes.launch_counts()
+    assert s.it == 4 and n["glue_advance"] == n["glue_condense"] == 0
+    _, spec, data, env = bench.build(dict(ns=70, H=17))
+    draws = bench.draws(spec, 3, 5, dev)
+    loop = bench.ClosedLoop(spec, data, env, dev)
+    routes.zero_launch_counts()
+    its = sum(loop.step(draws[m]).it for m in range(3))
+    torch.cuda.synchronize()
+    assert its == 3 and routes.launch_counts()["glue_advance"] == 3
+
+
+@pytest.mark.parametrize("seed", [123451, 123454, 123456])
+def test_hall_kernel_matches_plain_on_the_car_check(dev, seed):
+    """bench.hall_equiv_check (params_car's hall stage from a solved
+    iterate, kernel against plain on the same inputs) at seeds where,
+    with the configured jitter alone on every row, the kernel's and the
+    plain version's rounding put one sample's covariance factor on
+    different jitters (0.26-0.39 of the tube apart): within chip_smoke's
+    GP_HALL_REL_TOL (0.01 of the tube), inside the tube."""
+    from sampling_gpmpc_torch import bench
+    r = bench.hall_equiv_check(dev, seed)
+    assert r["rel"] <= 1e-2, r
+    assert r["viol"] == 0.0, r
