@@ -660,8 +660,10 @@ def ptxas_usage(log):
 def not_launched(launches) -> bool:
     """Whether a loop kernel every SQP iteration takes was not launched
     (the glue's Gram launch, ``glue_gram``, runs past ops/glue.py's
-    GRAM_NU only)."""
-    return min(v for k, v in launches.items() if k != "glue_gram") <= 0
+    GRAM_NU only; ``gp_hall_global`` counts the hall launches whose factor
+    keeps its tiles in global memory, none at the car's fills)."""
+    return min(v for k, v in launches.items()
+               if k not in ("glue_gram", "gp_hall_global")) <= 0
 
 
 def bound_ms(nbytes, flops):
@@ -2045,7 +2047,8 @@ def car_samples_phase(dev, checks):
             or kx > tol_x or ku > tol_u:
         fail("params_car_samples plan")
     if min(launches.values()) <= 0 or min(wide.values()) <= 0 or \
-            wide["ipm_mehrotra"] != len(qps):
+            wide["ipm_mehrotra"] != len(qps) or \
+            launches["gp_hall_global"] != launches["gp_hall"]:
         fail(f"params_car_samples launches {launches} (wide {wide}) for "
              f"{len(qps)} QPs")
 
@@ -3272,8 +3275,8 @@ def bench_phase(dev, checks, results):
               f"iterations {sorted(set(r['sqp_iters']))}; launches per step "
               f"{r['launches_per_step']}", flush=True)
     one = {"gp_sample": 1.0, "gp_hall": 0.0, "gp_hall_blocks": 0.0,
-           "ipm_prepare": 1.0, "ipm_mehrotra": 1.0, "glue_condense": 1.0,
-           "glue_gram": 0.0, "glue_advance": 1.0}
+           "gp_hall_global": 0.0, "ipm_prepare": 1.0, "ipm_mehrotra": 1.0,
+           "glue_condense": 1.0, "glue_gram": 0.0, "glue_advance": 1.0}
     for name in ("ns64", "ns512"):
         if rows[name]["launches_per_step"] != one:
             fail(f"bench {name}: launches per step "
@@ -3281,7 +3284,7 @@ def bench_phase(dev, checks, results):
     car = rows["car"]
     its = car["sqp_iters"][-car["steps"]:]
     want = {"gp_sample": car["steps"], "gp_hall": sum(its) - len(its),
-            "gp_hall_blocks": sum(its) - len(its),
+            "gp_hall_blocks": sum(its) - len(its), "gp_hall_global": 0,
             "ipm_prepare": sum(its), "ipm_mehrotra": sum(its),
             "glue_condense": sum(its), "glue_gram": 0,
             "glue_advance": sum(its)}
@@ -4308,6 +4311,11 @@ def main():
             **{f"launches_{c[7:]}": r["launches"][name]
                for c, r in h1.items()},
             "launches_car_samples": car_s["launches"][name],
+            # of them on the factor's global-tile branch (the hall stage)
+            **({"launches_global_car": launches_car["gp_hall_global"],
+                "launches_global_car_samples":
+                    car_s["launches"]["gp_hall_global"]}
+               if name == "gp_hall" else {}),
             "launches_drone_pessimistic":
                 drone["pessimistic"]["launches"][name],
             "launches_drone_optimistic":

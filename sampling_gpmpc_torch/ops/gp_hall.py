@@ -73,8 +73,10 @@ from sampling_gpmpc_torch.ops.gp_sample import (JITTER_REL, PANEL,
                                                 row_jitter)
 
 # gp_hall: the stage's launch set (either entry); gp_hall_blocks: the
-# blocks kernel (sample_hall_points, hall_blocks)
-LAUNCHES = {"gp_hall": 0, "gp_hall_blocks": 0}
+# blocks kernel (sample_hall_points, hall_blocks); gp_hall_global: the launch
+# sets whose factor keeps its tiles in the global workspace
+# (factor_tiles_global)
+LAUNCHES = {"gp_hall": 0, "gp_hall_blocks": 0, "gp_hall_global": 0}
 MAX_D = 8           # GP input dimensions of csrc/gp_hall.cu's blocks kernel
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of csrc/gp_hall.cu's C entries
@@ -387,6 +389,8 @@ def sample_hall(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "gp_hall_sample launch")
     obs.count(LAUNCHES, "gp_hall")
+    if glob:
+        obs.count(LAUNCHES, "gp_hall_global", tally=False)
     return dg
 
 
@@ -467,6 +471,8 @@ def sample_hall_points(nh: int, real_Z, m_r, hall_Z, hall_Y, Xt, eps,
     build.check(rc, "gp_hall_points launch")
     obs.count(LAUNCHES, "gp_hall_blocks")
     obs.count(LAUNCHES, "gp_hall")
+    if glob:
+        obs.count(LAUNCHES, "gp_hall_global", tally=False)
     return dg
 
 

@@ -697,8 +697,10 @@ def test_solve_recorded_matches_solve_bitwise(dev):
         st = (sqp.solve_recorded(*args)[0] if recorded
               else sqp.solve(*args))
         torch.cuda.synchronize()
+        # the car's hall factor keeps its tiles in shared memory: no
+        # gp_hall_global launch
         counts.append({k: v for k, v in routes.launch_counts().items()
-                       if k not in glue.LAUNCHES})
+                       if k not in glue.LAUNCHES and k != "gp_hall_global"})
         out.append(st)
     a, b = out
     assert a.it == b.it == spec.max_sqp_iter
@@ -1061,13 +1063,29 @@ def test_hall_points_launch_once_per_hall_stage(dev):
     torch.cuda.synchronize()
     n = routes.launch_counts()
     assert s.it == 4 and n["gp_hall_blocks"] == n["gp_hall"] == 3
-    assert n["gp_sample"] == 1
+    assert n["gp_sample"] == 1 and n["gp_hall_global"] == 0
     with routes.plain_route(gp=True, qp=False, glue=False):
         routes.zero_launch_counts()
         s = sqp.solve(spec, env, hyp, ocp, st, X0, U0, gp, eps)
         torch.cuda.synchronize()
         n = routes.launch_counts()
     assert s.it == 4 and n["gp_hall_blocks"] == n["gp_hall"] == 0
+
+
+def test_hall_global_tiles_counted_at_car_samples(dev):
+    """params_car_samples' hall stages (Ht = 400, fills 400 / 800 / 1200)
+    take the factor's global-tile branch, each counted once under
+    gp_hall_global; the car's (Ht = 60) never do."""
+    from sampling_gpmpc_torch.ocp import sqp
+    from sampling_gpmpc_torch.parallel.worker import problem
+    spec, env, hyp, ocp, gp, X0, U0, st, eps = problem(
+        "params_car_samples", 10, 4, dev, torch.float32)
+    routes.zero_launch_counts()
+    s = sqp.solve(spec, env, hyp, ocp, st, X0, U0, gp, eps)
+    torch.cuda.synchronize()
+    n = routes.launch_counts()
+    assert s.it == 4 and n["gp_hall_global"] == n["gp_hall"] == 3
+    assert n["glue_gram"] == n["glue_condense"] == 4
 
 
 # the step's consumption (ops/glue.py::advance) at every shape the port
