@@ -661,9 +661,11 @@ def not_launched(launches) -> bool:
     """Whether a loop kernel every SQP iteration takes was not launched
     (the glue's Gram launch, ``glue_gram``, runs past ops/glue.py's
     GRAM_NU only; ``gp_hall_global`` counts the hall launches whose factor
-    keeps its tiles in global memory, none at the car's fills)."""
+    keeps its tiles in global memory and ``gp_hall_panels`` their panel
+    steps, none at the car's fills)."""
     return min(v for k, v in launches.items()
-               if k not in ("glue_gram", "gp_hall_global")) <= 0
+               if k not in ("glue_gram", "gp_hall_global",
+                            "gp_hall_panels")) <= 0
 
 
 def bound_ms(nbytes, flops):
@@ -724,6 +726,36 @@ def gp_sample_bound(ns, Ht, R):
     flops = ns * (2 * R * R * Ht + 2 * R * Ht + R * Ht * (Ht + 1)
                   + Ht ** 3 / 3 + Ht * Ht)
     return nbytes, flops
+
+
+# the hall stage's kernels (csrc/gp_hall.cu): the blocks, the products, the
+# shared-memory factor, and the global-tile factor's fill, panel steps,
+# trailing updates and finish
+HALL_KERNELS = ("hall_blocks_kernel", "hall_gemm_kernel",
+                "gp_hall_factor_kernel", "gp_hall_fill_kernel",
+                "gp_hall_panel_kernel", "gp_hall_update_kernel",
+                "gp_hall_finish_kernel")
+
+
+def hall_kernel_ms(fn, n=3) -> dict:
+    """Device ms per fn() call of each hall-stage kernel that fn launches,
+    summed over its launches, under torch.profiler over n warm calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0.0))
+        for name in HALL_KERNELS:
+            if us and (name + "(" in e.key or name + "<" in e.key):
+                out[name] = out.get(name, 0.0) + us / n / 1e3
+    return {k: round(v, 4) for k, v in out.items()}
 
 
 def gp_hall_bound(ns, Ht, Rr, nh):
@@ -2046,9 +2078,17 @@ def car_samples_phase(dev, checks):
     if out["sqp_status_traj"] != [0] or dx > tol_x or du > tol_u \
             or kx > tol_x or ku > tol_u:
         fail("params_car_samples plan")
+    Ht = spec.H * spec.Ty
+    panels = sum(gp_hall.hall_panels(Ht, nh) for nh in walk["hall"])
+    print(f"[car_samples] hall factor: {launches['gp_hall_global']} launch "
+          f"sets on the global-tile branch, {launches['gp_hall_panels']} "
+          f"panel steps of {32 * gp_hall.GLOBAL_PANEL_TILES} columns "
+          f"(from the shapes: {panels} at fills {sorted(walk['hall'])})",
+          flush=True)
     if min(launches.values()) <= 0 or min(wide.values()) <= 0 or \
             wide["ipm_mehrotra"] != len(qps) or \
-            launches["gp_hall_global"] != launches["gp_hall"]:
+            launches["gp_hall_global"] != launches["gp_hall"] or \
+            launches["gp_hall_panels"] != panels:
         fail(f"params_car_samples launches {launches} (wide {wide}) for "
              f"{len(qps)} QPs")
 
@@ -2062,13 +2102,16 @@ def car_samples_phase(dev, checks):
         nb, fl = gp_hall_bound(ns, Ht, Rr, nh)
         b, by = bound_ms(no * nb, no * fl)
         branch = "global" if gp_hall.factor_tiles_global(Ht, nh) else "shared"
+        dev_ms = hall_kernel_ms(lambda: gp_hall.sample_hall(**st_in))
         print(f"[timing] gp_hall car_samples nh={nh} (no={no}, ns={ns}, "
               f"Ht={Ht}, Rr={Rr}, Rh={st_in['Kxh'].shape[-1]}; factor tiles "
-              f"in {branch} memory): all {no} outputs in one launch set "
-              f"{t_k:.4f} ms (bound {b:.5f} ms, {by}), plain {t_p:.4f} ms",
-              flush=True)
+              f"in {branch} memory, {gp_hall.hall_panels(Ht, nh)} panel "
+              f"steps): all {no} outputs in one launch set {t_k:.4f} ms "
+              f"(bound {b:.5f} ms, {by}), plain {t_p:.4f} ms; device ms by "
+              f"kernel {dev_ms}", flush=True)
         rows.append(dict(nh=nh, tiles=branch, ms=t_k, plain_ms=t_p,
-                         bound_ms=b, bound_by=by))
+                         bound_ms=b, bound_by=by, kernel_ms=dev_ms,
+                         panels=gp_hall.hall_panels(Ht, nh)))
     res["gp_hall"] = rows
     res["ipm"] = (checks.timing("car_samples cold", qp0, None, None),
                   checks.timing("car_samples warm", qpw, wsw, wvw))
@@ -3275,8 +3318,9 @@ def bench_phase(dev, checks, results):
               f"iterations {sorted(set(r['sqp_iters']))}; launches per step "
               f"{r['launches_per_step']}", flush=True)
     one = {"gp_sample": 1.0, "gp_hall": 0.0, "gp_hall_blocks": 0.0,
-           "gp_hall_global": 0.0, "ipm_prepare": 1.0, "ipm_mehrotra": 1.0,
-           "glue_condense": 1.0, "glue_gram": 0.0, "glue_advance": 1.0}
+           "gp_hall_global": 0.0, "gp_hall_panels": 0.0, "ipm_prepare": 1.0,
+           "ipm_mehrotra": 1.0, "glue_condense": 1.0, "glue_gram": 0.0,
+           "glue_advance": 1.0}
     for name in ("ns64", "ns512"):
         if rows[name]["launches_per_step"] != one:
             fail(f"bench {name}: launches per step "
@@ -3285,6 +3329,7 @@ def bench_phase(dev, checks, results):
     its = car["sqp_iters"][-car["steps"]:]
     want = {"gp_sample": car["steps"], "gp_hall": sum(its) - len(its),
             "gp_hall_blocks": sum(its) - len(its), "gp_hall_global": 0,
+            "gp_hall_panels": 0,
             "ipm_prepare": sum(its), "ipm_mehrotra": sum(its),
             "glue_condense": sum(its), "glue_gram": 0,
             "glue_advance": sum(its)}
@@ -4137,13 +4182,15 @@ def main():
         nb, fl = gp_hall_bound(ns, Ht, Rr, nh)
         b, by = bound_ms(no * nb, no * fl)
         branch = "global" if gp_hall.factor_tiles_global(Ht, nh) else "shared"
+        dev_ms = hall_kernel_ms(lambda: gp_hall.sample_hall(**st))
         print(f"[timing] gp_hall 2D pendulum, seeded, nh={nh} (no={no}, "
               f"ns={ns}, Ht={Ht}, Rr={Rr}, Rh={st['Kxh'].shape[-1]}; factor "
-              f"tiles in {branch} memory): all {no} outputs in one launch set "
-              f"{t_k:.4f} ms (bound {b:.5f} ms, {by}), plain {t_p:.4f} ms",
-              flush=True)
+              f"tiles in {branch} memory, {gp_hall.hall_panels(Ht, nh)} panel "
+              f"steps): all {no} outputs in one launch set {t_k:.4f} ms "
+              f"(bound {b:.5f} ms, {by}), plain {t_p:.4f} ms; device ms by "
+              f"kernel {dev_ms}", flush=True)
         f1_hall.append(dict(nh=nh, tiles=branch, ms=t_k, plain_ms=t_p,
-                            bound_ms=b, bound_by=by))
+                            bound_ms=b, bound_by=by, kernel_ms=dev_ms))
     per_step = launches_car["gp_hall"] / n_car
     hall_its = sum(k - 1 for k in sqp_its) / n_car
     print(f"[timing] gp_hall launches per car MPC step {per_step} (one stage "
@@ -4314,7 +4361,10 @@ def main():
             # of them on the factor's global-tile branch (the hall stage)
             **({"launches_global_car": launches_car["gp_hall_global"],
                 "launches_global_car_samples":
-                    car_s["launches"]["gp_hall_global"]}
+                    car_s["launches"]["gp_hall_global"],
+                "panel_steps_car": launches_car["gp_hall_panels"],
+                "panel_steps_car_samples":
+                    car_s["launches"]["gp_hall_panels"]}
                if name == "gp_hall" else {}),
             "launches_drone_pessimistic":
                 drone["pessimistic"]["launches"][name],

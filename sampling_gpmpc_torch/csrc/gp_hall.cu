@@ -56,15 +56,45 @@
 //      take P_I P_J' as 4x4 register-tiled FFMA, 64 threads per tile.  ~24
 //      barriers at nh=180 where a column sweep takes ~420.
 // A stage whose tiles do not fit one CTA's shared memory (nh above 224 at
-// Ht=60, e.g. the full 240-row capacity; every fill of the 2D pendulum's
-// Ht=120, Rh=360 stage past nh=0) runs the same factor with the tiles in a
-// per-(output, sample) region of the global workspace (574,464 B at
-// nh=360, Ht=120; 11.5 MB for 20 samples, which stays in the 50 MB L2),
-// only the mean, variance and draw rows in shared memory: __syncthreads()
-// orders the block's global writes as it does its shared ones.  The branch
-// is chosen from the shapes alone (ops/gp_hall.py factor_tiles_global); the
-// car's fills all keep their tiles in shared memory.  Full float32
-// throughout: no TF32.
+// Ht=60; every fill of the 2D pendulum's Ht=120, Rh=360 stage past nh=0;
+// every fill of params_car_samples' Ht=400 stage) keeps them in a
+// per-(output, sample) region of the global workspace (1.5 / 3.1 / 5.6 MB at
+// Ht=400, nh = 400 / 800 / 1200: 44-168 MB a stage, past the 50 MB L2).
+// One CTA per factor there ran ~1 % of the card: 30 CTAs on 132 SMs, each
+// trailing tile a depth-32 product by 64 threads on unstaged stride-33
+// loads.  So the global branch runs the hall columns as a short sequence of
+// launches, each over every (output, sample) of the stage at once:
+//   3. gp_hall_fill_kernel, one CTA per (tile, factor), writes the lower
+//      tiles of M (the same entries the shared branch writes, zero above
+//      the diagonal and past the matrix) into the workspace;
+//   4. per panel of 64 hall columns (two tiles; one where the hall
+//      columns' last tile is left over), two launches:
+//      gp_hall_panel_kernel, one CTA per (two tile rows below the panel,
+//      factor), loads the panel's diagonal block, factors it (redundantly
+//      in every CTA: ~0.1 MFLOP, no sync between CTAs; the hall columns'
+//      L_s is never read again, so it is not written back) and solves its
+//      rows, bordering row included, against it; gp_hall_update_kernel, one
+//      CTA per (lower 64x64 output block past the panel, factor), takes
+//      T_IJ -= P_I P_J' as 4x4 register-tiled FFMA at depth 32 x the
+//      panel's tiles, its two panel blocks staged whole-tile (coalesced) in
+//      shared memory, as hall_gemm_kernel runs the products.  Panels of 64
+//      columns halve the trailing matrix's passes through memory (it is
+//      read and written once a panel) and the launches against 32: the
+//      params_car_samples stage at nh = 400 / 800 / 1200 took 2.91 / 5.18 /
+//      8.87 ms in panels of 64 columns, 2.93 / 5.44 / 9.66 ms in panels of
+//      32, the single-CTA factor 7.97 / 24.75 / 59.58 ms (H100 80GB HBM3,
+//      700 W; the whole launch set, products included);
+//   5. gp_hall_finish_kernel, one CTA per factor, runs the shared branch's
+//      body from the hall columns' end on (factor_finish: mean and variance
+//      rows, the covariance copied over G_i for the retry, the covariance
+//      columns by factor_panel, factor_retry, the draw and the override
+//      tail) on the tiles in the workspace, FINISH_THREADS threads.  The
+//      covariance columns stay in it: 0.64 ms a stage at Ht=400, ~1.9 ms a
+//      plan, and the retry keeps its pivots on the device unchanged.
+// The branch is chosen from the shapes alone (ops/gp_hall.py
+// factor_tiles_global; the panel width is ops/gp_hall.py
+// GLOBAL_PANEL_TILES, passed in); the car's fills all keep their tiles in
+// shared memory.  Full float32 throughout: no TF32.
 //
 // The blocks from the points (gp_hall_points; replaces no TPU kernel: the
 // JAX package leaves the blocks to XLA's fusion, as the port's plain
@@ -91,12 +121,18 @@ constexpr int GT = 64;              // product output tile
 constexpr int GK = 16;              // product depth step
 constexpr int GEMM_THREADS = 256;
 constexpr int FACTOR_THREADS = 256;
+constexpr int FILL_THREADS = 256;
+constexpr int PANEL_THREADS = 2 * sgp::TB;  // a row each, two tile rows
+constexpr int UPDATE_THREADS = 256;        // 64x64 outputs, 4x4 each
+constexpr int FINISH_THREADS = 1024;
 constexpr int MAX_JOBS = 5;
 constexpr int BLOCKS_THREADS = 256;
 constexpr int MAX_D = 8;            // ops/gp_hall.py MAX_D
 using sgp::factor_panel;
 using sgp::TB;
 using sgp::TILE_FLOATS;
+using sgp::TLD;
+using sgp::warp_chol32;
 using sgp::Tiles;
 
 // out[b][m][n] = base[b][m][n] + alpha * sum_k A[b](m, k) B[b](k, n)
@@ -192,58 +228,27 @@ hall_gemm_kernel(GemmJobs jobs, int nbatch) {
   }
 }
 
-// GLOBAL_TILES: the tiles in gtiles, one region per CTA (generic loads and
-// stores); otherwise in shared memory, known to the compiler.
-template <bool GLOBAL_TILES>
-__global__ void __launch_bounds__(FACTOR_THREADS)
-gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww,
-                      float* __restrict__ Gw, const float* __restrict__ Bw,
-                      const float* __restrict__ MRw, const float* __restrict__ eps,
-                      const float* __restrict__ pv, const float* __restrict__ close,
-                      const float* __restrict__ ynear, float* __restrict__ dg,
-                      float* __restrict__ gtiles, int ns, int Ht, int nh, int ty,
-                      float jitter, float jitter_rel, float beta, float var_zero,
-                      float rel_floor) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x, o = b / ns, tid = threadIdx.x, nt = blockDim.x;
-  const int nhp = (nh + TB - 1) / TB * TB;     // S padded to whole tiles
-  const int n2 = nhp + Ht, ntot = n2 + 1;      // covariance end, bordering row
-  const int nt_tiles = (ntot + TB - 1) / TB;
-  const int ntile = nt_tiles * (nt_tiles + 1) / 2;
-  // the tiles in shared memory, or in this CTA's region of the workspace
-  float* T = GLOBAL_TILES ? gtiles + (size_t)b * ntile * TILE_FLOATS : sm;
-  const Tiles M{T};
-  float* sMean = GLOBAL_TILES ? sm : sm + ntile * TILE_FLOATS;   // Ht
-  float* sVar = sMean + Ht;                    // Ht
-  float* sEps = sVar + Ht;                     // Ht
+// The bordered matrix's sizes at fill nh: S padded to whole tiles (nhp),
+// the covariance's end (n2), the bordering row's end (ntot), its tiles.
+struct Geom {
+  int nhp, n2, ntot, nt_tiles, ntile;
+  __host__ __device__ Geom(int Ht, int nh)
+      : nhp((nh + TB - 1) / TB * TB), n2(nhp + Ht), ntot(n2 + 1),
+        nt_tiles((ntot + TB - 1) / TB), ntile(nt_tiles * (nt_tiles + 1) / 2) {}
+};
 
-  const float* S_i = Sw + (size_t)b * nh * nh;
-  const float* W_i = Ww + (size_t)b * Ht * nh;
-  float* G_i = Gw + (size_t)b * Ht * Ht;
-  const float* B_i = Bw + (size_t)b * nh;
-  const float* MR_i = MRw + (size_t)b * Ht;
-  const float* pvo = pv + (size_t)o * Ht;
+// Both branches from the hall columns' end on, by the whole block: the mean
+// and variance rows, the covariance as the hall columns left it over G_i
+// (for a retry), the covariance columns (bordering row left out) retried
+// with more jitter while the factor fails, then the draw and the override
+// tail.  close, ynear and dg at the factor's rows; sEps filled before.
+__device__ void factor_finish(const Tiles& M, int nhp, int Ht, float* G_i,
+                              float* sMean, float* sVar, const float* sEps,
+                              const float* pvo, float jitter, float jitter_rel,
+                              const float* close, const float* ynear, float* dg,
+                              int ty, float beta, float var_zero, float rel_floor) {
+  const int tid = threadIdx.x, nt = blockDim.x, n2 = nhp + Ht;
   const auto jit0 = [&](int t) { return sgp::row_jitter(jitter, jitter_rel, pvo, t); };
-  for (int e = tid; e < ntile * TILE_FLOATS; e += nt) T[e] = 0.f;
-  for (int t = tid; t < Ht; t += nt) sEps[t] = eps[(size_t)b * Ht + t];
-  __syncthreads();
-  for (int e = tid; e < nh * nh; e += nt) {
-    const int a = e / nh, c = e % nh;
-    if (c <= a) M.at(a, c) = S_i[e];
-  }
-  for (int a = nh + tid; a < nhp; a += nt) M.at(a, a) = 1.f;
-  for (int e = tid; e < Ht * nh; e += nt) M.at(nhp + e / nh, e % nh) = W_i[e];
-  for (int e = tid; e < Ht * Ht; e += nt) {
-    const int a = e / Ht, c = e % Ht;
-    if (c <= a) M.at(nhp + a, nhp + c) = G_i[e] + (a == c ? jit0(a) : 0.f);
-  }
-  // the bordering row: yh - w_r C under S, -V_r'w_r under the covariance
-  for (int c = tid; c < nh; c += nt) M.at(n2, c) = B_i[c];
-  for (int t = tid; t < Ht; t += nt) M.at(n2, nhp + t) = -MR_i[t];
-  __syncthreads();
-
-  // the hall columns, bordering row included
-  for (int k = 0; k < nhp / TB; ++k) factor_panel(M, k, ntot);
   for (int t = tid; t < Ht; t += nt) {
     sMean[t] = -M.at(n2, nhp + t);
     sVar[t] = M.at(nhp + t, nhp + t) - jit0(t);
@@ -255,17 +260,306 @@ gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww
     if (c <= a) G_i[e] = M.at(nhp + a, nhp + c);
   }
   __syncthreads();
-  // the covariance columns, bordering row left out; retried with more
-  // jitter while the factor fails
   for (int k = nhp / TB; k * TB < n2; ++k) factor_panel(M, k, n2);
   sgp::factor_retry(M, nhp, n2, [&](int a, int c) { return G_i[(size_t)a * Ht + c]; },
                     true, sVar, jit0);
+  sgp::draw_override_tail_at(sgp::TiledAt{M, nhp}, sMean, sVar, sEps, pvo, close,
+                             ynear, dg, Ht, ty, beta, var_zero, rel_floor);
+}
 
+// The shared-memory branch: one CTA per (output, sample) holds M's tiles and
+// the three rows in shared memory and runs the whole factor.
+__global__ void __launch_bounds__(FACTOR_THREADS)
+gp_hall_factor_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww,
+                      float* __restrict__ Gw, const float* __restrict__ Bw,
+                      const float* __restrict__ MRw, const float* __restrict__ eps,
+                      const float* __restrict__ pv, const float* __restrict__ close,
+                      const float* __restrict__ ynear, float* __restrict__ dg, int ns,
+                      int Ht, int nh, int ty, float jitter, float jitter_rel, float beta,
+                      float var_zero, float rel_floor) {
+  extern __shared__ float sm[];
+  const int b = blockIdx.x, o = b / ns, tid = threadIdx.x, nt = blockDim.x;
+  const Geom g(Ht, nh);
+  const int nhp = g.nhp, n2 = g.n2, ntot = g.ntot, ntile = g.ntile;
+  float* T = sm;
+  const Tiles M{T};
+  float* sMean = sm + ntile * TILE_FLOATS;     // Ht
+  float* sVar = sMean + Ht;                    // Ht
+  float* sEps = sVar + Ht;                     // Ht
+
+  const float* S_i = Sw + (size_t)b * nh * nh;
+  const float* W_i = Ww + (size_t)b * Ht * nh;
+  float* G_i = Gw + (size_t)b * Ht * Ht;
+  const float* B_i = Bw + (size_t)b * nh;
+  const float* MR_i = MRw + (size_t)b * Ht;
+  const float* pvo = pv + (size_t)o * Ht;
+  for (int e = tid; e < ntile * TILE_FLOATS; e += nt) T[e] = 0.f;
+  for (int t = tid; t < Ht; t += nt) sEps[t] = eps[(size_t)b * Ht + t];
+  __syncthreads();
+  for (int e = tid; e < nh * nh; e += nt) {
+    const int a = e / nh, c = e % nh;
+    if (c <= a) M.at(a, c) = S_i[e];
+  }
+  for (int a = nh + tid; a < nhp; a += nt) M.at(a, a) = 1.f;
+  for (int e = tid; e < Ht * nh; e += nt) M.at(nhp + e / nh, e % nh) = W_i[e];
+  for (int e = tid; e < Ht * Ht; e += nt) {
+    const int a = e / Ht, c = e % Ht;
+    if (c <= a)
+      M.at(nhp + a, nhp + c) =
+          G_i[e] + (a == c ? sgp::row_jitter(jitter, jitter_rel, pvo, a) : 0.f);
+  }
+  // the bordering row: yh - w_r C under S, -V_r'w_r under the covariance
+  for (int c = tid; c < nh; c += nt) M.at(n2, c) = B_i[c];
+  for (int t = tid; t < Ht; t += nt) M.at(n2, nhp + t) = -MR_i[t];
+  __syncthreads();
+
+  // the hall columns, bordering row included
+  for (int k = 0; k < nhp / TB; ++k) factor_panel(M, k, ntot);
   const size_t row = (size_t)b * Ht;
-  sgp::draw_override_tail_at(sgp::TiledAt{M, nhp}, sMean, sVar, sEps, pvo,
-                             close ? close + row : nullptr,
-                             ynear ? ynear + row : nullptr, dg + row, Ht, ty, beta,
-                             var_zero, rel_floor);
+  factor_finish(M, nhp, Ht, G_i, sMean, sVar, sEps, pvo, jitter, jitter_rel,
+                close ? close + row : nullptr, ynear ? ynear + row : nullptr, dg + row,
+                ty, beta, var_zero, rel_floor);
+}
+
+// The global-tile branch, step 3: one CTA per (lower tile of M, factor)
+// writes the tile whole, with the entries the shared branch writes (S, the
+// identity rows padding S to whole tiles, B, Ktt - V_r'V_r + J, the
+// bordering row) and zero elsewhere (above the diagonal, past the matrix,
+// the row stride's pad column).
+__global__ void __launch_bounds__(FILL_THREADS)
+gp_hall_fill_kernel(const float* __restrict__ Sw, const float* __restrict__ Ww,
+                    const float* __restrict__ Gw, const float* __restrict__ Bw,
+                    const float* __restrict__ MRw, const float* __restrict__ pv,
+                    float* __restrict__ gtiles, int ns, int Ht, int nh, float jitter,
+                    float jitter_rel) {
+  const int b = blockIdx.y, o = b / ns;
+  const Geom g(Ht, nh);
+  const int nhp = g.nhp, n2 = g.n2;
+  int I, J;
+  sgp::lower_tile(blockIdx.x, I, J);
+  float* T = gtiles + ((size_t)b * g.ntile + blockIdx.x) * TILE_FLOATS;
+  const float* S_i = Sw + (size_t)b * nh * nh;
+  const float* W_i = Ww + (size_t)b * Ht * nh;
+  const float* G_i = Gw + (size_t)b * Ht * Ht;
+  const float* B_i = Bw + (size_t)b * nh;
+  const float* MR_i = MRw + (size_t)b * Ht;
+  const float* pvo = pv + (size_t)o * Ht;
+  for (int e = threadIdx.x; e < TILE_FLOATS; e += blockDim.x) {
+    const int cc = e % TLD, a = I * TB + e / TLD, c = J * TB + cc;
+    float v = 0.f;
+    if (cc < TB && c <= a) {
+      if (a < nh) {
+        v = S_i[(size_t)a * nh + c];
+      } else if (a < nhp) {
+        v = a == c ? 1.f : 0.f;
+      } else if (a < n2) {
+        const int t = a - nhp;
+        if (c < nh) v = W_i[(size_t)t * nh + c];
+        else if (c >= nhp)
+          v = G_i[(size_t)t * Ht + c - nhp] +
+              (a == c ? sgp::row_jitter(jitter, jitter_rel, pvo, t) : 0.f);
+      } else if (a == n2) {
+        if (c < nh) v = B_i[c];
+        else if (c >= nhp && c < n2) v = -MR_i[c - nhp];
+      }
+    }
+    T[e] = v;
+  }
+}
+
+// Copy one tile (TILE_FLOATS floats) from global to shared memory by the
+// whole block, coalesced, every copy in flight at once (cp.async): the
+// caller waits (copies_done) before reading.
+__device__ __forceinline__ void copy_tile(float* dst, const float* src) {
+  for (int e = threadIdx.x; e < TILE_FLOATS; e += blockDim.x)
+    sgp::cp_async4(dst + e, src + e);
+}
+
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// The panel's diagonal block, np (1 or 2) tiles wide, factored in shared
+// memory D (tiles (0,0), (1,0), (1,1) at D + q TILE_FLOATS) with factor_panel's
+// steps: the first tile by one warp, the second tile's rows solved against
+// it, the second diagonal tile updated and factored.  Ends in a barrier.
+__device__ void factor_diag_block(float* D, int np) {
+  const int tid = threadIdx.x;
+  if (tid < 32) warp_chol32(D, TLD, TB);
+  __syncthreads();
+  if (np < 2) return;
+  float* P = D + TILE_FLOATS;
+  float* D1 = D + 2 * TILE_FLOATS;
+  if (tid < TB) {
+    float x[TB];
+#pragma unroll
+    for (int j = 0; j < TB; ++j) x[j] = P[tid * TLD + j];
+#pragma unroll
+    for (int j = 0; j < TB; ++j) {
+      x[j] = x[j] / D[j * TLD + j];
+#pragma unroll
+      for (int c = j + 1; c < TB; ++c) x[c] = fmaf(-x[j], D[c * TLD + j], x[c]);
+    }
+#pragma unroll
+    for (int j = 0; j < TB; ++j) P[tid * TLD + j] = x[j];
+  }
+  __syncthreads();
+  for (int e = tid; e < TB * TB; e += blockDim.x) {
+    const int r = e / TB, c = e % TB;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int kk = 0; kk < TB; ++kk) acc = fmaf(P[r * TLD + kk], P[c * TLD + kk], acc);
+    D1[r * TLD + c] -= acc;
+  }
+  __syncthreads();
+  if (tid < 32) warp_chol32(D1, TLD, TB);
+  __syncthreads();
+}
+
+// Step 4a: one CTA per (two tile rows below the panel of np tiles from tile
+// k, factor), one thread a row: the panel's diagonal block factored, this
+// CTA's rows (those before the bordering row's end; the padding rows stay
+// zero) solved against it, x <- x L^-T, in registers, written back.
+__global__ void __launch_bounds__(PANEL_THREADS)
+gp_hall_panel_kernel(float* __restrict__ gtiles, int Ht, int nh, int k, int np) {
+  __shared__ float D[3 * TILE_FLOATS];
+  __shared__ float R[2][2][TILE_FLOATS];       // [tile row][panel tile]
+  const Geom g(Ht, nh);
+  const Tiles M{gtiles + (size_t)blockIdx.y * g.ntile * TILE_FLOATS};
+  const int I0 = k + np + 2 * blockIdx.x;
+  const int nrow = min(2, g.nt_tiles - I0);
+  for (int q = 0; q < np * (np + 1) / 2; ++q) {
+    int i, j;
+    sgp::lower_tile(q, i, j);
+    copy_tile(D + q * TILE_FLOATS, M.tile(k + i, k + j));
+  }
+  for (int i = 0; i < nrow; ++i)
+    for (int p = 0; p < np; ++p) copy_tile(R[i][p], M.tile(I0 + i, k + p));
+  copies_done();
+  factor_diag_block(D, np);
+  const int i = threadIdx.x / TB, r = threadIdx.x % TB;
+  if (i < nrow && (I0 + i) * TB + r < g.ntot) {
+    float* x0 = R[i][0] + r * TLD;
+    float* x1 = R[i][1] + r * TLD;
+    float x[TB];
+#pragma unroll
+    for (int j = 0; j < TB; ++j) x[j] = x0[j];
+#pragma unroll
+    for (int j = 0; j < TB; ++j) {
+      x[j] = x[j] / D[j * TLD + j];
+#pragma unroll
+      for (int c = j + 1; c < TB; ++c) x[c] = fmaf(-x[j], D[c * TLD + j], x[c]);
+    }
+#pragma unroll
+    for (int j = 0; j < TB; ++j) x0[j] = x[j];
+    if (np == 2) {
+      // the second panel tile: less P_0 L_10', then against L_11
+      const float* P = D + TILE_FLOATS;
+      const float* D1 = D + 2 * TILE_FLOATS;
+      float y[TB];
+#pragma unroll
+      for (int c = 0; c < TB; ++c) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < TB; ++j) acc = fmaf(x[j], P[c * TLD + j], acc);
+        y[c] = x1[c] - acc;
+      }
+#pragma unroll
+      for (int j = 0; j < TB; ++j) {
+        y[j] = y[j] / D1[j * TLD + j];
+#pragma unroll
+        for (int c = j + 1; c < TB; ++c) y[c] = fmaf(-y[j], D1[c * TLD + j], y[c]);
+      }
+#pragma unroll
+      for (int j = 0; j < TB; ++j) x1[j] = y[j];
+    }
+  }
+  __syncthreads();
+  for (int i2 = 0; i2 < nrow; ++i2)
+    for (int p = 0; p < np; ++p) {
+      float* dst = M.tile(I0 + i2, k + p);
+      for (int e = threadIdx.x; e < TILE_FLOATS; e += blockDim.x) dst[e] = R[i2][p][e];
+    }
+}
+
+// Step 4b: one CTA per (lower 64x64 output block of the tiles past the
+// panel of NP tiles from tile k, factor): the two block rows' panel tiles
+// staged whole in shared memory (a diagonal block stages one), then T_IJ -=
+// P_I P_J' over the panel's 32 NP columns, 4x4 outputs a thread as in
+// hall_gemm_kernel (rows ty + 16u, columns tx + 16v), the lower tiles only.
+template <int NP>
+__global__ void __launch_bounds__(UPDATE_THREADS)
+gp_hall_update_kernel(float* __restrict__ gtiles, int Ht, int nh, int k) {
+  __shared__ float Ps[2][2][NP][TILE_FLOATS];   // [I or J][tile row][panel tile]
+  const Geom g(Ht, nh);
+  const Tiles M{gtiles + (size_t)blockIdx.y * g.ntile * TILE_FLOATS};
+  int a, c;
+  sgp::lower_tile(blockIdx.x, a, c);
+  const int I0 = k + NP + 2 * a, J0 = k + NP + 2 * c;
+  const int ni = min(2, g.nt_tiles - I0), nj = min(2, g.nt_tiles - J0);
+  const int sj = a == c ? 0 : 1;               // a diagonal block stages one
+  for (int i = 0; i < ni; ++i)
+    for (int p = 0; p < NP; ++p) copy_tile(Ps[0][i][p], M.tile(I0 + i, k + p));
+  if (sj)
+    for (int j = 0; j < nj; ++j)
+      for (int p = 0; p < NP; ++p) copy_tile(Ps[1][j][p], M.tile(J0 + j, k + p));
+  copies_done();
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+#pragma unroll 8
+    for (int kk = 0; kk < TB; ++kk) {
+      float pa[4], pb[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) pa[u] = Ps[0][u >> 1][p][(ty + 16 * (u & 1)) * TLD + kk];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) pb[v] = Ps[sj][v >> 1][p][(tx + 16 * (v & 1)) * TLD + kk];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(pa[u], pb[v], acc[u][v]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = u >> 1;
+    if (i >= ni) continue;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int j = v >> 1;
+      if (j >= nj || J0 + j > I0 + i) continue;
+      M.tile(I0 + i, J0 + j)[(ty + 16 * (u & 1)) * TLD + tx + 16 * (v & 1)] -= acc[u][v];
+    }
+  }
+}
+
+// Step 5: one CTA per (output, sample) finishes the factor on its tiles in
+// the workspace (factor_finish); shared memory holds the three rows.
+__global__ void __launch_bounds__(FINISH_THREADS)
+gp_hall_finish_kernel(float* __restrict__ Gw, const float* __restrict__ eps,
+                      const float* __restrict__ pv, const float* __restrict__ close,
+                      const float* __restrict__ ynear, float* __restrict__ dg,
+                      float* __restrict__ gtiles, int ns, int Ht, int nh, int ty,
+                      float jitter, float jitter_rel, float beta, float var_zero,
+                      float rel_floor) {
+  extern __shared__ float sm[];
+  const int b = blockIdx.x, o = b / ns;
+  const Geom g(Ht, nh);
+  const Tiles M{gtiles + (size_t)b * g.ntile * TILE_FLOATS};
+  float* sMean = sm;
+  float* sVar = sMean + Ht;
+  float* sEps = sVar + Ht;
+  const size_t row = (size_t)b * Ht;
+  for (int t = threadIdx.x; t < Ht; t += blockDim.x) sEps[t] = eps[row + t];
+  factor_finish(M, g.nhp, Ht, Gw + (size_t)b * Ht * Ht, sMean, sVar, sEps,
+                pv + (size_t)o * Ht, jitter, jitter_rel, close ? close + row : nullptr,
+                ynear ? ynear + row : nullptr, dg + row, ty, beta, var_zero, rel_floor);
 }
 
 // The points and blocks of gp_hall_points (layouts there).
@@ -433,15 +727,17 @@ cudaError_t launch_gemms(GemmJobs jobs, int nb, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The two product launches and the factor launch, from the blocks (Rh their
-// hall row stride).
+// The two product launches and the factor's launches, from the blocks (Rh
+// their hall row stride): panel_tiles 0, the shared-memory branch's one
+// launch; 1 or 2, the global-tile branch's, in panels of that many tiles.
 int launch_stage(const float* Kxr, const float* Kxh, const float* Ktt, const float* Arh,
                  const float* Ahh, const float* yh, const float* eps, const float* Linv,
                  const float* w_r, const float* pv, const float* close,
                  const float* ynear, float* dg, float* work, int no, int ns, int Ht,
                  int Rr, int Rh, int nh, int ty, float jitter, float jitter_rel,
                  float beta, float var_zero, float rel_floor, int smem_bytes,
-                 int global_tiles, cudaStream_t stream) {
+                 int panel_tiles, cudaStream_t stream) {
+  if (panel_tiles < 0 || panel_tiles > 2) return (int)cudaErrorInvalidValue;
   const int nb = no * ns;
   float* C = work;
   float* VT = C + (size_t)nb * Rr * nh;
@@ -484,15 +780,40 @@ int launch_stage(const float* Kxr, const float* Kxh, const float* Ktt, const flo
   err = launch_gemms(second, nb, stream);
   if (err != cudaSuccess) return (int)err;
 
-  auto factor = global_tiles ? gp_hall_factor_kernel<true>
-                              : gp_hall_factor_kernel<false>;
-  err = cudaFuncSetAttribute(factor, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
+  if (!panel_tiles) {
+    err = cudaFuncSetAttribute(gp_hall_factor_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    gp_hall_factor_kernel<<<nb, FACTOR_THREADS, smem_bytes, stream>>>(
+        S, W, G, Bl, MR, eps, pv, close, ynear, dg, ns, Ht, nh, ty, jitter, jitter_rel,
+        beta, var_zero, rel_floor);
+    return (int)cudaGetLastError();
+  }
+  // the global-tile branch: the tiles after the workspace's regions above
+  float* gt = MR + (size_t)nb * Ht;
+  const Geom g(Ht, nh);
+  const int ht = g.nhp / TB;                           // hall column tiles
+  gp_hall_fill_kernel<<<dim3(g.ntile, nb), FILL_THREADS, 0, stream>>>(
+      S, W, G, Bl, MR, pv, gt, ns, Ht, nh, jitter, jitter_rel);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  for (int k = 0; k < ht; k += panel_tiles) {
+    const int np = min(panel_tiles, ht - k);
+    const int nblk = (g.nt_tiles - k - np + 1) / 2;   // 64-row blocks below
+    gp_hall_panel_kernel<<<dim3(nblk, nb), PANEL_THREADS, 0, stream>>>(gt, Ht, nh, k,
+                                                                      np);
+    const dim3 grid(nblk * (nblk + 1) / 2, nb);
+    if (np == 2)
+      gp_hall_update_kernel<2><<<grid, UPDATE_THREADS, 0, stream>>>(gt, Ht, nh, k);
+    else
+      gp_hall_update_kernel<1><<<grid, UPDATE_THREADS, 0, stream>>>(gt, Ht, nh, k);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  err = cudaFuncSetAttribute(gp_hall_finish_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  factor<<<nb, FACTOR_THREADS, smem_bytes, stream>>>(
-      S, W, G, Bl, MR, eps, pv, close, ynear, dg,
-      global_tiles ? MR + (size_t)nb * Ht : nullptr, ns, Ht, nh, ty, jitter,
-      jitter_rel, beta, var_zero, rel_floor);
+  gp_hall_finish_kernel<<<nb, FINISH_THREADS, smem_bytes, stream>>>(
+      G, eps, pv, close, ynear, dg, gt, ns, Ht, nh, ty, jitter, jitter_rel, beta,
+      var_zero, rel_floor);
   return (int)cudaGetLastError();
 }
 
@@ -535,11 +856,12 @@ cudaError_t launch_blocks(const HallPoints& p, cudaStream_t stream) {
 // Rh, Rh), yh (no, ns, Rh), eps (no, ns, Ht), Linv (no, Rr, Rr), w_r (no,
 // Rr), pv (no, Ht), close/ynear (no, ns, Ht) or null; dg (no, ns, Ht).
 // Workspace (float32, no * ns * (Rr*nh + Ht*Rr + nh*nh + Ht*nh + Ht*Ht + nh
-// + Ht), plus no * ns * tile_floats when global_tiles): C, V_r', S, B's
+// + Ht), plus no * ns * tile_floats when panel_tiles > 0): C, V_r', S, B's
 // first Ht rows, Ktt - V_r'V_r, B's last row yh - w_r C and the real-data
 // mean V_r'w_r, per (output, sample), then the factor's tiles when they do
-// not fit shared memory (tile_floats each; smem_bytes then holds only the
-// three rows).
+// not fit shared memory (tile_floats each; panel_tiles, 1 or 2, the global
+// branch's panel width in tiles; smem_bytes then holds only the three
+// rows).
 extern "C" int gp_hall_sample(const float* Kxr, const float* Kxh, const float* Ktt,
                               const float* Arh, const float* Ahh, const float* yh,
                               const float* eps, const float* Linv, const float* w_r,
@@ -547,10 +869,10 @@ extern "C" int gp_hall_sample(const float* Kxr, const float* Kxh, const float* K
                               float* dg, float* work, int no, int ns, int Ht, int Rr,
                               int Rh, int nh, int ty, float jitter, float jitter_rel,
                               float beta, float var_zero, float rel_floor,
-                              int smem_bytes, int global_tiles, void* stream) {
+                              int smem_bytes, int panel_tiles, void* stream) {
   return launch_stage(Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r, pv, close, ynear, dg,
                       work, no, ns, Ht, Rr, Rh, nh, ty, jitter, jitter_rel, beta,
-                      var_zero, rel_floor, smem_bytes, global_tiles,
+                      var_zero, rel_floor, smem_bytes, panel_tiles,
                       (cudaStream_t)stream);
 }
 
@@ -583,7 +905,7 @@ extern "C" int gp_hall_points(const float* real_Z, const float* m_r, const float
                               const float* ynear, float* dg, float* work, int no, int ns,
                               int N, int Mh, int H, int D, int ty, int hn, float jitter,
                               float jitter_rel, float beta, float var_zero,
-                              float rel_floor, int smem_bytes, int global_tiles,
+                              float rel_floor, int smem_bytes, int panel_tiles,
                               void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   const HallPoints p = hall_points(real_Z, m_r, hall_Z, hall_Y, Xt, eps, ls, os, noise,
@@ -594,5 +916,5 @@ extern "C" int gp_hall_points(const float* real_Z, const float* m_r, const float
   return launch_stage(p.Kxr, p.Kxh, p.Ktt, p.Arh, p.Ahh, p.yh, p.eps_o, Linv, w_r, p.pv,
                       close, ynear, dg, p.pv + (size_t)no * Ht, no, ns, Ht, N * ty, nh,
                       nh, ty, jitter, jitter_rel, beta, var_zero, rel_floor,
-                      smem_bytes, global_tiles, stream);
+                      smem_bytes, panel_tiles, stream);
 }

@@ -298,17 +298,17 @@ def idle_by_span(events) -> dict:
     return dict(idle)
 
 
-def count(table: dict, name: str, tally: bool = True) -> None:
-    """One event ``name`` (a kernel launch, a QP route, a host read):
+def count(table: dict, name: str, tally: bool = True, n: int = 1) -> None:
+    """``n`` events ``name`` (a kernel launch, a QP route, a host read):
     added to ``table`` under a lock (the blocked solve launches from one
     thread per block) and, with ``tally``, to the calling thread's
     :func:`thread_tally`, a (kernel, build) launch under its kernel."""
     with _COUNT_LOCK:
-        table[name] += 1
+        table[name] += n
     mine = getattr(_TALLY, "counts", None)
     if tally and mine is not None:
         key = name[0] if isinstance(name, tuple) else name
-        mine[key] = mine.get(key, 0) + 1
+        mine[key] = mine.get(key, 0) + n
 
 
 @contextlib.contextmanager

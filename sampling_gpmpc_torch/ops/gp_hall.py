@@ -75,8 +75,12 @@ from sampling_gpmpc_torch.ops.gp_sample import (JITTER_REL, PANEL,
 # gp_hall: the stage's launch set (either entry); gp_hall_blocks: the
 # blocks kernel (sample_hall_points, hall_blocks); gp_hall_global: the launch
 # sets whose factor keeps its tiles in the global workspace
-# (factor_tiles_global)
-LAUNCHES = {"gp_hall": 0, "gp_hall_blocks": 0, "gp_hall_global": 0}
+# (factor_tiles_global); gp_hall_panels: their panel steps (hall_panels)
+LAUNCHES = {"gp_hall": 0, "gp_hall_blocks": 0, "gp_hall_global": 0,
+            "gp_hall_panels": 0}
+# 32-column tiles a panel step of the global-tile factor eliminates
+# (csrc/gp_hall.cu gp_hall_panel_kernel, gp_hall_update_kernel)
+GLOBAL_PANEL_TILES = 2
 MAX_D = 8           # GP input dimensions of csrc/gp_hall.cu's blocks kernel
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of csrc/gp_hall.cu's C entries
@@ -109,6 +113,34 @@ def factor_tiles_global(Ht: int, nh: int) -> bool:
     workspace region per (output, sample) where they do not fit one CTA's
     shared memory, in shared memory otherwise (every fill of the car)."""
     return factor_smem_bytes(Ht, nh) > build.SMEM_MAX
+
+
+def hall_panels(Ht: int, nh: int) -> int:
+    """Panel steps (two launches each) of the global-tile factor at fill
+    nh, from the shapes: the hall columns' tiles in panels of
+    ``GLOBAL_PANEL_TILES``; 0 on the shared-memory branch."""
+    if not factor_tiles_global(Ht, nh):
+        return 0
+    tiles = -(-nh // PANEL)
+    return -(-tiles // GLOBAL_PANEL_TILES)
+
+
+def _factor_args(Ht: int, nh: int):
+    """(shared-memory bytes, panel tiles) of the factor's launches: the
+    tiles and the three rows with panel tiles 0 (shared-memory branch), or
+    the three rows alone and ``GLOBAL_PANEL_TILES`` (global-tile branch)."""
+    if factor_tiles_global(Ht, nh):
+        return 4 * 3 * Ht, GLOBAL_PANEL_TILES
+    return factor_smem_bytes(Ht, nh), 0
+
+
+def _count_stage(Ht: int, nh: int) -> None:
+    """One launch set on the counters, with its branch and panel steps."""
+    obs.count(LAUNCHES, "gp_hall")
+    if factor_tiles_global(Ht, nh):
+        obs.count(LAUNCHES, "gp_hall_global", tally=False)
+        obs.count(LAUNCHES, "gp_hall_panels", tally=False,
+                  n=hall_panels(Ht, nh))
 
 
 def workspace_floats(nb: int, Ht: int, Rr: int, nh: int) -> int:
@@ -374,9 +406,7 @@ def sample_hall(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
     dg = torch.empty((no, ns, Ht), dtype=torch.float32, device=dev)
     work = torch.empty((max(workspace_floats(no * ns, Ht, Rr, nh), 1),),
                        dtype=torch.float32, device=dev)
-    glob = factor_tiles_global(Ht, nh)
-    # on the global-tile branch shared memory holds the three rows only
-    smem = 4 * 3 * Ht if glob else factor_smem_bytes(Ht, nh)
+    smem, panel_tiles = _factor_args(Ht, nh)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         rc = fn(Kxr.data_ptr(), Kxh.data_ptr(), Ktt.data_ptr(),
@@ -385,12 +415,10 @@ def sample_hall(nh: int, Kxr, Kxh, Ktt, Arh, Ahh, yh, eps, Linv, w_r,
                 ptr(close), ptr(ynear), dg.data_ptr(), work.data_ptr(), no,
                 ns, Ht, Rr, Rh, nh, int(ty), float(jitter), JITTER_REL,
                 float(beta),
-                float(var_zero), float(rel_floor), smem, int(glob),
+                float(var_zero), float(rel_floor), smem, panel_tiles,
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "gp_hall_sample launch")
-    obs.count(LAUNCHES, "gp_hall")
-    if glob:
-        obs.count(LAUNCHES, "gp_hall_global", tally=False)
+    _count_stage(Ht, nh)
     return dg
 
 
@@ -460,19 +488,16 @@ def sample_hall_points(nh: int, real_Z, m_r, hall_Z, hall_Y, Xt, eps,
     work = torch.empty((blocks_floats(no, ns, Ht, Rr, nh)
                         + workspace_floats(no * ns, Ht, Rr, nh),),
                        dtype=torch.float32, device=dev)
-    glob = factor_tiles_global(Ht, nh)
-    smem = 4 * 3 * Ht if glob else factor_smem_bytes(Ht, nh)
+    smem, panel_tiles = _factor_args(Ht, nh)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         rc = fn(*ptrs, Linv.data_ptr(), w_r.data_ptr(), ptr(close), ptr(ynear),
                 dg.data_ptr(), work.data_ptr(), *dims, float(jitter),
                 JITTER_REL, float(beta), float(var_zero), float(rel_floor), smem,
-                int(glob), torch.cuda.current_stream(dev).cuda_stream)
+                panel_tiles, torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "gp_hall_points launch")
     obs.count(LAUNCHES, "gp_hall_blocks")
-    obs.count(LAUNCHES, "gp_hall")
-    if glob:
-        obs.count(LAUNCHES, "gp_hall_global", tally=False)
+    _count_stage(Ht, nh)
     return dg
 
 

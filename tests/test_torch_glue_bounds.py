@@ -4,7 +4,7 @@ gives each glue launch (``chip_smoke.py::glue_bound`` and
 ``advance_bound``), at the six published shapes of
 ``chip_smoke.GLUE_CONFIGS``; and the hall factor's branch rule
 (``ops/gp_hall.py::factor_tiles_global``), which the ``gp_hall_global``
-launch counter follows, at the car's fills and at ``params_car_samples``'.
+and ``gp_hall_panels`` launch counters follow, at the car's fills and at ``params_car_samples``'.
 """
 
 import dataclasses
@@ -90,6 +90,8 @@ def test_hall_factor_branch_by_shape(Ht, nh, glob):
 
 def test_the_branch_counter_is_a_launch_count():
     from sampling_gpmpc_torch.ops import routes
-    assert "gp_hall_global" in routes.launch_counts()
+    for key in ("gp_hall_global", "gp_hall_panels"):
+        assert key in routes.launch_counts()
     routes.zero_launch_counts()
     assert routes.launch_counts()["gp_hall_global"] == 0
+    assert routes.launch_counts()["gp_hall_panels"] == 0

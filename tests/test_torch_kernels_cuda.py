@@ -236,6 +236,96 @@ def test_gp_hall_pendulum_shape_matches_plain(dev, nh):
     assert err_k <= 4 * err_p + 1e-6 * scale, (err_k, err_p)
 
 
+def _draw64(kw, nh, add, ty, args):
+    """Float64 draws mean + chol(cov + add I) eps through the override tail,
+    with mean and cov from the hall columns' elimination (jitter 1e-6 on
+    S and on cov's rows, taken off cov again)."""
+    t = {k: torch.as_tensor(v, dtype=torch.float64) for k, v in kw.items()}
+    Ht = t["Ktt"].shape[-1]
+    M = gp_hall.bordered_matrix(nh, *(t[k] for k in (
+        "Kxr", "Kxh", "Ktt", "Arh", "Ahh", "yh", "Linv", "w_r",
+        "prior_var")), jitter=1e-6)
+    gp_sample.factor_panels(M, 0, nh, nh + Ht + 1, 32)
+    mean = -M[:, nh + Ht, nh:nh + Ht]
+    cov = M[:, nh:nh + Ht, nh:nh + Ht] - 1e-6 * torch.eye(Ht,
+                                                          dtype=M.dtype)
+    cov = torch.tril(cov) + torch.tril(cov, -1).transpose(1, 2)
+    L = torch.linalg.cholesky(cov + add * torch.eye(Ht, dtype=M.dtype))
+    y = mean + (L @ t["eps"][..., None])[..., 0]
+    return gp_sample.override_tail(
+        mean, y, torch.diagonal(cov, 0, 1, 2), t["prior_var"], args["beta"],
+        args["var_zero"], args["rel_floor"], ty)
+
+
+def test_gp_hall_global_tiles_retry_a_failed_covariance_factor(dev):
+    """The global-tile branch's retry (ns = 4, Ht = 60, Rr = 60, nh = Rh =
+    240: the tiles past shared memory), on covariances whose smallest
+    eigenvalue is -5e-6, with prior variance 0.1 on every row so that the
+    float32 first jitter is the configured 1e-6: the factor fails there and
+    is the factor of cov + 1e-5 I, as in float64.  The draws are those of
+    cov + 1e-5 I: within four times the plain float32 version's distance
+    of the float64 ones (which are them to 1e-9), and within a quarter of
+    the distance between the draws at 1e-5 and at 1e-4; finite, none at
+    the mean."""
+    ns, Ht, ty, Rr, nh = 4, 60, 4, 60, 240
+    assert gp_hall.factor_tiles_global(Ht, nh)
+    kw = dict(_hall_problem(ns, Ht, Rr, nh, nh, seed=37),
+              prior_var=np.full(Ht, 0.1))
+    kw = _indefinite_by(kw, "hall", 5e-6, nh)
+    args = dict(jitter=1e-6, beta=2.5, var_zero=-1.0, rel_floor=1e-5, ty=ty)
+    t = lambda dtype: {k: torch.as_tensor(v, dtype=dtype, device=dev)
+                       .contiguous() for k, v in kw.items()}
+    t32 = t(torch.float32)
+    got = gp_hall.sample_hall_one(nh, **t32, **args)
+    ref = gp_hall.sample_hall_plain(nh, **t32, **args)
+    ex = gp_hall.sample_hall_plain(nh, **t(torch.float64), **args).cpu()
+    mean = gp_hall.sample_hall_one(
+        nh, **dict(t32, eps=torch.zeros_like(t32["eps"])), **args)
+    torch.cuda.synchronize()
+    at5, at4 = (_draw64(kw, nh, add, ty, args) for add in (1e-5, 1e-4))
+    scale = float(ex.abs().max())
+    assert float((ex - at5).abs().max()) <= 1e-9 * scale
+    assert bool(torch.isfinite(got).all()) and not bool((got == mean).any())
+    err_k = float((got.double().cpu() - ex).abs().max())
+    err_p = float((ref.double().cpu() - ex).abs().max())
+    assert err_k <= 4 * err_p + 1e-6 * scale, (err_k, err_p)
+    assert err_k <= 0.25 * float((at4 - at5).abs().max())
+
+
+def test_gp_hall_car_samples_stages_match_plain(dev):
+    """params_car_samples' hall stages (Ht = 400, Rr = 448, 3 outputs x ns
+    = 10, fills 400 / 800 / 1200) through the entry from the points, the
+    factor's hall columns in panel steps over every (output, sample) at
+    once: no farther from the float64 plain version than four times the
+    float32 plain version, as the 2D pendulum's global fills; following
+    eps; each stage's panel steps counted from the shapes."""
+    fills = []
+    for spec, _, _, _, _, kw in _hall_point_stages(
+            dev, "params_car_samples", 10, 4):
+        nh, Ht = kw["nh"], spec.H * spec.Ty
+        assert gp_hall.factor_tiles_global(Ht, nh)
+        routes.zero_launch_counts()
+        got = gp_hall.sample_hall_points(**kw)
+        n = routes.launch_counts()
+        ref = gp_hall.sample_hall_points_plain(**kw)
+        ex = gp_hall.sample_hall_points_plain(
+            **{k: v.double() if torch.is_tensor(v) else v
+               for k, v in kw.items()})
+        mean = gp_hall.sample_hall_points(
+            **dict(kw, eps=torch.zeros_like(kw["eps"])))
+        torch.cuda.synchronize()
+        assert (n["gp_hall_global"], n["gp_hall_panels"]) == (
+            1, gp_hall.hall_panels(Ht, nh))
+        assert bool(torch.isfinite(got).all())
+        scale = float(ex.abs().max())
+        err_k = float((got.double() - ex).abs().max())
+        err_p = float((ref.double() - ex).abs().max())
+        assert err_k <= 4 * err_p + 1e-6 * scale, (nh, err_k, err_p)
+        assert not torch.equal(got, mean)
+        fills.append(nh)
+    assert fills == [400, 800, 1200]
+
+
 @pytest.mark.parametrize("nh", [0, 45, 180])
 def test_gp_hall_stacked_outputs_match_plain(dev, nh):
     """Three outputs at the car shape in one launch set (the agent's call)
@@ -698,9 +788,10 @@ def test_solve_recorded_matches_solve_bitwise(dev):
               else sqp.solve(*args))
         torch.cuda.synchronize()
         # the car's hall factor keeps its tiles in shared memory: no
-        # gp_hall_global launch
+        # gp_hall_global launch set and no gp_hall_panels step
         counts.append({k: v for k, v in routes.launch_counts().items()
-                       if k not in glue.LAUNCHES and k != "gp_hall_global"})
+                       if k not in glue.LAUNCHES
+                       and k not in ("gp_hall_global", "gp_hall_panels")})
         out.append(st)
     a, b = out
     assert a.it == b.it == spec.max_sqp_iter
@@ -1064,6 +1155,7 @@ def test_hall_points_launch_once_per_hall_stage(dev):
     n = routes.launch_counts()
     assert s.it == 4 and n["gp_hall_blocks"] == n["gp_hall"] == 3
     assert n["gp_sample"] == 1 and n["gp_hall_global"] == 0
+    assert n["gp_hall_panels"] == 0
     with routes.plain_route(gp=True, qp=False, glue=False):
         routes.zero_launch_counts()
         s = sqp.solve(spec, env, hyp, ocp, st, X0, U0, gp, eps)
@@ -1075,7 +1167,8 @@ def test_hall_points_launch_once_per_hall_stage(dev):
 def test_hall_global_tiles_counted_at_car_samples(dev):
     """params_car_samples' hall stages (Ht = 400, fills 400 / 800 / 1200)
     take the factor's global-tile branch, each counted once under
-    gp_hall_global; the car's (Ht = 60) never do."""
+    gp_hall_global, and its 7 + 13 + 19 panel steps under gp_hall_panels;
+    the car's (Ht = 60) never do."""
     from sampling_gpmpc_torch.ocp import sqp
     from sampling_gpmpc_torch.parallel.worker import problem
     spec, env, hyp, ocp, gp, X0, U0, st, eps = problem(
@@ -1085,6 +1178,8 @@ def test_hall_global_tiles_counted_at_car_samples(dev):
     torch.cuda.synchronize()
     n = routes.launch_counts()
     assert s.it == 4 and n["gp_hall_global"] == n["gp_hall"] == 3
+    assert n["gp_hall_panels"] == sum(gp_hall.hall_panels(400, nh)
+                                      for nh in (400, 800, 1200)) == 39
     assert n["glue_gram"] == n["glue_condense"] == 4
 
 
