@@ -66,13 +66,13 @@ NUMBERS = ("chain", "gp_gap", "hall_gap", "hall_out", "hall_var_gap",
 TAU = 0.01
 
 
-def _worst(a) -> float:
+def worst(a) -> float:
     """The largest entry, NaN counting as infinitely large."""
     return float(torch.max(torch.nan_to_num(a, nan=float("inf"))))
 
 
-def _rel(a, b):
-    return _worst(torch.abs(a - b) / (1.0 + torch.abs(b)))
+def rel(a, b):
+    return worst(torch.abs(a - b) / (1.0 + torch.abs(b)))
 
 
 def whitened(dev, dev_ref, cov, prior_std, tau: float = TAU):
@@ -127,18 +127,18 @@ def compare_step(m: mpc.Model, rec) -> dict:
         rows = slice(i * HH, (i + 1) * HH)
         if i == 0:
             Xt = mpc.gp_inputs(m, X_in, U_in)
-            in_gap = max(in_gap, _rel(hall_Z[:, 0, rows], Xt))
+            in_gap = max(in_gap, rel(hall_Z[:, 0, rows], Xt))
         else:
             Xt = hall_Z[:, 0, rows]
         if i == it - 1:
-            in_gap = max(in_gap, _rel(hall_Z[:, 0, rows],
+            in_gap = max(in_gap, rel(hall_Z[:, 0, rows],
                                       mpc.gp_inputs(m, X_prev, U_prev)))
         g = mpc.with_hall(m.gp0, hall_Z, hall_Y, i * HH)
         dg_ref, mean, std, cov = mpc.gp_stage(m, g, Xt, eps[i],
                                               moments=True)
         dg = hall_Y[:, :, rows]
-        gap = _worst(torch.abs(dg - dg_ref) / prior_std)
-        out = _worst(torch.clamp(torch.abs(dg - mean) - m.spec.beta * std,
+        gap = worst(torch.abs(dg - dg_ref) / prior_std)
+        out = worst(torch.clamp(torch.abs(dg - mean) - m.spec.beta * std,
                                  min=0.0) / prior_std)
         if i == 0:
             gp_gap = max(gp_gap, gap)
@@ -151,8 +151,8 @@ def compare_step(m: mpc.Model, rec) -> dict:
     z, z_ref = (torch.cat(zs), torch.cat(zs_ref)) if zs else (None, None)
     if zs and z_ref.numel():
         zz, rr = torch.sum(z * z), torch.sum(z_ref * z_ref)
-        hall_var = _worst(torch.abs(zz / rr - 1.0))
-        hall_corr = _worst(1.0 - torch.sum(z * z_ref)
+        hall_var = worst(torch.abs(zz / rr - 1.0))
+        hall_corr = worst(1.0 - torch.sum(z * z_ref)
                            / torch.sqrt(zz * rr))
 
     # linearization, condensing and the QP of the last iteration
@@ -161,7 +161,7 @@ def compare_step(m: mpc.Model, rec) -> dict:
     dU = (U - U_prev).reshape(-1)
     dX = alpha * T + torch.einsum("ikau,u->ika", Gamma, dU)
     X_pred = X_prev + dX.transpose(0, 1)
-    plan_gap = max(_rel(X, X_pred), in_gap)
+    plan_gap = max(rel(X, X_pred), in_gap)
     problem = mpc.assemble(m, T, Gamma, X_prev, U_prev)
     du_ref, status_ref, _ = qp.solve(problem)
     f_ref = float(qp.objective(problem, du_ref))
@@ -177,7 +177,7 @@ def compare_step(m: mpc.Model, rec) -> dict:
 
     # the plant
     x_ref = m.plant.step(X[0, 0], mpc.applied_input(m, X, U))
-    plant_gap = _rel(t(o.x_next), x_ref)
+    plant_gap = rel(t(o.x_next), x_ref)
     return {"chain": chain, "gp_gap": gp_gap, "hall_gap": hall_gap,
             "hall_out": hall_out, "hall_var_gap": hall_var,
             "hall_corr_gap": hall_corr,
@@ -192,11 +192,11 @@ def compare(config_path: str, records, device) -> dict:
     """The largest of each number over the kept steps and how many were
     compared: {"compared": n, name: value}."""
     m = mpc.Model.from_file(config_path, device, torch.float64)
-    worst = {k: 0.0 for k in NUMBERS}
+    most = {k: 0.0 for k in NUMBERS}
     for rec in records:
         for k, v in compare_step(m, rec).items():
-            worst[k] = max(worst[k], float("inf") if v != v else v)
-    return {"compared": len(records), **worst}
+            most[k] = max(most[k], float("inf") if v != v else v)
+    return {"compared": len(records), **most}
 
 
 def verdict(readings: dict, limits: dict):

@@ -6,12 +6,14 @@
 
 On the card, at the cell's own sizes and load: first the program's check
 numbers on each program seed (set up once, a window of ``--seconds``
-each), then the control's: the reference (``perfbench/reference``) put in
-the program's place in float32 with TF32 matrix products on, the nearest
-precision below the configuration's float32 with TF32 off; then the
-program with each fault of ``perfbench/faults.py`` planted, on each fault
-seed.  Prints one JSON line per seed (``side``, ``seed``, ``correct``,
-the readings) and writes them to
+each, in the configuration's precision), then the control's (the kind's
+``control``: for the MPC step the reference, ``perfbench/reference``, put
+in the program's place in float32, here with TF32 matrix products on, the
+nearest precision below the configuration's float32 with TF32 off); then
+the program with each fault of the cell's kind (``FAULTS`` of
+``perfbench/kinds/<kind>.py``; the MPC step's are ``perfbench/faults.py``)
+planted, on each fault seed.  Prints one JSON line per seed (``side``,
+``seed``, ``correct``, the readings) and writes them to
 ``perfbench_out/<workload>/control.json``.
 """
 
@@ -26,24 +28,26 @@ import time
 import torch
 
 from perfbench import cell as cells
-from perfbench import faults, session, systems
+from perfbench import faults, session
 from perfbench.run import ROOT, log
 
 
 def readings(c, side: str, seeds, seconds: float, device, out_dir: str):
     """The check numbers of ``side`` ("program", "control" or
     "fault:<name>") on each seed, one set-up for all."""
+    dtype = getattr(torch, c.precision)
     if side == "control":
-        system = systems.Reference(c.config_path, device, torch.float32)
+        system = c.kind.control(c.config_path, device)
     else:
-        system = systems.Program(c.config_path, device, torch.float32)
+        system = c.kind.Program(c.config_path, device, dtype)
     if side.startswith("fault:"):
-        with faults.planted(side.split(":", 1)[1], system):
-            return _rows(c, side, system, seeds, seconds, device, out_dir)
-    return _rows(c, side, system, seeds, seconds, device, out_dir)
+        with faults.planted(side.split(":", 1)[1], system, c.kind.FAULTS):
+            return _rows(c, side, system, seeds, seconds, device, out_dir,
+                         dtype)
+    return _rows(c, side, system, seeds, seconds, device, out_dir, dtype)
 
 
-def _rows(c, side, system, seeds, seconds, device, out_dir):
+def _rows(c, side, system, seeds, seconds, device, out_dir, dtype):
     rows = []
     for seed in seeds:
         tf32 = side == "control"
@@ -52,7 +56,7 @@ def _rows(c, side, system, seeds, seconds, device, out_dir):
         try:
             res = session.run(c, seed, seconds, False, device,
                               time.perf_counter(), out_dir, log,
-                              make_system=lambda *a: system)
+                              make_system=lambda *a: system, dtype=dtype)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False

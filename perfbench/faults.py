@@ -32,7 +32,7 @@ import torch
 QP_STOP_ITERS = 4
 
 
-def _patch(obj, name: str, value):
+def patch(obj, name: str, value):
     """Set ``obj.name``; returns the undo."""
     had = name in vars(obj)
     old = vars(obj).get(name)
@@ -52,7 +52,7 @@ def unchanged(system):
     def solve(spec, env, hyp, ocp, x, X, U, gp, eps, qp_ws, qp_valid):
         s = sqp._initial_state(spec, X, U, gp, qp_ws, qp_valid)
         return s._replace(gp=gp, it=1)
-    return _patch(system, "solve", solve)
+    return patch(system, "solve", solve)
 
 
 def _sample_dynamics(change_dg=None, change_eps=None, forget=False):
@@ -72,7 +72,7 @@ def _sample_dynamics(change_dg=None, change_eps=None, forget=False):
         dg, _ = orig(spec, env, hyp, gp, Xt, eps, hall_empty, group)
         dg = change_dg(spec, dg)
         return dg, agent.append_hall(spec, hyp, gp, Xt, dg)
-    return _patch(agent, "sample_dynamics", sample_dynamics)
+    return patch(agent, "sample_dynamics", sample_dynamics)
 
 
 def half_batch(system):
@@ -105,7 +105,7 @@ def answer(system):
     def solve(*a):
         st = orig(*a)
         return st._replace(U=torch.cat([st.U[:1] + 0.05, st.U[1:]]))
-    return _patch(system, "solve", solve)
+    return patch(system, "solve", solve)
 
 
 def next_state(system):
@@ -117,7 +117,7 @@ def next_state(system):
         x = out.x_next + 1e-3
         return (systems.Carry(x, nxt.X, nxt.U, nxt.gp, nxt.qp_ws,
                               nxt.qp_valid), out._replace(x_next=x))
-    return _patch(system, "step", step)
+    return patch(system, "step", step)
 
 
 def qp_stop(system):
@@ -127,7 +127,7 @@ def qp_stop(system):
     def solve_qp_soft(*a, **kw):
         sol = orig(*a, **{**kw, "max_iter": QP_STOP_ITERS})
         return sol._replace(status=torch.zeros_like(sol.status))
-    return _patch(sqp, "solve_qp_soft", solve_qp_soft)
+    return patch(sqp, "solve_qp_soft", solve_qp_soft)
 
 
 FAULTS = {f.__name__: f for f in (unchanged, half_batch, answer, next_state,
@@ -136,9 +136,10 @@ FAULTS = {f.__name__: f for f in (unchanged, half_batch, answer, next_state,
 
 
 @contextlib.contextmanager
-def planted(name: str, system):
-    """Within the block, ``system``'s steps run with the fault ``name``."""
-    undo = FAULTS[name](system)
+def planted(name: str, system, table=FAULTS):
+    """Within the block, ``system``'s steps run with the fault ``name`` of
+    ``table`` (the MPC step's faults unless a kind gives its own)."""
+    undo = table[name](system)
     try:
         yield system
     finally:

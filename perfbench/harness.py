@@ -2,10 +2,11 @@
 steps kept for the correctness check.
 
 The loop runs episodes of the cell's traffic mix (traffic.py) on a system
-of systems.py.  Each step is timed on the host clock from before the solve
-to after ``torch.cuda.synchronize()``; a step whose QP status is not 0 or
-whose state or plan is not finite counts as failed and its episode starts
-again.  The window closes after the step that reaches ``seconds``.
+of the mix's kind of step (perfbench/kinds/).  Each step is timed on the
+host clock from before the step to after ``torch.cuda.synchronize()``; a
+step whose ``ok`` is false (an MPC step: QP status not 0, or a state or
+plan not finite) counts as failed and its episode starts again.  The
+window closes after the step that reaches ``seconds``.
 """
 
 from __future__ import annotations
@@ -39,11 +40,12 @@ class Record:
 
 
 class Loop:
-    """Episodes of a traffic mix on a system, step by step."""
+    """Episodes of a traffic mix on a system of the mix's kind, step by
+    step."""
 
-    def __init__(self, system, mix: traffic.Mix, draws: traffic.Draws,
-                 seed: int):
+    def __init__(self, system, mix: traffic.Mix, draws, seed: int, kind):
         self.system, self.mix, self.draws = system, mix, draws
+        self.seed, self.kind = seed, kind
         self.episode = -1
         self.k = mix.episode_steps
         self.carry = self.prev = None
@@ -61,7 +63,7 @@ class Loop:
         self.prev = None
 
     def step(self):
-        """One MPC step; returns (ok, Out).  Ends on the device sync."""
+        """One step; returns (ok, out).  Ends on the device sync."""
         if self.k >= self.mix.episode_steps:
             self.new_episode()
         c, eps = self.carry, self.eps[self.k]
@@ -73,8 +75,7 @@ class Loop:
             return ok, out
         if self.keep:
             first = self.prev is None
-            make = lambda: Record(first, c.x, c.X, c.U, eps, out,  # noqa
-                                  self.prev)
+            make = lambda: self.kind.record(self, c, eps, out)  # noqa
             (self.kept_first if first and self.kept_first.k else
              self.kept).offer(make)
         self.carry, self.prev = nxt, out
@@ -90,7 +91,7 @@ class Window:
     step_ms: list
     wall_s: float
     failed: int
-    outs: list          # (it, qp_iters) of each successful step
+    outs: list          # the kind's counts of each successful step
 
 
 def run_window(loop: Loop, seconds: float) -> Window:
@@ -105,7 +106,7 @@ def run_window(loop: Loop, seconds: float) -> Window:
         t1 = time.perf_counter()
         step_ms.append(1e3 * (t1 - t0))
         if ok:
-            outs.append((out.it, out.qp_iters))
+            outs.append(loop.kind.counts(out))
         else:
             failed += 1
         if t1 >= t_end:

@@ -1,13 +1,15 @@
 """The problem from a configuration file: sizes, cost, bounds, plant, GP data.
 
 A frozen plain copy of what the measured program derives from the same
-file (its configuration loader, the two plants the benchmark's
-configurations name, the reachable-set tightening and the OCP data), kept
-here so that the reference works everything out again from the file and
-imports nothing of the program.  Only what the benchmark's configurations
-use is kept: the Pendulum1D and bicycle plants, the expected cost, no
-input generation, no dynamics rejection, no sample overrides and no
-minimum data distance; anything else raises.
+file (its configuration loader, the plants the benchmark's configurations
+name, the reachable-set tightening and the OCP data), kept here so that
+the reference works everything out again from the file and imports
+nothing of the program.  Only what the benchmark's configurations use is
+kept: the Pendulum1D, bicycle and residual bicycle (``bicycle_Bdx``, with
+its value-only GP, the forward-sampling rollout's) plants, the expected
+cost, no input generation (a forward-sampling rollout replays a fixed
+plan), no dynamics rejection, no sample overrides and no minimum data
+distance; anything else raises.
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ class Spec:
 
 # GP input filter and jacobian scatter slots of each plant
 PLANTS = {"Pendulum1D": ((0, 2), (0, 1, 3)),
-          "bicycle": ((2, 3, 4), (0, 3, 4, 5))}
+          "bicycle": ((2, 3, 4), (0, 3, 4, 5)),
+          "bicycle_Bdx": ((2, 4), (0, 3, 4, 5))}
 
 
 def load(path: str) -> dict:
@@ -66,19 +69,27 @@ def load(path: str) -> dict:
         return json.load(f)
 
 
-def make_spec(params: dict) -> Spec:
+def make_spec(params: dict, rollout: bool = False) -> Spec:
+    """The sizes and switches of a configuration; with ``rollout``, of a
+    forward-sampling rollout (``fs.py``), which replays a fixed plan, so
+    that the MPC's input generation does not arise, and which takes the
+    value-only GP and the residual bicycle."""
     ag, opt, env = params["agent"], params["optimizer"], params["env"]
     dyn = env["dynamics"]
     if dyn not in PLANTS:
         raise ValueError(f"the reference has no plant {dyn!r}")
     unsupported = {
-        "agent.input_generation": ag.get("input_generation", False),
+        "agent.input_generation": (ag.get("input_generation", False)
+                                   and not rollout),
         "agent.mean_as_dyn_sample": ag.get("mean_as_dyn_sample", False),
         "agent.true_dyn_as_sample": ag.get("true_dyn_as_sample", False),
         "common.dynamics_rejection":
             params["common"].get("dynamics_rejection", False),
-        "env.use_model_without_derivatives":
-            env.get("use_model_without_derivatives", False),
+        # the MPC reference's GP takes derivative tasks and its
+        # linearization no state-dependent B_d: a rollout's alone here
+        "env.use_model_without_derivatives": (
+            env.get("use_model_without_derivatives", False) and not rollout),
+        "env.dynamics bicycle_Bdx": dyn == "bicycle_Bdx" and not rollout,
         "env.train_data_has_derivatives":
             env.get("train_data_has_derivatives", False),
         "optimizer.cost": opt.get("cost", "expected") != "expected",
@@ -91,7 +102,7 @@ def make_spec(params: dict) -> Spec:
     g_ny = ag["g_dim"]["ny"]
     g_nx, g_nu = ag["g_dim"]["nx"], ag["g_dim"]["nu"]
     D = g_nx + g_nu
-    Ty = 1 + D
+    Ty = 1 if env.get("use_model_without_derivatives", False) else 1 + D
     ls = np.asarray(ag["Dyn_gp_lengthscale"]["both"], dtype=np.float64)
     ls = np.broadcast_to(ls.reshape(-1, D)[-g_ny:] if ls.size == g_ny * D
                          else ls.reshape(1, D), (g_ny, D))
@@ -135,6 +146,7 @@ class Plant:
     g_prior: Callable        # (..., D) -> (..., g_ny, 1+D)
     B_d: np.ndarray          # (nx, g_ny)
     train_axes: list         # the training grid's axes
+    v_scaled: bool = False   # B_d(x) = v B_d (the residual bicycle)
 
     def g_inputs(self, xu):
         return xu[..., list(self.spec.g_idx_inputs)]
@@ -142,9 +154,17 @@ class Plant:
     def step(self, x, u):
         """The true plant step."""
         xu = torch.cat([x, u], dim=-1)
+        return self.propagate(x, u, self.g_val(self.g_inputs(xu)))
+
+    def propagate(self, x, u, g):
+        """The known part's step plus B_d(x) g, for GP values g (...,
+        g_ny)."""
+        xu = torch.cat([x, u], dim=-1)
         B = torch.as_tensor(self.B_d, dtype=x.dtype, device=x.device)
-        return (self.f_val_jac(xu)[..., 0]
-                + (B @ self.g_val(self.g_inputs(xu))[..., None])[..., 0])
+        d = (B @ g[..., None])[..., 0]
+        if self.v_scaled:
+            d = x[..., 3, None] * d
+        return self.f_val_jac(xu)[..., 0] + d
 
     def val_jac(self, xu, dg):
         """Known rows plus the sampled GP rows dg (..., g_ny, Ty) scattered
@@ -195,7 +215,9 @@ def _pendulum1d(spec: Spec, params: dict) -> Plant:
     return Plant(spec, f_val_jac, g_val, g_prior, B, axes)
 
 
-def _bicycle(spec: Spec, params: dict) -> Plant:
+def _bicycle_terms(spec: Spec, params: dict):
+    """(lr, dt, the slip angle's terms, the known part: x, y and phi kept,
+    v + a dt) of the bicycle and the residual bicycle."""
     ep = params["env"]["params"]
     lf, lr, dt = float(ep["lf"]), float(ep["lr"]), spec.dt
     nx, nu = spec.nx, spec.nu
@@ -213,6 +235,12 @@ def _bicycle(spec: Spec, params: dict) -> Plant:
             out[..., r, 1 + r] = 1.0
         out[..., 3, 6] = dt
         return out
+    return lr, dt, beta_terms, f_val_jac
+
+
+def _bicycle(spec: Spec, params: dict) -> Plant:
+    nx = spec.nx
+    lr, dt, beta_terms, f_val_jac = _bicycle_terms(spec, params)
 
     def g_val(z):
         phi, v, delta = z[..., 0], z[..., 1], z[..., 2]
@@ -247,9 +275,38 @@ def _bicycle(spec: Spec, params: dict) -> Plant:
     return Plant(spec, f_val_jac, g_val, g_prior, np.eye(nx, spec.g_ny), axes)
 
 
+def _bicycle_bdx(spec: Spec, params: dict) -> Plant:
+    """The residual bicycle: g(phi, delta) = [cos(phi + b) dt, sin(phi +
+    b) dt, sin(b) dt / lr], without v, and B_d(x) = v I; trained on the
+    plain endpoint grid of (phi, delta)."""
+    lr, dt, beta_terms, f_val_jac = _bicycle_terms(spec, params)
+
+    def g_val(z):
+        b, _ = beta_terms(z[..., 1])
+        return torch.stack([torch.cos(z[..., 0] + b) * dt,
+                            torch.sin(z[..., 0] + b) * dt,
+                            torch.sin(b) * dt / lr], dim=-1)
+
+    def g_prior(z):
+        phi, delta = z[..., 0], z[..., 1]
+        b, term = beta_terms(delta)
+        c, s = torch.cos(phi + b), torch.sin(phi + b)
+        return torch.stack([
+            torch.stack([c * dt, -s * dt, -s * dt * term], dim=-1),
+            torch.stack([s * dt, c * dt, c * dt * term], dim=-1),
+            torch.stack([torch.sin(b) * dt / lr, 0 * phi,
+                         torch.cos(b) * dt * term / lr], dim=-1)], dim=-2)
+
+    opt, env = params["optimizer"], params["env"]
+    axes = [np.linspace(opt["x_min"][2], opt["x_max"][2], env["n_data_x"]),
+            np.linspace(opt["u_min"][0], opt["u_max"][0], env["n_data_u"])]
+    return Plant(spec, f_val_jac, g_val, g_prior, np.eye(spec.nx, spec.g_ny),
+                 axes, v_scaled=True)
+
+
 def make_plant(spec: Spec, params: dict) -> Plant:
-    return {"Pendulum1D": _pendulum1d, "bicycle": _bicycle}[spec.env_name](
-        spec, params)
+    return {"Pendulum1D": _pendulum1d, "bicycle": _bicycle,
+            "bicycle_Bdx": _bicycle_bdx}[spec.env_name](spec, params)
 
 
 # --------------------------------------------------------------------------

@@ -6,11 +6,12 @@
 From the root of a checkout on a machine with the NVIDIA GPUs the cell
 asks for.  Set-up (imports, CUDA context, the configuration's problem,
 the CUDA libraries, the draws, the warm-up episodes) counts from the start
-of this module to the first timed step.  Then the window runs for
-``--seconds``; with ``--trace 1`` the cell's ``trace_steps`` follow under
-``torch.profiler``.  Then the kept steps are compared with the float64
-reference (check.py).  Progress, the card, the host and each step's
-latency against the configuration's ``dt`` go to standard error and to
+of this module to the first timed step; the run's record gets each part.
+Then the window runs for ``--seconds``; with ``--trace 1`` the cell's
+``trace_steps`` follow under ``torch.profiler``.  Then the kept steps are
+compared with the float64 reference (the kind's check; the MPC step's is
+check.py).  Progress, the card, the host and each step's latency against
+the configuration's ``dt`` go to standard error and to
 ``perfbench_out/<workload>/`` in the checkout; the last line of standard
 output is one JSON object.  Exits non-zero, with no result, without CUDA
 or enough GPUs, or if JAX or the JAX package was loaded.
@@ -107,11 +108,17 @@ def main(argv=None) -> int:
             "; no result")
         return 2
     from perfbench import session
+    t_imports = time.perf_counter()
+    torch.cuda.synchronize()          # creates the CUDA context
+    parts = {"imports": t_imports - T0,
+             "cuda_context": time.perf_counter() - t_imports}
     try:
         res = session.run(c, args.seed, args.seconds, bool(args.trace),
                           "cuda", T0, os.path.join(ROOT, "perfbench_out",
                                                    c.name), log,
-                          card_state=card_state, host_state=host_state)
+                          dtype=getattr(torch, c.precision),
+                          card_state=card_state, host_state=host_state,
+                          setup_parts=parts)
     except session.NothingToRead as e:
         log(f"{e}; no result")
         return 4

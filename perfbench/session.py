@@ -1,6 +1,7 @@
 """The body of one run: set-up, warm-up, window, traced steps, check, and
-the result line's fields.  ``run.py`` calls it on the card; the tests call
-it on the CPU with a system of their own."""
+the result line's fields, for a step of the cell's kind (perfbench/kinds/).
+``run.py`` calls it on the card; the tests call it on the CPU with a system
+of their own."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import time
 
 import torch
 
-from perfbench import check, harness, systems, trace, traffic
+from perfbench import check, harness, trace
 
 
 class NothingToRead(RuntimeError):
@@ -22,8 +23,9 @@ class NothingToRead(RuntimeError):
 class Context:
     """What a metric's reader reads (perfbench/metrics/__init__.py)."""
     summary: object        # trace.Summary of the traced steps, or None
-    sizes: dict            # the configuration's sizes (systems.Program)
-    traced: list           # (SQP iterations, QP iterations) a traced step
+    sizes: dict            # the configuration's sizes (the kind's Program)
+    traced: list           # the kind's counts a traced step (MPC: SQP
+                           # iterations, QP iterations)
     window: list           # the same, each successful window step
     step_ms: list          # every window step's host-clock latency
     window_s: float        # the window's wall time
@@ -35,7 +37,7 @@ class Context:
 
 
 def _ints(outs):
-    return [(int(it), int(q)) for it, q in outs]
+    return [tuple(int(v) for v in o) for o in outs]
 
 
 def _traced_steps(loop, n: int, device):
@@ -52,33 +54,52 @@ def _traced_steps(loop, n: int, device):
             with record_function(trace.STEP):
                 ok, out = loop.step()
             if ok:
-                outs.append((out.it, out.qp_iters))
+                outs.append(loop.kind.counts(out))
     return trace.reduce(trace.events_from_profiler(prof)), outs
 
 
 def run(c, seed: int, seconds: float, traced: bool, device, t0: float,
         out_dir: str, log, make_system=None, dtype=torch.float32,
-        card_state=lambda: {}, host_state=lambda: {}) -> dict:
+        card_state=lambda: {}, host_state=lambda: {},
+        setup_parts=None) -> dict:
     """One run of cell ``c``; returns the result line as a dict, its
     ``checks`` last, ``build_s`` the part of ``setup_s`` that built or
     loaded the CUDA libraries (the nvcc build on a checkout's first run).
-    Raises NothingToRead where a metric of the cell reads nothing."""
+    ``setup_parts``: seconds of the set-up before this call, by part
+    (``run.py``: imports, CUDA context); the run's record under
+    ``out_dir`` gets them with this call's parts (problem, build/load,
+    draws, warm-up).  Raises NothingToRead where a metric of the cell
+    reads nothing."""
     device = torch.device(device)
-    system = (make_system or systems.Program)(c.config_path, device, dtype)
+    parts = dict(setup_parts or {})
+    mark = time.perf_counter()
+
+    def part(name):
+        nonlocal mark
+        harness.sync(device)
+        now = time.perf_counter()
+        parts[name] = now - mark
+        mark = now
+
+    system = (make_system or c.kind.Program)(c.config_path, device, dtype)
+    part("problem")
     log(f"{c.name}: libraries {system.libraries}, sizes {system.sizes}")
-    t_build = time.perf_counter()
     system.build()
-    build_s = time.perf_counter() - t_build
+    part("build_load")
+    build_s = parts["build_load"]
     log(f"build/load {build_s:.1f} s")
-    draws = traffic.Draws(c.mix, system.sizes, seed, device, dtype)
-    loop = harness.Loop(system, c.mix, draws, seed)
+    draws = c.kind.Draws(c.mix, system.sizes, seed, device, dtype)
+    part("draws")
+    loop = harness.Loop(system, c.mix, draws, seed, c.kind)
     for _ in range(c.mix.warmup_episodes):
         harness.warm_up(loop, c.mix.episode_steps)
-    harness.sync(device)
+    part("warm_up")
     launches0 = dict(system.launch_counts())
     card0, host0 = card_state(), host_state()
     setup_s = time.perf_counter() - t0
-    log(f"set-up {setup_s:.3f} s; window of {seconds} s")
+    parts["other"] = setup_s - sum(parts.values())
+    shares = ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+    log(f"set-up {setup_s:.3f} s ({shares}); window of {seconds} s")
 
     w = harness.run_window(loop, seconds)
     card1, host1 = card_state(), host_state()
@@ -93,16 +114,18 @@ def run(c, seed: int, seconds: float, traced: bool, device, t0: float,
     ctx = Context(summary, dict(system.sizes), _ints(traced_outs),
                   _ints(w.outs), w.step_ms, w.wall_s, setup_s)
     records = loop.records()
-    dt_ms = 1e3 * system.sizes["dt"]
-    over_dt = sum(ms > dt_ms for ms in w.step_ms)
+    dt_ms = over_dt = None
+    if "dt" in system.sizes:        # a control period: the MPC step's
+        dt_ms = 1e3 * system.sizes["dt"]
+        over_dt = sum(ms > dt_ms for ms in w.step_ms)
     log(f"window: {len(w.step_ms)} steps in {w.wall_s:.3f} s, {w.failed} "
-        f"failed, {over_dt} over dt = {dt_ms:g} ms; {len(records)} kept")
+        f"failed, {over_dt} over dt = {dt_ms} ms; {len(records)} kept")
     del loop, draws, system
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
     t_check = time.perf_counter()
-    readings = check.compare(c.config_path, records, device)
+    readings = c.kind.compare(c, records, device, seed)
     correct, checks = check.verdict(readings, c.limits)
     log(f"check {time.perf_counter() - t_check:.1f} s: correct={correct}")
 
@@ -136,7 +159,8 @@ def run(c, seed: int, seconds: float, traced: bool, device, t0: float,
         json.dump({"workload": c.name, "seed": seed, "seconds": seconds,
                    "card_before": card0, "card_after": card1,
                    "host_before": host0, "host_after": host1,
-                   "setup_s": setup_s, "dt_ms": dt_ms, "over_dt": over_dt,
+                   "setup_s": setup_s, "setup_parts": parts,
+                   "dt_ms": dt_ms, "over_dt": over_dt,
                    "step_ms": w.step_ms, "launches": launches,
                    "readings": readings, "result": res}, f)
     return res

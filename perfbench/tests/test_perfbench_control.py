@@ -5,6 +5,7 @@ the cell's own size and load.  Needs the card."""
 
 import pytest
 
+from conftest import fs_root
 from perfbench import cell, control
 
 
@@ -24,3 +25,13 @@ def test_program_is_correct_beside_it(cuda, tmp_path):
     rows = control.readings(c, "program", [2 ** 31 + 78], 3.0, "cuda",
                             str(tmp_path))
     assert rows and all(r["correct"] for r in rows)
+
+
+@pytest.mark.cuda
+def test_rollout_control_is_not_correct(cuda, tmp_path):
+    """The rollout's control, the program's own float32 path, at the
+    cell's own size (the program runs in float64, the configuration's)."""
+    c = cell.load("car_residual_fs.rollouts", fs_root(tmp_path))
+    rows = control.readings(c, "control", [2 ** 31 + 79], 3.0, "cuda",
+                            str(tmp_path))
+    assert rows and not any(r["correct"] for r in rows)

@@ -7,7 +7,7 @@ import subprocess
 import sys
 import textwrap
 
-from conftest import ROOT
+from conftest import ROOT, fs_root
 
 
 def loaded_after(code: str) -> set:
@@ -42,14 +42,42 @@ def test_a_run_loads_no_jax():
     assert not names & {"jax", "jaxlib", "flax", "sampling_gpmpc_tpu"}
 
 
+def test_a_rollout_run_loads_no_jax(tmp_path):
+    config = tmp_path / "fs.json"
+    names = loaded_after(f"""
+        import dataclasses, json, time, torch
+        from perfbench import cell, run, session
+        c = cell.load("car_residual_fs.rollouts", "{fs_root(tmp_path)}")
+        p = json.load(open(c.config_path))
+        p["agent"]["num_dyn_samples"] = 4
+        p["common"]["num_MPC_itrs"] = 2
+        json.dump(p, open("{config}", "w"))
+        c.config_path = "{config}"
+        c.mix = dataclasses.replace(c.mix, pool_episodes=1,
+                                    warmup_episodes=0,
+                                    extra={{"compare_realizations": 2}})
+        session.run(c, 3, 0.1, False, "cpu", time.perf_counter(),
+                    "{tmp_path}", lambda m: None, dtype=torch.float64)
+        assert run.forbidden_modules() == []
+    """)
+    assert "sampling_gpmpc_torch" in names
+    assert not names & {"jax", "jaxlib", "flax", "sampling_gpmpc_tpu"}
+
+
 def test_the_reference_loads_nothing_of_the_program():
     names = loaded_after("""
         import torch
-        from perfbench import check
-        from perfbench.reference import gp, mpc, problem, qp
+        from perfbench import check, fs_bounds
+        from perfbench.reference import fs, gp, mpc, problem, qp
         m = mpc.Model.from_file("perfbench/configs/car_samples.json", "cpu",
                                 torch.float64)
         X, U = mpc.init_iterate(m)
+        f = fs.Model.from_file("perfbench/configs/car_residual_fs.json",
+                               "cpu", torch.float64)
+        eps = torch.zeros((f.T, 2, f.spec.g_ny, 1, 1), dtype=torch.float64)
+        f.T = 2
+        fs.rollout(f, eps)
+        fs_bounds.rollout_s(dict(ns=2, g_ny=3, R=45, T=2, D=2, nx=4, word=8))
     """)
     assert "perfbench" in names
     assert "sampling_gpmpc_torch" not in names

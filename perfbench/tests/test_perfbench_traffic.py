@@ -55,12 +55,25 @@ def test_reservoir_is_uniform_and_from_the_seed():
     assert min(counts) > 120 and max(counts) < 280     # 200 expected each
 
 
-@pytest.mark.parametrize("name", ["episodes", "cold_solves", "plans"])
+@pytest.mark.parametrize("name", ["episodes", "cold_solves", "plans",
+                                  "car_episodes", "rollouts"])
 def test_mix_files_load(name):
     import os
-    from perfbench.cell import HERE
-    mix = traffic.Mix.load(os.path.join(HERE, "traffic", f"{name}.json"))
+    from perfbench.cell import HERE, kind_module
+    path = os.path.join(HERE, "traffic", f"{name}.json")
+    kind = kind_module(traffic.kind_of(path))
+    mix = traffic.Mix.load(path, getattr(kind, "MIX_KEYS", ()))
     assert mix.compare_steps >= 1 and mix.trace_steps >= 1
+    assert traffic.kind_of(path) == ("rollout" if name == "rollouts"
+                                     else "mpc")
+
+
+def test_a_kinds_own_key_is_required(tmp_path):
+    p = tmp_path / "m.json"
+    p.write_text(json.dumps({**{k: 1 for k in traffic.KEYS},
+                             "kind": "rollout"}))
+    with pytest.raises(ValueError, match="missing"):
+        traffic.Mix.load(str(p), ("compare_realizations",))
 
 
 def test_mix_file_with_unknown_key_is_refused(tmp_path):

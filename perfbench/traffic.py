@@ -15,12 +15,16 @@ A traffic file (``perfbench/traffic/<name>.json``) holds only parameters:
 * ``compare_steps``, ``compare_first_steps``: how many of the window's
   steps the correctness check compares, drawn from the seed: a uniform
   sample of the steps, and one of the episodes' first steps (where
-  ``episode_steps`` > 1).
+  ``episode_steps`` > 1);
+* ``kind`` (optional, ``kind_of``): the kind of step, a file
+  ``perfbench/kinds/<kind>.py`` (cell.kind_module); without it ``mpc``,
+  the MPC step.  A kind may name further whole-number keys of its own
+  (its ``MIX_KEYS``), kept in ``Mix.extra``.
 
-The draws are the truncated normal on [-beta, beta] of the program's
-``agent.make_epistemic`` (inverse CDF of uniforms), made here on the
-device from ``--seed`` in one call, and handed alike to the program and
-to the reference.
+The MPC step's draws (``Draws``) are the truncated normal on [-beta,
+beta] of the program's ``agent.make_epistemic`` (inverse CDF of uniforms),
+made here on the device from ``--seed`` in one call, and handed alike to
+the program and to the reference; another kind shapes its own.
 """
 
 from __future__ import annotations
@@ -43,21 +47,33 @@ class Mix:
     trace_steps: int
     compare_steps: int
     compare_first_steps: int
+    extra: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
-    def load(cls, path: str) -> "Mix":
+    def load(cls, path: str, kind_keys=()) -> "Mix":
+        """The mix of a traffic file whose kind names the further keys
+        ``kind_keys``."""
         with open(path) as f:
             raw = json.load(f)
-        missing = [k for k in KEYS if k not in raw]
-        extra = [k for k in raw if k not in KEYS]
+        keys = KEYS + tuple(kind_keys)
+        missing = [k for k in keys if k not in raw]
+        extra = [k for k in raw if k not in keys and k != "kind"]
         if missing or extra:
             raise ValueError(f"{path}: missing {missing}, unknown {extra}")
-        mix = cls(**{k: int(raw[k]) for k in KEYS})
+        mix = cls(**{k: int(raw[k]) for k in KEYS},
+                  extra={k: int(raw[k]) for k in kind_keys})
         if min(mix.episode_steps, mix.pool_episodes, mix.trace_steps,
                mix.compare_steps) < 1 or min(mix.warmup_episodes,
                                              mix.compare_first_steps) < 0:
             raise ValueError(f"{path}: counts out of range: {raw}")
         return mix
+
+
+def kind_of(path: str) -> str:
+    """The kind of step a traffic file names (``mpc`` where it names
+    none)."""
+    with open(path) as f:
+        return str(json.load(f).get("kind", "mpc"))
 
 
 def seed64(seed: int, salt: int) -> int:
@@ -78,19 +94,24 @@ def truncated_normal(shape, beta: float, generator, device, dtype):
 
 
 class Draws:
-    """The pool of epistemic draws: (pool, episode_steps, max_sqp_iter, ns,
-    g_ny, H, Ty), made once from the seed."""
+    """The pool of epistemic draws of the MPC step: (pool, episode_steps,
+    max_sqp_iter, ns, g_ny, H, Ty), made once from the seed (another kind
+    gives its own ``shape``)."""
 
     def __init__(self, mix: Mix, sizes: dict, seed: int, device, dtype):
-        shape = (mix.pool_episodes, mix.episode_steps, sizes["max_sqp_iter"],
-                 sizes["ns"], sizes["g_ny"], sizes["H"], sizes["Ty"])
         gen = torch.Generator(device=device).manual_seed(seed64(seed, 1))
-        self.pool = truncated_normal(shape, sizes["beta"], gen, device, dtype)
+        self.pool = truncated_normal(self.shape(mix, sizes), sizes["beta"],
+                                     gen, device, dtype)
         self.mix = mix
 
+    @staticmethod
+    def shape(mix: Mix, sizes: dict) -> tuple:
+        return (mix.pool_episodes, mix.episode_steps, sizes["max_sqp_iter"],
+                sizes["ns"], sizes["g_ny"], sizes["H"], sizes["Ty"])
+
     def episode(self, e: int):
-        """The draws of episode e: (episode_steps, max_sqp_iter, ns, g_ny,
-        H, Ty)."""
+        """The draws of episode e, one entry a step (MPC: (episode_steps,
+        max_sqp_iter, ns, g_ny, H, Ty))."""
         return self.pool[e % self.mix.pool_episodes]
 
 
